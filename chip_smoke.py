@@ -13,7 +13,8 @@ package ``repro``) and fails with a non-zero exit on the first problem:
    D = 317,124, with and without noise) and at awkward ones (B = 1, prime
    B and D, D below one block);
 3. times at the main path's shape (CUDA events): kernel, plain version,
-   one PyTorch library call, and the bytes/operations bound;
+   one PyTorch library call, and the bytes/operations bound; also the
+   single-member (K = 1) clipped mean;
 4. the main path at full width: FedAsync (staleness window with K > 1
    cohorts) and FedAvg through ``run_experiment`` with
    ``dp_path="pallas"`` on the paper's default CNN and corpus; kernel
@@ -22,7 +23,23 @@ package ``repro``) and fails with a non-zero exit on the first problem:
    (which the CPU tests hold to the JAX reference);
 6. a bit-identical rerun;
 7. where one full-width cohort's time goes (profiled cohort step, idle
-   share, the fused step's stages).
+   share, the fused step's stages);
+8. [kernels-zoo] the CUDA C++ kernels ``ssd_intra_chunk`` and
+   ``flash_decode`` (built here by ``nvcc`` into ``build/cuda``) against
+   their plain versions, at zamba2-1.2b's shapes and the awkward ones of
+   ``tests/test_kernels.py``, f32 and bf16;
+9. [times-zoo] their times, plain and library times and bounds at
+   zamba2-1.2b's shapes;
+10. [serve] zamba2-1.2b at full width (38 layers, d_model 2048, bf16,
+    random weights from a seed): one prefill of 8 prompts of 2048 tokens,
+    then 64 greedy decode steps; 38 ``ssd_intra_chunk`` and 6 x 64
+    ``flash_decode`` launches;
+11. [serve-small] the reduced config on the card against the CPU plain
+    route, same weights;
+12. [serve-rerun] the full-width serve again: bit-identical logits and
+    tokens;
+13. [serve-breakdown] one profiled prefill and decode step: top device
+    kernels and the device idle share.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -39,6 +56,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, 700 W
 F32_FLOPS = 67e12              # H100 SXM data sheet, f32 outside tensor cores
+BF16_FLOPS = 989e12            # H100 SXM data sheet, dense bf16 tensor cores
 
 MEAN_RTOL, MEAN_ATOL = 1e-5, 1e-6   # 317k-term f32 sums in another order
 NORM_RTOL = 1e-5
@@ -122,6 +140,22 @@ def phase_kernels(dev):
     return errs
 
 
+def _bound(nbytes, flops, peak=F32_FLOPS):
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate of their type."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _in_turns(fns, rounds=2, iters=30):
+    """Time each callable in turns (a, b, ..., a, b, ...); keep the best."""
+    t = {}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            t.setdefault(name, []).append(_time_ms(fn, iters))
+    return {name: min(v) for name, v in t.items()}
+
+
 def _time_ms(fn, iters=30):
     import torch
     for _ in range(3):
@@ -162,12 +196,21 @@ def phase_times(dev, smi):
     t["mean_lib"] = [_time_ms(lambda: torch.bmm(scales.view(k, 1, b), g))]
     best = {key: min(v) for key, v in t.items()}
 
-    def bound(nbytes, flops):
-        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-        return (tb, "bytes") if tb >= tf else (tf, "operations")
+    # the single-member clipped mean (ops.scale_mean, K = 1)
+    one, s1 = flat[:b], scales[:b]
+    t1 = _in_turns({
+        "kernel": lambda: dp_clip.cohort_scale_mean(one, s1, k=1,
+                                                    inv_b=1.0 / b),
+        "plain": lambda: ref.cohort_scale_mean_ref(one, s1, k=1,
+                                                   inv_b=1.0 / b),
+        "library": lambda: torch.mv(one.t(), s1)})
+    b1 = _bound(b * d * 4 + b * 4 + d * 4, 2 * b * d)
+    log(f"[times] {smi}; scale_mean K=1 B={b} D={d}: kernel "
+        f"{t1['kernel']:.4f} ms plain {t1['plain']:.4f} ms library "
+        f"(torch.mv) {t1['library']:.4f} ms bound {b1[0]:.4f} ms ({b1[1]})")
 
-    sq_bound = bound(k * b * d * 4 + k * b * 4, 2 * k * b * d)
-    mean_bound = bound(k * b * d * 4 + k * b * 4 + k * d * 4 + 4 + k * d * 4,
+    sq_bound = _bound(k * b * d * 4 + k * b * 4, 2 * k * b * d)
+    mean_bound = _bound(k * b * d * 4 + k * b * 4 + k * d * 4 + 4 + k * d * 4,
                        2 * k * b * d + 3 * k * d)
     log(f"[times] {smi}; K={k} B={b} D={d}: "
         f"sqnorm kernel {best['sq']:.4f} ms plain {best['sq_plain']:.4f} ms "
@@ -381,6 +424,360 @@ def phase_breakdown(smi):
         log(f"[breakdown] stage {name}: {_time_ms(fn, iters=5):.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# the serving slice: zamba2-1.2b with the ssd_intra_chunk and flash_decode
+# CUDA C++ kernels
+# ---------------------------------------------------------------------------
+
+# zamba2-1.2b at full width: B = 8 prompts of 2048 tokens, 64 decode steps
+SERVE_B, SERVE_S, SERVE_STEPS = 8, 2048, 64
+SSD_FULL = (8, 16, 128, 64, 64, 64)        # (b, c, q, h, p, n) of a prefill
+FLASH_FULL = (8, 2112, 32, 32, 64)         # (B, S, H, Hkv, Dh) of a decode
+# (b, c, q, h, p, n): the full-width shape, then tests/test_kernels.py's
+SSD_SHAPES = [SSD_FULL, (1, 2, 32, 2, 16, 16), (2, 4, 64, 4, 64, 64),
+              (1, 1, 128, 8, 64, 32)]
+# (B, S, H, Hkv, Dh, window, softcap, pos range): the full-width decode,
+# GQA, windows, softcap, S below one tile, ragged S with Dh 256, pos = 0
+FLASH_CASES = [FLASH_FULL + (0, 0.0, (2048, 2112)),
+               (2, 256, 8, 2, 64, 0, 0.0, (128, 256)),
+               (1, 512, 4, 4, 128, 128, 0.0, (256, 512)),
+               (3, 384, 6, 2, 32, 100, 0.0, (192, 384)),
+               (2, 128, 4, 4, 64, 0, 50.0, (64, 128)),
+               (2, 20, 4, 4, 32, 0, 0.0, (0, 20)),
+               (2, 267, 8, 2, 256, 7, 0.0, (0, 267)),
+               (4, 100, 4, 1, 64, 0, 0.0, (0, 1))]
+
+
+def _ssd_inputs(shape, dtype, dev, seed=0):
+    import torch
+    b, c, q, h, p, n = shape
+    gen = torch.Generator(dev).manual_seed(seed)
+    xr = torch.randn((b, c, q, h, p), generator=gen, device=dev).to(dtype)
+    ar = -torch.rand((b, h, c, q), generator=gen, device=dev) * 0.2
+    Br = torch.randn((b, c, q, n), generator=gen, device=dev).to(dtype)
+    Cr = torch.randn((b, c, q, n), generator=gen, device=dev).to(dtype)
+    return xr, ar, Br, Cr
+
+
+def _flash_inputs(case, dtype, dev, seed=0):
+    import torch
+    B, S, H, Hkv, Dh, _, softcap, (lo, hi) = case
+    gen = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn((B, H, Dh), generator=gen, device=dev)
+    q = (q * (4.0 if softcap else 1.0)).to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=gen, device=dev).to(dtype)
+    pos = torch.randint(lo, hi, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return q, k, v, pos
+
+
+def phase_kernels_zoo(dev):
+    """The CUDA C++ kernels vs their plain versions on the card (the
+    tolerances of tests/test_kernels.py); returns the max |kernel - plain|
+    per kernel."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import flash_attn, ref as fref
+    from repro_torch.kernels.ssd_scan import ref as sref, ssd_scan
+    t0 = time.perf_counter()
+    build.library()
+    t_build = time.perf_counter() - t0
+    log(f"[kernels-zoo] nvcc build of kernels/csrc into "
+        f"{build.build_dir().relative_to(ROOT)}: {t_build:.1f} s")
+    for line in build.build_log().splitlines():
+        if "Used" in line or "spill" in line:
+            log(f"[kernels-zoo]   {line.strip()}")
+    errs = {"ssd_intra_chunk": 0.0, "flash_decode": 0.0}
+    for shape in SSD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            xr, ar, Br, Cr = _ssd_inputs(shape, dtype, dev)
+            got = ssd_scan.ssd_intra_chunk(xr, ar, Br, Cr)
+            torch.cuda.synchronize()
+            want = sref.ssd_intra_chunk_ref(xr, ar, Br, Cr)
+            if dtype == torch.float32:
+                ok = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+            else:
+                ok = torch.allclose(got.float(), want, rtol=5e-2,
+                                    atol=1e-2 * float(want.abs().max()))
+            err = float((got.float() - want).abs().max())
+            require(ok, f"ssd_intra_chunk disagrees at {shape} {dtype}: "
+                    f"max |err| {err}")
+            require(torch.equal(got, ssd_scan.ssd_intra_chunk(xr, ar, Br, Cr)),
+                    f"ssd_intra_chunk rerun differs at {shape} {dtype}")
+            errs["ssd_intra_chunk"] = max(errs["ssd_intra_chunk"], err)
+            log(f"[kernels-zoo] ssd_intra_chunk {shape} "
+                f"{str(dtype)[6:]}: max |err| {err:.3e} "
+                f"(max |plain| {float(want.abs().max()):.3e})")
+    for case in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            if case[6] and dtype == torch.bfloat16:
+                continue          # softcap with q x 4 is checked in f32
+            q, k, v, pos = _flash_inputs(case, dtype, dev)
+            kw = dict(window=case[5], softcap=case[6])
+            got = flash_attn.flash_decode(q, k, v, pos, **kw)
+            torch.cuda.synchronize()
+            want = fref.flash_decode_ref(q, k, v, pos, **kw)
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            err = float((got.float() - want.float()).abs().max())
+            require(torch.allclose(got.float(), want.float(), rtol=tol,
+                                   atol=tol),
+                    f"flash_decode disagrees at {case} {dtype}: {err}")
+            require(torch.equal(got, flash_attn.flash_decode(q, k, v, pos,
+                                                             **kw)),
+                    f"flash_decode rerun differs at {case} {dtype}")
+            errs["flash_decode"] = max(errs["flash_decode"], err)
+            log(f"[kernels-zoo] flash_decode {case[:7]} {str(dtype)[6:]}: "
+                f"max |err| {err:.3e}")
+    return errs
+
+
+def phase_times_zoo(dev, smi):
+    """Kernel / plain / library times and bounds at zamba2-1.2b's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import flash_attn, ref as fref
+    from repro_torch.kernels.ssd_scan import ref as sref, ssd_scan
+    out = {}
+    b, c, q, h, p, n = SSD_FULL
+    xr, ar, Br, Cr = _ssd_inputs(SSD_FULL, torch.bfloat16, dev)
+    t = _in_turns({
+        "kernel": lambda: ssd_scan.ssd_intra_chunk(xr, ar, Br, Cr),
+        "plain": lambda: sref.ssd_intra_chunk_ref(xr, ar, Br, Cr)},
+        iters=10)
+    tri = q * (q + 1) // 2                  # causal (i, j) pairs of a chunk
+    nbytes = 2 * xr.numel() * 2 + ar.numel() * 4 + 2 * Br.numel() * 2
+    flops = b * c * tri * 2 * n + b * c * h * tri * 2 * p
+    bd = _bound(nbytes, flops, BF16_FLOPS)
+    out["ssd_intra_chunk"] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                                  library_ms=None, bound_ms=bd[0],
+                                  bound_by=bd[1])
+    log(f"[times-zoo] {smi}; ssd_intra_chunk {SSD_FULL} bf16: kernel "
+        f"{t['kernel']:.4f} ms plain {t['plain']:.4f} ms library none; "
+        f"bound {bd[0]:.4f} ms ({bd[1]}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP)")
+
+    B, S, H, Hkv, Dh = FLASH_FULL
+    q_, k, v, _ = _flash_inputs(FLASH_CASES[0], torch.bfloat16, dev)
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())
+    mask = mask[:, None, None, :]                       # (B, 1, 1, S)
+    qs, ks, vs = q_[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    t = _in_turns({
+        "kernel": lambda: flash_attn.flash_decode(q_, k, v, pos),
+        "plain": lambda: fref.flash_decode_ref(q_, k, v, pos),
+        "library": lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask)})
+    keys = int((pos.long() + 1).clamp(max=S).sum())     # keys the mask admits
+    nbytes = 2 * keys * Hkv * Dh * 2 + 2 * q_.numel() * 2 + B * 4
+    flops = 4 * keys * H * Dh
+    bd = _bound(nbytes, flops, BF16_FLOPS)
+    out["flash_decode"] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                               library_ms=t["library"], bound_ms=bd[0],
+                               bound_by=bd[1])
+    log(f"[times-zoo] {smi}; flash_decode {FLASH_FULL} bf16 pos=S-1: kernel "
+        f"{t['kernel']:.4f} ms plain {t['plain']:.4f} ms library "
+        f"(scaled_dot_product_attention, bool mask) {t['library']:.4f} ms; "
+        f"bound {bd[0]:.4f} ms ({bd[1]}: {nbytes / 1e6:.1f} MB)")
+    return out
+
+
+def _serve(params, cfg, tokens, max_len, steps):
+    """One prefill, then ``steps`` greedy decode steps.  Returns the
+    logits of every step, the generated tokens and the walls (s)."""
+    import torch
+    from repro_torch.models import hybrid
+    B, S = tokens.shape
+    dev = tokens.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    cache = hybrid.init_cache(cfg, B, max_len, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    lg, cache = hybrid.prefill(params, {"tokens": tokens}, cfg, cache)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    logits, toks = [lg], []
+    t0 = time.perf_counter()
+    for t in range(steps):
+        tok = lg.argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok)
+        pos = torch.full((B,), S + t, dtype=torch.int32, device=dev)
+        lg, cache = hybrid.decode_step(params, cache, tok, pos, cfg)
+        logits.append(lg)
+    sync()
+    t_decode = time.perf_counter() - t0
+    return torch.stack(logits), torch.cat(toks, 1), t_prefill, t_decode
+
+
+def _prompts(cfg, batch, seq_len, seed):
+    """(batch, seq_len) int32 prompts of the synthetic token pipeline."""
+    import torch
+    from repro_torch.data.tokens import TokenDataConfig, make_batches
+    data = TokenDataConfig(vocab=cfg.vocab, seq_len=seq_len, seed=seed)
+    return torch.from_numpy(next(make_batches(data, 1, batch))["tokens"])
+
+
+def phase_serve(dev, smi):
+    """zamba2-1.2b at full width: prefill + 64 greedy decode steps."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import hybrid
+    from repro_torch.pytree import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("zamba2-1.2b")
+    t0 = time.perf_counter()
+    params = hybrid.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(l.numel() for l in tree_leaves(params) if l is not None)
+    log(f"[serve] zamba2-1.2b: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {n_params / 1e9:.4f} B params "
+        f"({str(cfg.pdtype)[6:]}), random init "
+        f"{time.perf_counter() - t0:.2f} s")
+    require(n_params > 1.1e9, f"not the full-width model: {n_params}")
+    tokens = _prompts(cfg, SERVE_B, SERVE_S, seed=0).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.reset_launches()
+    flash_attn.reset_launches()
+    logits, toks, t_pf, t_dec = _serve(params, cfg, tokens,
+                                       SERVE_S + SERVE_STEPS, SERVE_STEPS)
+    launches = {"ssd_intra_chunk": ssd_scan.launches(),
+                "flash_decode": flash_attn.launches()}
+    peak = torch.cuda.max_memory_allocated()
+    n_seg = hybrid.segment_plan(cfg)[0]
+    require(launches["ssd_intra_chunk"] == cfg.n_layers,
+            f"ssd_intra_chunk launched {launches['ssd_intra_chunk']} times, "
+            f"expected one per Mamba2 layer ({cfg.n_layers})")
+    require(launches["flash_decode"] == n_seg * SERVE_STEPS,
+            f"flash_decode launched {launches['flash_decode']} times, "
+            f"expected {n_seg} x {SERVE_STEPS}")
+    require(bool(torch.isfinite(logits).all()), "non-finite logits")
+    require(tuple(logits.shape) == (SERVE_STEPS + 1, SERVE_B, cfg.vocab),
+            f"logits shape {tuple(logits.shape)}")
+    log(f"[serve] {smi}; B={SERVE_B} prompt {SERVE_S}: prefill "
+        f"{t_pf * 1e3:.1f} ms wall = {SERVE_B * SERVE_S / t_pf:.0f} prompt "
+        f"tokens/s; decode {SERVE_STEPS} steps {t_dec * 1e3:.1f} ms = "
+        f"{t_dec / SERVE_STEPS * 1e3:.2f} ms/step = "
+        f"{SERVE_B * SERVE_STEPS / t_dec:.1f} generated tokens/s; peak "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    log(f"[serve] first generated tokens of row 0: {toks[0, :12].tolist()}")
+    return params, cfg, tokens, logits, toks, launches
+
+
+def phase_serve_small(dev):
+    """The reduced zamba2 (one segment and one trailing Mamba2 layer, f32)
+    on the card vs the CPU plain route, the same weights carried across
+    by the converter."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import convert, hybrid
+    cfg = get_config("zamba2-1.2b").reduced().replace(
+        param_dtype="float32", n_layers=3)
+    p_cpu = hybrid.init_params(cfg, seed=0, device="cpu")
+    p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), dev)
+    toks = _prompts(cfg, 2, 64, seed=1)
+    n_ssd, n_flash = ssd_scan.launches(), flash_attn.launches()
+    lg_g, tk_g, _, _ = _serve(p_gpu, cfg, toks.to(dev), 68, 4)
+    require((ssd_scan.launches() - n_ssd, flash_attn.launches() - n_flash)
+            == (3, 4), "reduced hybrid on the card: not 3 ssd_intra_chunk "
+            "and 4 flash_decode launches")
+    lg_c, tk_c, _, _ = _serve(p_cpu, cfg, toks, 68, 4)
+    err = float((lg_g.cpu() - lg_c).abs().max())
+    require(torch.allclose(lg_g.cpu(), lg_c, rtol=1e-3, atol=1e-3),
+            f"reduced hybrid: card vs CPU logits differ by {err}")
+    require(torch.equal(tk_g.cpu(), tk_c), "reduced hybrid: tokens differ")
+    log(f"[serve-small] reduced zamba2 (f32, 1 segment + 1 trailing layer): "
+        f"card vs CPU plain route, prefill + 4 decode logits max |diff| "
+        f"{err:.3e} (tolerance 1e-3), greedy tokens equal")
+
+
+def phase_serve_rerun(params, cfg, tokens, logits, toks):
+    """The full-width serve again: bit-identical logits and tokens (the
+    kernels sum in a fixed order, with no atomics)."""
+    import torch
+    logits2, toks2, t_pf, t_dec = _serve(params, cfg, tokens,
+                                         SERVE_S + SERVE_STEPS, SERVE_STEPS)
+    require(torch.equal(logits, logits2), "serve rerun: logits differ")
+    require(torch.equal(toks, toks2), "serve rerun: tokens differ")
+    log(f"[serve-rerun] bit-identical logits ({SERVE_STEPS + 1} x "
+        f"{SERVE_B} x {cfg.vocab}) and tokens; warm walls: prefill "
+        f"{t_pf * 1e3:.1f} ms = {SERVE_B * SERVE_S / t_pf:.0f} prompt "
+        f"tokens/s, decode {t_dec / SERVE_STEPS * 1e3:.2f} ms/step = "
+        f"{SERVE_B * SERVE_STEPS / t_dec:.1f} generated tokens/s")
+
+
+def _profile(fn):
+    """Run ``fn`` under the profiler -> (wall s, device kernel s, top)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, by_name = 0.0, {}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue                      # CPU ops; their kernels count below
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            dev_us += t
+            by_name[e.key] = (t, e.count)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return wall, dev_us / 1e6, top
+
+
+def phase_serve_breakdown(params, cfg, tokens, smi):
+    """Where serving time goes: one profiled prefill and one profiled
+    decode step (device kernel time against wall time = the idle share)."""
+    import torch
+    from repro_torch.models import hybrid
+    B, S = tokens.shape
+    cache = hybrid.init_cache(cfg, B, S + SERVE_STEPS, device=tokens.device)
+    state = {}
+
+    def prefill():
+        state["lg"], _ = hybrid.prefill(params, {"tokens": tokens}, cfg,
+                                        cache)
+
+    def decode():
+        tok = state["lg"].argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+        hybrid.decode_step(params, cache, tok, pos, cfg)
+
+    walls = {}
+    for name, fn in (("prefill", prefill), ("decode step", decode)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    for name, fn in (("prefill", prefill), ("decode step", decode)):
+        wall, dev_s, top = _profile(fn)
+        log(f"[serve-breakdown] {smi}; {name}: wall {walls[name] * 1e3:.2f} "
+            f"ms unprofiled, {wall * 1e3:.2f} ms profiled; device kernels "
+            f"{dev_s * 1e3:.2f} ms -> device idle share "
+            f"{max(0.0, 1 - dev_s / walls[name]):.3f} (unprofiled wall), "
+            f"{max(0.0, 1 - dev_s / wall):.3f} (profiled)")
+        for kname, (t, count) in top:
+            log(f"[serve-breakdown]   {t / 1e3:9.3f} ms {count:5d}x  "
+                f"{kname[:90]}")
+
+
 def main():
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     sys.path.insert(0, str(ROOT / "src"))
@@ -392,15 +789,36 @@ def main():
     phase_small_vs_cpu()
     phase_rerun()
     phase_breakdown(smi)
-    replaces = {
-        "dp_clip_sqnorm": "src/repro/kernels/dp_clip/dp_clip.py:88",
-        "dp_clip_scale_mean": "src/repro/kernels/dp_clip/dp_clip.py:104",
-    }
-    kernels = [dict(
-        name=name, route="triton",
-        source="src/repro_torch/kernels/dp_clip/dp_clip.py",
-        replaces=replaces[name], launches=launches[name],
-        max_abs_err=errs[name], **times[name]) for name in replaces]
+    errs.update(phase_kernels_zoo(dev))
+    times.update(phase_times_zoo(dev, smi))
+    params, cfg, tokens, logits, toks, serve_launches = phase_serve(dev, smi)
+    launches.update(serve_launches)
+    phase_serve_small(dev)
+    phase_serve_rerun(params, cfg, tokens, logits, toks)
+    phase_serve_breakdown(params, cfg, tokens, smi)
+    from repro_torch.kernels.dp_clip import dp_clip
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    kernels = [
+        ("dp_clip_sqnorm", dp_clip.ROUTE,
+         "src/repro_torch/kernels/dp_clip/dp_clip.py",
+         "src/repro/kernels/dp_clip/dp_clip.py:88"),
+        ("dp_clip_scale_mean", dp_clip.ROUTE,
+         "src/repro_torch/kernels/dp_clip/dp_clip.py",
+         "src/repro/kernels/dp_clip/dp_clip.py:104"),
+        ("ssd_intra_chunk", ssd_scan.ROUTE,
+         "src/repro_torch/kernels/csrc/ssd_intra.cu",
+         "src/repro/kernels/ssd_scan/ssd_scan.py:39"),
+        ("flash_decode", flash_attn.ROUTE,
+         "src/repro_torch/kernels/csrc/flash_decode.cu",
+         "src/repro/kernels/flash_attn/flash_attn.py:61"),
+    ]
+    for _, _, source, _ in kernels:
+        require((ROOT / source).exists(), f"missing kernel source {source}")
+    kernels = [dict(name=name, route=route, source=source, replaces=replaces,
+                    launches=launches[name], max_abs_err=errs[name],
+                    **times[name])
+               for name, route, source, replaces in kernels]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     import torch
     print(smi)

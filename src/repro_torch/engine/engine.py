@@ -210,7 +210,8 @@ class CohortRunner:
             "data_path": "arena",
             "dp_path": self.dp_path,
             "pallas_interpret": (
-                kernel_info(self.device, dp_clip.launches() - self._launches0)
+                kernel_info(self.device, dp_clip,
+                            dp_clip.launches() - self._launches0)
                 if self.dp_path == "pallas" else None),
             "cohorts": self.cohorts_run,
             "h2d_bytes_total": int(self.h2d_bytes_total),

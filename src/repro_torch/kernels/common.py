@@ -1,5 +1,6 @@
 """Kernel dispatch rule (the port's counterpart of
-``repro/kernels/common.py::interpret_info``).
+``repro/kernels/common.py::interpret_info``) and the input checks every
+kernel launcher shares.
 
 The rule has no override and no environment switch:
 
@@ -28,8 +29,33 @@ def uses_kernel(t: torch.Tensor) -> bool:
         "(expected cpu or cuda)")
 
 
-def kernel_info(device: torch.device, launches: int) -> dict:
+def kernel_info(device: torch.device, kernel, launches: int) -> dict:
+    """``kernel`` is the kernel module that ran on ``device``; its
+    ``ROUTE`` ("triton" or "cuda") names the kernel on a CUDA device."""
     dev = torch.device(device)
     return {"backend": dev.type,
-            "kernel": "triton" if dev.type == "cuda" else "plain",
+            "kernel": kernel.ROUTE if dev.type == "cuda" else "plain",
             "launches": int(launches)}
+
+
+def check_tensor(name, t, shape, dtypes, device) -> None:
+    """Shape, dtype and device of one input (both routes)."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
+                         f"{[str(d) for d in dtypes]}")
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, expected {device}")
+
+
+def check_launchable(name, t) -> None:
+    """What a CUDA kernel further needs of an input: a CUDA tensor,
+    contiguous, at a 16-byte aligned address."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must lie on a CUDA device: {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start at a 16-byte aligned address")

@@ -46,6 +46,8 @@ import torch
 triton = None
 tl = None
 
+ROUTE = "triton"
+
 BLOCK_D_SQNORM = 4096
 BLOCK_D_MEAN = 1024
 

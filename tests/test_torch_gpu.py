@@ -72,3 +72,159 @@ def test_small_run_on_card_matches_cpu_route(cuda):
     assert l_g.engine_stats["pallas_interpret"]["launches"] > 0
     for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# the zoo's CUDA C++ kernels: ssd_intra_chunk and flash_decode
+# ---------------------------------------------------------------------------
+
+# (b, c, q, h, p, n): zamba2-1.2b's prefill shape, then tests/test_kernels.py's
+SSD_SHAPES = [(8, 16, 128, 64, 64, 64), (1, 2, 32, 2, 16, 16),
+              (2, 4, 64, 4, 64, 64), (1, 1, 128, 8, 64, 32)]
+# (B, S, H, Hkv, Dh, window, softcap, pos range): zamba2-1.2b's decode
+# shape, then GQA, windows, softcap, S below one tile, ragged S, pos = 0
+FLASH_CASES = [(8, 2112, 32, 32, 64, 0, 0.0, (2048, 2112)),
+               (2, 256, 8, 2, 64, 0, 0.0, (128, 256)),
+               (1, 512, 4, 4, 128, 128, 0.0, (256, 512)),
+               (3, 384, 6, 2, 32, 100, 0.0, (192, 384)),
+               (2, 128, 4, 4, 64, 0, 50.0, (64, 128)),
+               (2, 20, 4, 4, 32, 0, 0.0, (0, 20)),
+               (2, 267, 8, 2, 256, 7, 0.0, (0, 267)),
+               (4, 100, 4, 1, 64, 0, 0.0, (0, 1))]
+
+
+def _ssd_inputs(shape, dtype, dev, seed=0):
+    b, c, q, h, p, n = shape
+    gen = torch.Generator(dev).manual_seed(seed)
+    xr = torch.randn((b, c, q, h, p), generator=gen, device=dev).to(dtype)
+    ar = -torch.rand((b, h, c, q), generator=gen, device=dev) * 0.2
+    Br = torch.randn((b, c, q, n), generator=gen, device=dev).to(dtype)
+    Cr = torch.randn((b, c, q, n), generator=gen, device=dev).to(dtype)
+    return xr, ar, Br, Cr
+
+
+def _flash_inputs(case, dtype, dev, seed=0):
+    B, S, H, Hkv, Dh, _, softcap, (lo, hi) = case
+    gen = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn((B, H, Dh), generator=gen, device=dev)
+    q = (q * (4.0 if softcap else 1.0)).to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=gen, device=dev).to(dtype)
+    pos = torch.randint(lo, hi, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return q, k, v, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+def test_ssd_intra_chunk_kernel_matches_plain_on_card(cuda, shape, dtype):
+    """Tolerances of tests/test_kernels.py: f32 1e-4; bf16 rtol 5e-2 and
+    atol 1e-2 * max|plain| (the plain version rounds C.B^T to bf16)."""
+    from repro_torch.kernels.ssd_scan import ops, ref, ssd_scan
+    xr, ar, Br, Cr = _ssd_inputs(shape, dtype, cuda)
+    n0 = ssd_scan.launches()
+    got = ops.ssd_intra_chunk(xr, ar, Br, Cr)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches() == n0 + 1
+    assert got.dtype == dtype and got.shape == xr.shape
+    want = ref.ssd_intra_chunk_ref(xr, ar, Br, Cr)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=5e-2,
+                                   atol=1e-2 * float(want.abs().max()))
+    assert torch.equal(got, ops.ssd_intra_chunk(xr, ar, Br, Cr))  # rerun
+
+
+@pytest.mark.parametrize(
+    "case,dtype", [(c, d) for c in FLASH_CASES
+                   for d in (torch.float32, torch.bfloat16)
+                   if not (c[6] and d == torch.bfloat16)], ids=str)
+def test_flash_decode_kernel_matches_plain_on_card(cuda, case, dtype):
+    """Tolerances of tests/test_kernels.py: 1e-5 in f32, 2e-2 in bf16.
+    The softcap case runs in f32 only, as there: its q is scaled by 4,
+    and the plain version's bf16 logits are then off by more than 2e-2
+    (the kernel computes them in f32)."""
+    from repro_torch.kernels.flash_attn import flash_attn, ops, ref
+    q, k, v, pos = _flash_inputs(case, dtype, cuda)
+    window, softcap = case[5], case[6]
+    n0 = flash_attn.launches()
+    got = ops.flash_decode(q, k, v, pos, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash_attn.launches() == n0 + 1
+    want = ref.flash_decode_ref(q, k, v, pos, window=window, softcap=softcap)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    again = ops.flash_decode(q, k, v, pos, window=window, softcap=softcap)
+    assert torch.equal(got, again)
+
+
+def test_cuda_kernels_refuse_wrong_inputs_on_card(cuda):
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    xr, ar, Br, Cr = _ssd_inputs((1, 2, 32, 2, 16, 16), torch.float32, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan.ssd_intra_chunk(xr.double(), ar, Br, Cr)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_scan.ssd_intra_chunk(xr, ar[:, :, :1], Br, Cr)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd_intra_chunk(xr, ar, Br.transpose(-1, -2).contiguous()
+                                 .transpose(-1, -2), Cr)
+    with pytest.raises(ValueError, match="lies on"):
+        ssd_scan.ssd_intra_chunk(xr, ar.cpu(), Br, Cr)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ssd_scan.ssd_intra_chunk(*_ssd_inputs((1, 1, 30, 2, 16, 16),
+                                              torch.float32, cuda))
+    q, k, v, pos = _flash_inputs(FLASH_CASES[1], torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attn.flash_decode(q, k, v, pos.long())
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attn.flash_decode(q.float(), k, v, pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attn.flash_decode(q, k.transpose(1, 2).contiguous()
+                                .transpose(1, 2), v, pos)
+    with pytest.raises(ValueError, match="lies on"):
+        flash_attn.flash_decode(q, k, v.cpu(), pos)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attn.flash_decode(q[..., :48].contiguous(),
+                                k[..., :48].contiguous(),
+                                v[..., :48].contiguous(), pos)
+
+
+def test_reduced_hybrid_on_card_matches_cpu_route(cuda):
+    """The reduced zamba2 (one segment, one trailing layer, f32) on the card
+    (both CUDA kernels) vs the CPU plain route, same weights: prefill and
+    4 decode logits within 1e-3 (f32 with the kernels' own summation
+    order; the CPU route is held to the JAX package at 1e-4), the same
+    greedy tokens, and one launch per Mamba2 layer / shared block."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import hybrid
+    from repro_torch.pytree import tree_map
+    cfg = get_config("zamba2-1.2b").reduced().replace(
+        param_dtype="float32", n_layers=3)
+    p_cpu = hybrid.init_params(cfg, seed=0, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    toks = torch.randint(0, cfg.vocab, (2, 64), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0))
+    outs = {}
+    for dev, params in (("cpu", p_cpu), (cuda, p_gpu)):
+        ssd_scan.reset_launches()
+        flash_attn.reset_launches()
+        cache = hybrid.init_cache(cfg, 2, 68, device=dev)
+        lg, cache = hybrid.prefill(params, {"tokens": toks.to(dev)}, cfg,
+                                   cache)
+        seq = [lg.cpu()]
+        for t in range(4):
+            tok = lg.argmax(-1).to(torch.int32)[:, None]
+            pos = torch.full((2,), 64 + t, dtype=torch.int32, device=dev)
+            lg, cache = hybrid.decode_step(params, cache, tok, pos, cfg)
+            seq.append(lg.cpu())
+        outs[str(dev)] = (seq, ssd_scan.launches(), flash_attn.launches())
+    (cpu_seq, cpu_ssd, cpu_fl), (gpu_seq, gpu_ssd, gpu_fl) = outs.values()
+    assert (cpu_ssd, cpu_fl) == (0, 0) and (gpu_ssd, gpu_fl) == (3, 4)
+    for a, b in zip(gpu_seq, cpu_seq):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
