@@ -7,14 +7,19 @@ package ``repro``) and fails with a non-zero exit on the first problem:
 
 1. device: requires CUDA, prints the card's name and power limit and the
    numerics flags;
-2. kernels vs plain: the Triton ``dp_clip`` kernels (built here, at first
-   launch, into ``build/triton``) against their plain PyTorch version on
-   the card, at the main path's shapes (K in {1, 4}, B = 128,
+2. kernels vs plain: the Triton ``dp_clip`` kernels (built at first
+   launch into ``build/triton``) against their plain PyTorch version on
+   the card, at the main path's shapes (K in {1, 2, 4}, B = 128,
    D = 317,124, with and without noise) and at awkward ones (B = 1, prime
    B and D, D below one block);
-3. times at the main path's shape (CUDA events): kernel, plain version,
-   one PyTorch library call, and the bytes/operations bound; also the
-   single-member (K = 1) clipped mean;
+3. [times] times at the main path's shapes: kernel, plain version, one
+   PyTorch library call and the bytes/operations bound; the clipped mean
+   at K = 1, 2 and 4 with its grid and tile, and the Triton kernels'
+   registers and shared memory.  Every time is device time per call,
+   from a CUDA graph of 30 calls replayed between CUDA events, best of
+   two turns, the order reversed every other turn; a kernel and its
+   library call go seven turns, and the turns the kernel was faster in
+   are printed;
 4. the main path at full width: FedAsync (staleness window with K > 1
    cohorts) and FedAvg through ``run_experiment`` with
    ``dp_path="pallas"`` on the paper's default CNN and corpus; kernel
@@ -25,11 +30,14 @@ package ``repro``) and fails with a non-zero exit on the first problem:
 7. where one full-width cohort's time goes (profiled cohort step, idle
    share, the fused step's stages);
 8. [kernels-zoo] the CUDA C++ kernels ``ssd_intra_chunk`` and
-   ``flash_decode`` (built here by ``nvcc`` into ``build/cuda``) against
-   their plain versions, at zamba2-1.2b's shapes and the awkward ones of
-   ``tests/test_kernels.py``, f32 and bf16;
+   ``flash_decode`` against their plain versions, at zamba2-1.2b's shapes,
+   the awkward ones of ``tests/test_kernels.py`` and the split-S cases
+   (pos = 0 at full width, a window across chunks, GQA 56/8 at Dh 128,
+   GQA 2 at Dh 256 with softcap), f32 and bf16; each instantiation's
+   registers, shared memory and spills from nvcc's log;
 9. [times-zoo] their times, plain and library times and bounds at
-   zamba2-1.2b's shapes;
+   zamba2-1.2b's shapes, ``flash_decode`` at pos = S - 1 and S / 2 with
+   its split plan;
 10. [serve] zamba2-1.2b at full width (38 layers, d_model 2048, bf16,
     random weights from a seed): one prefill of 8 prompts of 2048 tokens,
     then 64 greedy decode steps; 38 ``ssd_intra_chunk`` and 6 x 64
@@ -100,7 +108,8 @@ def phase_kernels(dev):
     """Kernel vs plain version on the card; returns per-kernel max errors."""
     import torch
     from repro_torch.kernels.dp_clip import dp_clip, ops, ref
-    shapes = [(1, 128, 317124), (4, 128, 317124),       # main path
+    shapes = [(1, 128, 317124), (2, 128, 317124),       # main path
+              (4, 128, 317124),
               (1, 1, 317124), (3, 13, 1031), (2, 7, 37),  # awkward
               (4, 128, 4093)]
     errs = {"dp_clip_sqnorm": 0.0, "dp_clip_scale_mean": 0.0}
@@ -147,16 +156,55 @@ def _bound(nbytes, flops, peak=F32_FLOPS):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def _in_turns(fns, rounds=2, iters=30):
-    """Time each callable in turns (a, b, ..., a, b, ...); keep the best."""
+def _in_turns(fns, rounds=2, iters=30, pair=None):
+    """Time each callable in turns, the order reversed every other turn
+    (a, b, ..., b, a, ...: the place in a turn moves a time by up to
+    1%); keep the best.  With ``pair = (x, y)``, also ``"x wins"``: the
+    turns in which ``x`` was faster than ``y``, as ``"w/rounds"``."""
     t = {}
-    for _ in range(rounds):
-        for name, fn in fns.items():
-            t.setdefault(name, []).append(_time_ms(fn, iters))
-    return {name: min(v) for name, v in t.items()}
+    for i in range(rounds):
+        for name in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            t.setdefault(name, []).append(_time_ms(fns[name], iters))
+    best = {name: min(v) for name, v in t.items()}
+    if pair:
+        x, y = pair
+        wins = sum(a < b for a, b in zip(t[x], t[y]))
+        best[f"{x} wins"] = f"{wins}/{rounds}"
+    return best
 
 
 def _time_ms(fn, iters=30):
+    """Device ms per call: ``iters`` calls captured in one CUDA graph,
+    replayed between CUDA events, so the host's dispatch of each call is
+    not counted (the wrappers' Python costs tens of microseconds, as much
+    as the kernels at these shapes)."""
+    import torch
+    fn()                                       # build, compile, warm up
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def _eager_ms(fn, iters=30):
+    """Wall ms per call of ``iters`` calls launched one by one from Python
+    (the host's dispatch included where it exceeds the device time): the
+    fused step's stages, whose host time is part of the step's."""
     import torch
     for _ in range(3):
         fn()
@@ -172,62 +220,101 @@ def _time_ms(fn, iters=30):
 
 
 def phase_times(dev, smi):
-    """Kernel / plain / library times at the main path's shape (K=4)."""
+    """Kernel / plain / library times at the main path's shapes: the norms
+    at K = 4; the clipped mean at K = 1 (``ops.scale_mean``), 2 and 4 (the
+    cohorts of the FedAsync run), with noise where the path adds it."""
     import torch
+    from repro_torch.kernels.common import sm_count
     from repro_torch.kernels.dp_clip import dp_clip, ref
     k, b, d = 4, 128, 317124
     g, z = _inputs(k, b, d, 7, dev)
     flat = g.view(k * b, d)
     scales = ref.clip_scales(torch.sqrt(ref.sqnorms_ref(flat)), 1.0)
     std = torch.tensor([1.0 / b], device=dev)
-    t = {}
-    # in turns: kernel, plain, kernel, plain — keep the better of each
-    for _ in range(2):
-        t.setdefault("sq", []).append(_time_ms(lambda: dp_clip.sqnorms(flat)))
-        t.setdefault("sq_plain", []).append(
-            _time_ms(lambda: ref.sqnorms_ref(flat)))
-        t.setdefault("mean", []).append(_time_ms(
-            lambda: dp_clip.cohort_scale_mean(flat, scales, k=k,
-                                              inv_b=1.0 / b, z=z, stddev=std)))
-        t.setdefault("mean_plain", []).append(_time_ms(
-            lambda: ref.cohort_scale_mean_ref(flat, scales, k=k,
-                                              inv_b=1.0 / b, z=z, stddev=std)))
-    t["sq_lib"] = [_time_ms(lambda: torch.linalg.vector_norm(flat, dim=1))]
-    t["mean_lib"] = [_time_ms(lambda: torch.bmm(scales.view(k, 1, b), g))]
-    best = {key: min(v) for key, v in t.items()}
-
-    # the single-member clipped mean (ops.scale_mean, K = 1)
-    one, s1 = flat[:b], scales[:b]
-    t1 = _in_turns({
-        "kernel": lambda: dp_clip.cohort_scale_mean(one, s1, k=1,
-                                                    inv_b=1.0 / b),
-        "plain": lambda: ref.cohort_scale_mean_ref(one, s1, k=1,
-                                                   inv_b=1.0 / b),
-        "library": lambda: torch.mv(one.t(), s1)})
-    b1 = _bound(b * d * 4 + b * 4 + d * 4, 2 * b * d)
-    log(f"[times] {smi}; scale_mean K=1 B={b} D={d}: kernel "
-        f"{t1['kernel']:.4f} ms plain {t1['plain']:.4f} ms library "
-        f"(torch.mv) {t1['library']:.4f} ms bound {b1[0]:.4f} ms ({b1[1]})")
-
+    t = _in_turns({
+        "sq": lambda: dp_clip.sqnorms(flat),
+        "sq_plain": lambda: ref.sqnorms_ref(flat),
+        "sq_lib": lambda: torch.linalg.vector_norm(flat, dim=1)})
     sq_bound = _bound(k * b * d * 4 + k * b * 4, 2 * k * b * d)
-    mean_bound = _bound(k * b * d * 4 + k * b * 4 + k * d * 4 + 4 + k * d * 4,
-                       2 * k * b * d + 3 * k * d)
-    log(f"[times] {smi}; K={k} B={b} D={d}: "
-        f"sqnorm kernel {best['sq']:.4f} ms plain {best['sq_plain']:.4f} ms "
-        f"library {best['sq_lib']:.4f} ms bound {sq_bound[0]:.4f} ms; "
-        f"scale_mean kernel {best['mean']:.4f} ms plain "
-        f"{best['mean_plain']:.4f} ms library {best['mean_lib']:.4f} ms "
-        f"bound {mean_bound[0]:.4f} ms")
-    return {
-        "dp_clip_sqnorm": dict(ms=best["sq"], plain_ms=best["sq_plain"],
-                               library_ms=best["sq_lib"],
-                               bound_ms=sq_bound[0], bound_by=sq_bound[1]),
-        "dp_clip_scale_mean": dict(ms=best["mean"],
-                                   plain_ms=best["mean_plain"],
-                                   library_ms=best["mean_lib"],
-                                   bound_ms=mean_bound[0],
-                                   bound_by=mean_bound[1]),
-    }
+    log(f"[times] {smi}; sqnorm K={k} B={b} D={d}: kernel {t['sq']:.4f} ms "
+        f"plain {t['sq_plain']:.4f} ms library (linalg.vector_norm) "
+        f"{t['sq_lib']:.4f} ms bound {sq_bound[0]:.4f} ms ({sq_bound[1]})")
+    out = {"dp_clip_sqnorm": dict(ms=t["sq"], plain_ms=t["sq_plain"],
+                                  library_ms=t["sq_lib"],
+                                  bound_ms=sq_bound[0],
+                                  bound_by=sq_bound[1])}
+    for km in (1, 2, 4):
+        fl, sc, gk, zk = flat[:km * b], scales[:km * b], g[:km], z[:km]
+        noise = dict(z=zk, stddev=std) if km > 1 else {}
+        fns = {
+            "kernel": lambda: dp_clip.cohort_scale_mean(
+                fl, sc, k=km, inv_b=1.0 / b, **noise),
+            "plain": lambda: ref.cohort_scale_mean_ref(
+                fl, sc, k=km, inv_b=1.0 / b, **noise)}
+        if km == 1:
+            fns["library"] = lambda: torch.mv(fl.t(), sc)
+        else:
+            fns["kernel no noise"] = lambda: dp_clip.cohort_scale_mean(
+                fl, sc, k=km, inv_b=1.0 / b)
+            fns["library"] = lambda: torch.bmm(sc.view(km, 1, b), gk)
+        tm = _in_turns(fns, rounds=7, pair=(
+            "kernel no noise" if noise else "kernel", "library"))
+        rows, block_d, warps, pps = dp_clip.mean_tile(km)
+        per, span = dp_clip.mean_plan(km, d, sm_count(dev))
+        nz = km * d * 4 + 4 if noise else 0
+        bd = _bound(km * b * d * 4 + km * b * 4 + nz + km * d * 4,
+                    2 * km * b * d + (2 * km * d if noise else 0))
+        bd_lib = _bound(km * b * d * 4 + km * b * 4 + km * d * 4,
+                        2 * km * b * d)
+        lib = "torch.mv" if km == 1 else "torch.bmm, no noise"
+        extra = (f" (no noise {tm['kernel no noise']:.4f} ms, its bound "
+                 f"{bd_lib[0]:.4f} ms)" if km > 1 else "")
+        wins = tm["kernel no noise wins" if noise else "kernel wins"]
+        log(f"[times] {smi}; scale_mean K={km} B={b} D={d}"
+            f"{' + noise' if noise else ''}: kernel {tm['kernel']:.4f} ms"
+            f"{extra} plain {tm['plain']:.4f} ms library ({lib}) "
+            f"{tm['library']:.4f} ms bound {bd[0]:.4f} ms ({bd[1]}) = "
+            f"{bd[0] / tm['kernel']:.3f} of it; kernel faster than the "
+            f"library in {wins} turns; grid {per} x {km} programs of "
+            f"{span} columns, tile {rows} x {block_d}, {warps} warps, "
+            f"{pps} programs/SM planned")
+        if km == 4:
+            out["dp_clip_scale_mean"] = dict(
+                ms=tm["kernel"], plain_ms=tm["plain"],
+                library_ms=tm["library"], bound_ms=bd[0], bound_by=bd[1])
+    for km in (1, 2, 4):
+        log(f"[times] Triton scale_mean at K={km}: "
+            f"{_triton_resources(flat[:km * b], scales[:km * b], km)}")
+    return out
+
+
+def _triton_resources(flat, scales, k):
+    """Registers, spills and shared memory of the two Triton kernels as
+    compiled for (K*B, D) f32 rows: one launch of each, straight from its
+    Triton function, so no wrapper counts it."""
+    import torch
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.dp_clip import dp_clip
+    sq_kernel, mean_kernel = dp_clip._kernels()
+    r, d = flat.shape
+    norms = torch.empty((r,), dtype=torch.float32, device=flat.device)
+    means = torch.empty((k, d), dtype=torch.float32, device=flat.device)
+    rows, block_d, warps, _ = dp_clip.mean_tile(k)
+    per, span = dp_clip.mean_plan(k, d, sm_count(flat.device))
+    vec = 4 if d % 4 == 0 else 1
+    compiled = {
+        "sqnorm": sq_kernel[(r,)](flat, norms, d,
+                                  BLOCK_D=dp_clip.BLOCK_D_SQNORM,
+                                  num_warps=8),
+        "scale_mean": mean_kernel[(per, k)](
+            flat, scales, scales, scales, means, r // k, d // vec, span, 1.0,
+            HAS_NOISE=False, VEC=vec, ROWS=rows, BLOCK_D=block_d,
+            num_warps=warps)}
+    return {name: dict(registers=getattr(c, "n_regs", None),
+                       spills=getattr(c, "n_spills", None),
+                       shared_bytes=getattr(getattr(c, "metadata", None),
+                                            "shared", None))
+            for name, c in compiled.items()}
 
 
 def _check_run(params, log_, name):
@@ -238,7 +325,7 @@ def _check_run(params, log_, name):
     info = log_.engine_stats["pallas_interpret"]
     require(info is not None and info["backend"] == "cuda"
             and info["kernel"] == "triton",
-            f"{name}: engine_stats does not record the CUDA kernel: {info}")
+            f"{name}: engine_stats does not record the kernels: {info}")
     eps = {t: (v[-1] if v else 0.0) for t, v in log_.eps_trajectory.items()}
     log(f"[main] {name}: updates {log_.update_counts} eps "
         f"{ {t: round(e, 4) for t, e in eps.items()} } acc "
@@ -415,13 +502,13 @@ def phase_breakdown(smi):
         "flatten to (K, B, D)": lambda: tree_flatten_to_vector(g, lead=2),
         "noise draws z (K x D)": lambda: torch.randn((k, 317124),
                                                    device=runner.device),
-        "dp_clip op (2 Triton kernels + glue)":
+        "dp_clip op (two Triton kernels + glue)":
             lambda: dp_clip_mean_noise_cohort(flat, 1.0, std, z),
         "batched Adam": lambda: clients[0].opt.update(grads, o, p),
         "eval: pooled-test accuracy": lambda: acc_fn(params, pooled),
     }
     for name, fn in stages.items():
-        log(f"[breakdown] stage {name}: {_time_ms(fn, iters=5):.3f} ms")
+        log(f"[breakdown] stage {name}: {_eager_ms(fn, iters=5):.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +532,15 @@ FLASH_CASES = [FLASH_FULL + (0, 0.0, (2048, 2112)),
                (2, 128, 4, 4, 64, 0, 50.0, (64, 128)),
                (2, 20, 4, 4, 32, 0, 0.0, (0, 20)),
                (2, 267, 8, 2, 256, 7, 0.0, (0, 267)),
-               (4, 100, 4, 1, 64, 0, 0.0, (0, 1))]
+               (4, 100, 4, 1, 64, 0, 0.0, (0, 1)),
+               # split-S cases: pos = 0 at full width (all but one split
+               # empty), a window across split boundaries, GQA 56/8
+               # at Dh 128 (deepseek), GQA 2 at Dh 256 with softcap
+               # (gemma2)
+               (8, 2112, 32, 32, 64, 0, 0.0, (0, 1)),
+               (8, 2112, 32, 32, 64, 300, 0.0, (1000, 1100)),
+               (2, 1024, 56, 8, 128, 0, 0.0, (512, 1024)),
+               (2, 512, 8, 4, 256, 0, 50.0, (256, 512))]
 
 
 def _ssd_inputs(shape, dtype, dev, seed=0):
@@ -472,6 +567,28 @@ def _flash_inputs(case, dtype, dev, seed=0):
     return q, k, v, pos
 
 
+def _ptxas_summary(text):
+    """One line per kernel instantiation from ``nvcc -Xptxas -v``: its
+    name with the template arguments, registers, static shared memory and
+    spills."""
+    import re
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d+([a-z]\w*?_kernel)", mangled)
+            args = ",".join(["bf16" if "bfloat16" in mangled else "f32"]
+                            + re.findall(r"Li(\d+)E", mangled))
+            name = f"{base.group(1) if base else mangled}<{args}>"
+        elif "spill" in line and name:
+            spill = line.strip()
+        elif "Used" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
 def phase_kernels_zoo(dev):
     """The CUDA C++ kernels vs their plain versions on the card (the
     tolerances of tests/test_kernels.py); returns the max |kernel - plain|
@@ -485,9 +602,8 @@ def phase_kernels_zoo(dev):
     t_build = time.perf_counter() - t0
     log(f"[kernels-zoo] nvcc build of kernels/csrc into "
         f"{build.build_dir().relative_to(ROOT)}: {t_build:.1f} s")
-    for line in build.build_log().splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"[kernels-zoo]   {line.strip()}")
+    for line in _ptxas_summary(build.build_log()):
+        log(f"[kernels-zoo]   {line}")
     errs = {"ssd_intra_chunk": 0.0, "flash_decode": 0.0}
     for shape in SSD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -536,6 +652,7 @@ def phase_times_zoo(dev, smi):
     """Kernel / plain / library times and bounds at zamba2-1.2b's shapes."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.common import sm_count
     from repro_torch.kernels.flash_attn import flash_attn, ref as fref
     from repro_torch.kernels.ssd_scan import ref as sref, ssd_scan
     out = {}
@@ -559,26 +676,35 @@ def phase_times_zoo(dev, smi):
 
     B, S, H, Hkv, Dh = FLASH_FULL
     q_, k, v, _ = _flash_inputs(FLASH_CASES[0], torch.bfloat16, dev)
-    pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
-    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())
-    mask = mask[:, None, None, :]                       # (B, 1, 1, S)
+    n_split, chunk = flash_attn.split_plan(S, B, H, Hkv, sm_count(dev))
+    log(f"[times-zoo] flash_decode {FLASH_FULL}: {n_split} splits, each "
+        f"taking every {n_split}th chunk of {chunk} keys; grid {n_split} x "
+        f"{Hkv} x {B} = {n_split * Hkv * B} blocks on {sm_count(dev)} SMs")
     qs, ks, vs = q_[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    t = _in_turns({
-        "kernel": lambda: flash_attn.flash_decode(q_, k, v, pos),
-        "plain": lambda: fref.flash_decode_ref(q_, k, v, pos),
-        "library": lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask)})
-    keys = int((pos.long() + 1).clamp(max=S).sum())     # keys the mask admits
-    nbytes = 2 * keys * Hkv * Dh * 2 + 2 * q_.numel() * 2 + B * 4
-    flops = 4 * keys * H * Dh
-    bd = _bound(nbytes, flops, BF16_FLOPS)
-    out["flash_decode"] = dict(ms=t["kernel"], plain_ms=t["plain"],
-                               library_ms=t["library"], bound_ms=bd[0],
-                               bound_by=bd[1])
-    log(f"[times-zoo] {smi}; flash_decode {FLASH_FULL} bf16 pos=S-1: kernel "
-        f"{t['kernel']:.4f} ms plain {t['plain']:.4f} ms library "
-        f"(scaled_dot_product_attention, bool mask) {t['library']:.4f} ms; "
-        f"bound {bd[0]:.4f} ms ({bd[1]}: {nbytes / 1e6:.1f} MB)")
+    for at in (S - 1, S // 2):
+        pos = torch.full((B,), at, dtype=torch.int32, device=dev)
+        mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())
+        mask = mask[:, None, None, :]                   # (B, 1, 1, S)
+        t = _in_turns({
+            "kernel": lambda: flash_attn.flash_decode(q_, k, v, pos),
+            "plain": lambda: fref.flash_decode_ref(q_, k, v, pos),
+            "library": lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask)}, rounds=7,
+            pair=("kernel", "library"))
+        keys = int((pos.long() + 1).clamp(max=S).sum())  # keys the mask admits
+        nbytes = 2 * keys * Hkv * Dh * 2 + 2 * q_.numel() * 2 + B * 4
+        flops = 4 * keys * H * Dh
+        bd = _bound(nbytes, flops, BF16_FLOPS)
+        if at == S - 1:
+            out["flash_decode"] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                                       library_ms=t["library"],
+                                       bound_ms=bd[0], bound_by=bd[1])
+        log(f"[times-zoo] {smi}; flash_decode {FLASH_FULL} bf16 pos={at}: "
+            f"kernel {t['kernel']:.4f} ms plain {t['plain']:.4f} ms library "
+            f"(scaled_dot_product_attention, bool mask) "
+            f"{t['library']:.4f} ms; bound {bd[0]:.4f} ms ({bd[1]}: "
+            f"{nbytes / 1e6:.1f} MB) = {bd[0] / t['kernel']:.3f} of it; "
+            f"kernel faster than the library in {t['kernel wins']} turns")
     return out
 
 

@@ -40,8 +40,8 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "ssd_intra_chunk_f32": [P, P, P, P, P, I, I, I, I, I, I, P],
     "ssd_intra_chunk_bf16": [P, P, P, P, P, I, I, I, I, I, I, P],
-    "flash_decode_f32": [P, P, P, P, P, I, I, I, I, I, I, F, F, P],
-    "flash_decode_bf16": [P, P, P, P, P, I, I, I, I, I, I, F, F, P],
+    "flash_decode_f32": [P, P, P, P, P, P, *[I] * 9, F, F, P],
+    "flash_decode_bf16": [P, P, P, P, P, P, *[I] * 9, F, F, P],
 }
 
 

@@ -15,6 +15,8 @@ stats schema stays key-for-key the reference's).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -59,3 +61,20 @@ def check_launchable(name, t) -> None:
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start at a 16-byte aligned address")
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (a host-side property;
+    the kernels' launch plans are sized from it)."""
+    dev = torch.device(device)
+    return _sm_count(torch.cuda.current_device() if dev.index is None
+                     else dev.index)

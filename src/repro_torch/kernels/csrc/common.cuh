@@ -1,9 +1,12 @@
 // Shared helpers of the port's CUDA C++ kernels: conversions between the
-// storage types (float, bf16) and the f32 the kernels compute in.
+// storage types (float, bf16) and the f32 the kernels compute in, and the
+// dynamic shared memory limit of a kernel.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 namespace repro {
 
@@ -19,6 +22,23 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+// Raise `kernel`'s dynamic shared memory limit to `bytes` once per device
+// (the attribute persists; `done` is the caller's per-kernel record), so
+// that a launch inside CUDA-graph capture makes no other call.
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, int bytes,
+                                      std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
 }
 
 }  // namespace repro

@@ -20,7 +20,8 @@ def cuda():
     return resolve_device(None)
 
 
-@pytest.mark.parametrize("k,b,d", [(4, 128, 317124), (1, 1, 37),
+@pytest.mark.parametrize("k,b,d", [(4, 128, 317124), (2, 128, 317124),
+                                   (1, 128, 317124), (1, 1, 37),
                                    (3, 13, 1031), (2, 7, 4096)])
 @pytest.mark.parametrize("noise", [False, True])
 def test_dp_clip_kernels_match_plain_on_card(cuda, k, b, d, noise):
@@ -90,7 +91,15 @@ FLASH_CASES = [(8, 2112, 32, 32, 64, 0, 0.0, (2048, 2112)),
                (2, 128, 4, 4, 64, 0, 50.0, (64, 128)),
                (2, 20, 4, 4, 32, 0, 0.0, (0, 20)),
                (2, 267, 8, 2, 256, 7, 0.0, (0, 267)),
-               (4, 100, 4, 1, 64, 0, 0.0, (0, 1))]
+               (4, 100, 4, 1, 64, 0, 0.0, (0, 1)),
+               # split-S cases: pos = 0 at full width (all but one split
+               # empty), a window across split boundaries, GQA 56/8
+               # at Dh 128 (deepseek), GQA 2 at Dh 256 with softcap
+               # (gemma2)
+               (8, 2112, 32, 32, 64, 0, 0.0, (0, 1)),
+               (8, 2112, 32, 32, 64, 300, 0.0, (1000, 1100)),
+               (2, 1024, 56, 8, 128, 0, 0.0, (512, 1024)),
+               (2, 512, 8, 4, 256, 0, 50.0, (256, 512))]
 
 
 def _ssd_inputs(shape, dtype, dev, seed=0):
