@@ -13,9 +13,9 @@ package ``repro``) and fails with a non-zero exit on the first problem:
    D = 317,124, with and without noise) and at awkward ones (B = 1, prime
    B and D, D below one block);
 3. [times] times at the main path's shapes: kernel, plain version, one
-   PyTorch library call and the bytes/operations bound; the clipped mean
-   at K = 1, 2 and 4 with its grid and tile, and the Triton kernels'
-   registers and shared memory.  Every time is device time per call,
+   PyTorch library call and the bytes/operations bound; the norms pass
+   and the clipped mean at K = 1, 2 and 4 with their grids and tiles, and
+   the Triton kernels' registers and shared memory.  Every time is device time per call,
    from a CUDA graph of 30 calls replayed between CUDA events, best of
    two turns, the order reversed every other turn; a kernel and its
    library call go seven turns, and the turns the kernel was faster in
@@ -221,28 +221,42 @@ def _eager_ms(fn, iters=30):
 
 def phase_times(dev, smi):
     """Kernel / plain / library times at the main path's shapes: the norms
-    at K = 4; the clipped mean at K = 1 (``ops.scale_mean``), 2 and 4 (the
-    cohorts of the FedAsync run), with noise where the path adds it."""
+    and the clipped mean at K = 1, 2 and 4 (the clipped mean at K = 1 is
+    ``ops.scale_mean``; K = 2 and 4 are the cohorts of the FedAsync run),
+    with noise where the path adds it."""
     import torch
-    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.common import cdiv, sm_count
     from repro_torch.kernels.dp_clip import dp_clip, ref
     k, b, d = 4, 128, 317124
     g, z = _inputs(k, b, d, 7, dev)
     flat = g.view(k * b, d)
     scales = ref.clip_scales(torch.sqrt(ref.sqnorms_ref(flat)), 1.0)
     std = torch.tensor([1.0 / b], device=dev)
-    t = _in_turns({
-        "sq": lambda: dp_clip.sqnorms(flat),
-        "sq_plain": lambda: ref.sqnorms_ref(flat),
-        "sq_lib": lambda: torch.linalg.vector_norm(flat, dim=1)})
-    sq_bound = _bound(k * b * d * 4 + k * b * 4, 2 * k * b * d)
-    log(f"[times] {smi}; sqnorm K={k} B={b} D={d}: kernel {t['sq']:.4f} ms "
-        f"plain {t['sq_plain']:.4f} ms library (linalg.vector_norm) "
-        f"{t['sq_lib']:.4f} ms bound {sq_bound[0]:.4f} ms ({sq_bound[1]})")
-    out = {"dp_clip_sqnorm": dict(ms=t["sq"], plain_ms=t["sq_plain"],
-                                  library_ms=t["sq_lib"],
-                                  bound_ms=sq_bound[0],
-                                  bound_by=sq_bound[1])}
+    out = {}
+    for km in (1, 2, 4):
+        fl, r = flat[:km * b], km * b
+        t = _in_turns({
+            "sq": lambda: dp_clip.sqnorms(fl),
+            "sq_plain": lambda: ref.sqnorms_ref(fl),
+            "sq_lib": lambda: torch.linalg.vector_norm(fl, dim=1)},
+            rounds=7, pair=("sq", "sq_lib"))
+        bd = _bound(r * d * 4 + r * 4, 2 * r * d)
+        rows, n_splits, width = dp_clip.sqnorm_plan(r, d)
+        n_prog = n_splits * cdiv(r, rows)
+        log(f"[times] {smi}; sqnorm K={km} B={b} D={d}: kernel "
+            f"{t['sq']:.4f} ms plain {t['sq_plain']:.4f} ms library "
+            f"(linalg.vector_norm) {t['sq_lib']:.4f} ms bound {bd[0]:.4f} "
+            f"ms ({bd[1]}) = {bd[0] / t['sq']:.3f} of it; kernel faster "
+            f"than the library in {t['sq wins']} turns; grid {n_splits} "
+            f"splits x {cdiv(r, rows)} row tiles = {n_prog} programs "
+            f"({n_prog / sm_count(dev):.1f} per SM), tile {rows} x "
+            f"{dp_clip.sqnorm_block_d(rows, width)}, "
+            f"{dp_clip.SQNORM_WARPS} warps, ranges of {width - 16} and "
+            f"{width} columns")
+        if km == k:
+            out["dp_clip_sqnorm"] = dict(
+                ms=t["sq"], plain_ms=t["sq_plain"], library_ms=t["sq_lib"],
+                bound_ms=bd[0], bound_by=bd[1])
     for km in (1, 2, 4):
         fl, sc, gk, zk = flat[:km * b], scales[:km * b], g[:km], z[:km]
         noise = dict(z=zk, stddev=std) if km > 1 else {}
@@ -283,29 +297,36 @@ def phase_times(dev, smi):
                 ms=tm["kernel"], plain_ms=tm["plain"],
                 library_ms=tm["library"], bound_ms=bd[0], bound_by=bd[1])
     for km in (1, 2, 4):
-        log(f"[times] Triton scale_mean at K={km}: "
+        log(f"[times] Triton kernels at K={km}: "
             f"{_triton_resources(flat[:km * b], scales[:km * b], km)}")
     return out
 
 
 def _triton_resources(flat, scales, k):
-    """Registers, spills and shared memory of the two Triton kernels as
+    """Registers, spills and shared memory of the Triton kernels as
     compiled for (K*B, D) f32 rows: one launch of each, straight from its
-    Triton function, so no wrapper counts it."""
+    Triton function with the plan's arguments, so no wrapper counts it."""
     import torch
-    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.common import cdiv, sm_count
     from repro_torch.kernels.dp_clip import dp_clip
-    sq_kernel, mean_kernel = dp_clip._kernels()
+    sq_kernel, finish_kernel, mean_kernel = dp_clip._kernels()
     r, d = flat.shape
+    vec = 4 if d % 4 == 0 else 1
+    s_rows, n_splits, width = dp_clip.sqnorm_plan(r, d)
+    part = torch.empty((n_splits, r), dtype=torch.float32, device=flat.device)
     norms = torch.empty((r,), dtype=torch.float32, device=flat.device)
     means = torch.empty((k, d), dtype=torch.float32, device=flat.device)
     rows, block_d, warps, _ = dp_clip.mean_tile(k)
     per, span = dp_clip.mean_plan(k, d, sm_count(flat.device))
-    vec = 4 if d % 4 == 0 else 1
     compiled = {
-        "sqnorm": sq_kernel[(r,)](flat, norms, d,
-                                  BLOCK_D=dp_clip.BLOCK_D_SQNORM,
-                                  num_warps=8),
+        "sqnorm": sq_kernel[(n_splits, cdiv(r, s_rows))](
+            flat, part, r, d // vec, width,
+            n_splits * width // 16 - cdiv(d, 16), VEC=vec, ROWS=s_rows,
+            BLOCK_D=dp_clip.sqnorm_block_d(s_rows, width),
+            num_warps=dp_clip.SQNORM_WARPS),
+        "sqnorm_finish": finish_kernel[(cdiv(r, dp_clip.SQNORM_FINISH_ROWS),)](
+            part, norms, r, SPLITS=n_splits,
+            BLOCK_R=dp_clip.SQNORM_FINISH_ROWS, num_warps=4),
         "scale_mean": mean_kernel[(per, k)](
             flat, scales, scales, scales, means, r // k, d // vec, span, 1.0,
             HAS_NOISE=False, VEC=vec, ROWS=rows, BLOCK_D=block_d,
@@ -502,7 +523,7 @@ def phase_breakdown(smi):
         "flatten to (K, B, D)": lambda: tree_flatten_to_vector(g, lead=2),
         "noise draws z (K x D)": lambda: torch.randn((k, 317124),
                                                    device=runner.device),
-        "dp_clip op (two Triton kernels + glue)":
+        "dp_clip op (Triton norms pass, clipped mean + glue)":
             lambda: dp_clip_mean_noise_cohort(flat, 1.0, std, z),
         "batched Adam": lambda: clients[0].opt.update(grads, o, p),
         "eval: pooled-test accuracy": lambda: acc_fn(params, pooled),
@@ -520,9 +541,12 @@ def phase_breakdown(smi):
 SERVE_B, SERVE_S, SERVE_STEPS = 8, 2048, 64
 SSD_FULL = (8, 16, 128, 64, 64, 64)        # (b, c, q, h, p, n) of a prefill
 FLASH_FULL = (8, 2112, 32, 32, 64)         # (B, S, H, Hkv, Dh) of a decode
-# (b, c, q, h, p, n): the full-width shape, then tests/test_kernels.py's
+# (b, c, q, h, p, n): the full-width shape, then tests/test_kernels.py's,
+# then ragged ones: q and n not multiples of 16 (element copies where n or
+# p is not a multiple of 8), p of two 64-column chunks with n past 128
 SSD_SHAPES = [SSD_FULL, (1, 2, 32, 2, 16, 16), (2, 4, 64, 4, 64, 64),
-              (1, 1, 128, 8, 64, 32)]
+              (1, 1, 128, 8, 64, 32), (1, 1, 20, 2, 16, 12),
+              (2, 3, 36, 3, 24, 40), (1, 2, 64, 2, 128, 160)]
 # (B, S, H, Hkv, Dh, window, softcap, pos range): the full-width decode,
 # GQA, windows, softcap, S below one tile, ragged S with Dh 256, pos = 0
 FLASH_CASES = [FLASH_FULL + (0, 0.0, (2048, 2112)),
@@ -567,6 +591,21 @@ def _flash_inputs(case, dtype, dev, seed=0):
     return q, k, v, pos
 
 
+def _kernel_name(mangled):
+    """The ``*_kernel`` part of a mangled name: its parts are read in turn
+    as length-prefixed names (``_ZN <len><name> <len><name> ...``)."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name = mangled[j:j + int(mangled[i:j])]
+        if name.endswith("_kernel"):
+            return name
+        i = j + len(name)
+    return mangled
+
+
 def _ptxas_summary(text):
     """One line per kernel instantiation from ``nvcc -Xptxas -v``: its
     name with the template arguments, registers, static shared memory and
@@ -577,10 +616,9 @@ def _ptxas_summary(text):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"\d+([a-z]\w*?_kernel)", mangled)
             args = ",".join(["bf16" if "bfloat16" in mangled else "f32"]
                             + re.findall(r"Li(\d+)E", mangled))
-            name = f"{base.group(1) if base else mangled}<{args}>"
+            name = f"{_kernel_name(mangled)}<{args}>"
         elif "spill" in line and name:
             spill = line.strip()
         elif "Used" in line and name:
@@ -933,7 +971,7 @@ def main():
          "src/repro_torch/kernels/dp_clip/dp_clip.py",
          "src/repro/kernels/dp_clip/dp_clip.py:104"),
         ("ssd_intra_chunk", ssd_scan.ROUTE,
-         "src/repro_torch/kernels/csrc/ssd_intra.cu",
+         "src/repro_torch/kernels/csrc/ssd_intra_tc.cu",
          "src/repro/kernels/ssd_scan/ssd_scan.py:39"),
         ("flash_decode", flash_attn.ROUTE,
          "src/repro_torch/kernels/csrc/flash_decode.cu",

@@ -1,7 +1,10 @@
-// Mamba2 SSD intra-chunk block for Hopper (sm_90a), CUDA C++.
+// Mamba2 SSD intra-chunk block for Hopper (sm_90a), f32, CUDA C++ on the
+// CUDA cores.
 //
 // Replaces the Pallas TPU kernel `ssd_intra_chunk` / `_ssd_intra_kernel`
-// of src/repro/kernels/ssd_scan/ssd_scan.py (:39, body :22).  For every
+// of src/repro/kernels/ssd_scan/ssd_scan.py (:39, body :22) for f32
+// inputs; bf16 inputs take the tensor-core kernel of ssd_intra_tc.cu
+// (TF32 tensor cores would miss the f32 tolerance of 1e-4).  For every
 // (batch b, chunk c, head h):
 //
 //     y[i] = sum_{j <= i} (C_i . B_j) * exp(cs_i - cs_j) * x_j,
@@ -11,12 +14,12 @@
 // shared by every head (n_groups = 1).  Everything is accumulated in f32.
 //
 // Bound on the H100: at the zamba2-1.2b prefill shape (b=8, c=16, q=128,
-// h=64, p=64, n=64, bf16) the function moves ~277 MB (x in, y out, plus
-// a, B, C): ~0.083 ms at 3.35 TB/s.  Its causal products are ~8.8 GFLOP,
-// ~0.009 ms at the bf16 tensor-core rate, so bytes bound it.
+// h=64, p=64, n=64) in f32 the function moves ~553 MB: ~0.165 ms at
+// 3.35 TB/s; its causal products are ~8.8 GFLOP, ~0.13 ms at the f32 rate
+// of the CUDA cores.  The model that runs this kernel is the reduced f32
+// hybrid; the full-width model is bf16.
 //
-// Design (simple and right first; tensor cores, TMA and a deeper
-// pipeline are for later):
+// Design:
 // * The TPU grid is (b, c, h), one score tile C.B^T per grid step.  Here a
 //   block owns one (b, c) and a group of kHeadsPerBlock heads: it builds
 //   the causal score tile S = C.B^T once in shared memory and reuses it
@@ -199,11 +202,4 @@ extern "C" int ssd_intra_chunk_f32(const void* x, const void* a,
                                    int b, int c, int q, int h, int p, int n,
                                    void* stream) {
   return launch<float>(x, a, B, C, y, b, c, q, h, p, n, stream);
-}
-
-extern "C" int ssd_intra_chunk_bf16(const void* x, const void* a,
-                                    const void* B, const void* C, void* y,
-                                    int b, int c, int q, int h, int p, int n,
-                                    void* stream) {
-  return launch<__nv_bfloat16>(x, a, B, C, y, b, c, q, h, p, n, stream);
 }

@@ -1,15 +1,36 @@
-"""Fused per-example clip + mean (+ noise) as two Triton kernels for
-Hopper — the DP-SGD hot spot of every local step on the ``"pallas"``
-DP path (the config string keeps its reference meaning).
+"""Fused per-example clip + mean (+ noise) as Triton kernels for Hopper —
+the DP-SGD hot spot of every local step on the ``"pallas"`` DP path (the
+config string keeps its reference meaning).
+
+Why Triton and not CUDA C++: both passes are bandwidth-bound streaming
+reductions over an (R, D) f32 matrix with no matrix product, so what
+decides their speed is how many 16-byte loads are in flight on every SM,
+which Triton's tiles express directly.
 
 Replaces the Pallas TPU kernels of ``repro/kernels/dp_clip/dp_clip.py``:
 
-* ``_sqnorm_kernel``  <- ``sqnorms`` / ``_sqnorm_kernel`` (dp_clip.py:88):
-  grid (K*B,), one program per row; it walks the row in ``BLOCK_D``
-  chunks with an f32 register accumulator and masks the ragged tail
-  itself, so nothing is zero-padded to a tile multiple (the TPU version
-  pads to (128, 512) tiles and carries the sum across its sequential
-  grid axis, which Hopper's unordered blocks cannot do).
+* ``_sqnorm_kernel`` + ``_sqnorm_finish_kernel`` <- ``sqnorms`` /
+  ``_sqnorm_kernel`` (dp_clip.py:88, body :43): per-row ||g_i||^2 in f32.
+  The TPU carries each row's sum along a sequential D grid axis, which
+  Hopper's unordered blocks cannot do.  Here:
+
+  - An even split-D grid (:func:`sqnorm_plan`): the rows go ``ROWS`` to a
+    tile and D is cut into ``n_splits`` column ranges whose widths are
+    multiples of 16 and equal to within 16 columns; one program per
+    (range, row tile), about 16 programs per SM of an H100 SXM (with
+    one program per row, the first design, 124 of 132 SMs carried two
+    rows and 8 one at K = 2).
+  - A program walks its range as ``[ROWS, BLOCK_D]`` tiles and loads the
+    next tile before it sums the current one, so two tiles per program
+    are in flight; D is passed as ``DV * VEC`` so the loads are 16 bytes
+    wide when 4 divides D.  It writes its ROWS partial sums to an
+    (n_splits, R) f32 scratch buffer.
+  - ``_sqnorm_finish_kernel`` adds each row's partials in split order.
+    One "launch" of the norms pass counts one :func:`sqnorms` call: both
+    kernels, in that order.
+  - The plan is sized for 132 SMs whatever part runs it, so the sum order
+    depends on (R, D) only: the same inputs give the same bits on a
+    132-SM and a 114-SM part.
 * ``_scale_mean_kernel`` <- ``cohort_scale_mean`` / ``_scale_mean_kernel``
   and ``_scale_mean_noise_kernel`` (dp_clip.py:104), and ``scale_mean``
   (dp_clip.py:150) at K = 1: the per-member clipped mean, plus
@@ -35,7 +56,7 @@ Replaces the Pallas TPU kernels of ``repro/kernels/dp_clip/dp_clip.py``:
     partials: an order fixed by B and K, not by the SM count, so the bits
     do not depend on which Hopper part runs it.
 
-Neither kernel uses atomics and both sum in a fixed order, so reruns are
+No kernel uses atomics and all sum in a fixed order, so reruns are
 bit-identical.
 
 Bound on the card: both passes are streaming reductions at ~0.25 FLOP
@@ -63,7 +84,18 @@ tl = None
 
 ROUTE = "triton"
 
-BLOCK_D_SQNORM = 4096
+# the norms pass: a tile holds SQNORM_TILE_ELEMS values (ROWS x BLOCK_D);
+# the plan aims at SQNORM_TILES row tiles and SQNORM_PER_SM programs per
+# SM on SQNORM_SMS SMs (an H100 SXM), whatever part runs it, so the split
+# of D depends on (R, D) only; the finishing kernel unrolls over at most
+# SQNORM_MAX_SPLITS splits
+SQNORM_SMS = 132
+SQNORM_TILE_ELEMS = 4096
+SQNORM_TILES = 64
+SQNORM_PER_SM = 16
+SQNORM_MAX_SPLITS = 64
+SQNORM_WARPS = 4
+SQNORM_FINISH_ROWS = 128
 # the clipped mean's tile by cohort size K (a K between two listed takes
 # the larger one's, a K past the last the last's): (ROWS, BLOCK_D, warps,
 # programs per SM).  At D = 317,124 each program's columns fit one
@@ -87,15 +119,40 @@ def reset_launches() -> None:
     scale_mean_launches = 0
 
 
-def _sqnorm_kernel(g_ptr, out_ptr, D, BLOCK_D: tl.constexpr):
-    row = tl.program_id(0)
-    base = g_ptr + row.to(tl.int64) * D
-    acc = tl.zeros([BLOCK_D], dtype=tl.float32)
-    for start in range(0, D, BLOCK_D):
-        offs = start + tl.arange(0, BLOCK_D)
-        x = tl.load(base + offs, mask=offs < D, other=0.0)
+def _sqnorm_kernel(g_ptr, part_ptr, R, DV, width, n_narrow,
+                   VEC: tl.constexpr, ROWS: tl.constexpr,
+                   BLOCK_D: tl.constexpr):
+    # column range s: the first n_narrow ranges take width - 16 columns,
+    # the others width (the last one cut at D)
+    s = tl.program_id(0)
+    D = DV * VEC
+    c_lo = s * width - 16 * tl.minimum(s, n_narrow)
+    c_hi = tl.minimum(c_lo + width - 16 * (s < n_narrow).to(tl.int32), D)
+    rows = tl.program_id(1) * ROWS + tl.arange(0, ROWS)
+    rmask = (rows < R)[:, None]
+    base = g_ptr + rows.to(tl.int64)[:, None] * D
+    cols = c_lo + tl.arange(0, BLOCK_D)
+    x = tl.load(base + cols[None, :], mask=rmask & (cols < c_hi)[None, :],
+                other=0.0)
+    acc = tl.zeros([ROWS, BLOCK_D], dtype=tl.float32)
+    for c0 in range(c_lo + BLOCK_D, c_hi + BLOCK_D, BLOCK_D):
+        # the next tile's loads are issued before this one is summed
+        cols = c0 + tl.arange(0, BLOCK_D)
+        x_next = tl.load(base + cols[None, :],
+                         mask=rmask & (cols < c_hi)[None, :], other=0.0)
         acc += x * x
-    tl.store(out_ptr + row, tl.sum(acc, axis=0))
+        x = x_next
+    tl.store(part_ptr + s * R + rows, tl.sum(acc, axis=1), mask=rows < R)
+
+
+def _sqnorm_finish_kernel(part_ptr, out_ptr, R, SPLITS: tl.constexpr,
+                          BLOCK_R: tl.constexpr):
+    rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
+    m = rows < R
+    acc = tl.load(part_ptr + rows, mask=m, other=0.0)
+    for s in tl.static_range(1, SPLITS):          # in split order
+        acc += tl.load(part_ptr + s * R + rows, mask=m, other=0.0)
+    tl.store(out_ptr + rows, acc, mask=m)
 
 
 def _scale_mean_kernel(g_ptr, scale_ptr, z_ptr, std_ptr, out_ptr, B, DV,
@@ -139,7 +196,30 @@ def _kernels():
     import triton
     import triton.language as _tl
     tl = _tl
-    return triton.jit(_sqnorm_kernel), triton.jit(_scale_mean_kernel)
+    return (triton.jit(_sqnorm_kernel), triton.jit(_sqnorm_finish_kernel),
+            triton.jit(_scale_mean_kernel))
+
+
+def sqnorm_plan(r: int, d: int):
+    """-> (ROWS, n_splits, width) of the norms pass over (r, d) rows:
+    row tiles of ROWS rows (a power of two, about SQNORM_TILES tiles) and
+    D cut into n_splits column ranges of width or width - 16 columns
+    (width a multiple of 16), about SQNORM_PER_SM programs per SM on
+    SQNORM_SMS SMs.  Plain ints in and out; no SM count is read, so each
+    row's sum order depends on (r, d) only."""
+    rows = 1
+    while rows < 16 and cdiv(r, 2 * rows) >= SQNORM_TILES:
+        rows *= 2
+    chunks = cdiv(d, 16)
+    n_splits = max(1, min(round(SQNORM_PER_SM * SQNORM_SMS / cdiv(r, rows)),
+                          SQNORM_MAX_SPLITS, chunks))
+    return rows, n_splits, 16 * cdiv(chunks, n_splits)
+
+
+def sqnorm_block_d(rows: int, width: int) -> int:
+    """BLOCK_D of the norms pass: SQNORM_TILE_ELEMS / ROWS columns, or the
+    power of two just above a narrower range."""
+    return min(SQNORM_TILE_ELEMS // rows, 1 << (width - 1).bit_length())
 
 
 def mean_tile(k: int):
@@ -172,15 +252,25 @@ def _check_cuda_f32(name, t, shape):
 
 
 def sqnorms(flat: torch.Tensor) -> torch.Tensor:
-    """(R, D) f32 CUDA rows -> (R,) squared norms, one kernel launch."""
+    """(R, D) f32 CUDA rows -> (R,) squared norms: one launch of the norms
+    pass (the split kernel, then the finishing kernel)."""
     global sqnorm_launches
     if flat.dim() != 2:
         raise ValueError(f"flat must be 2-D: {tuple(flat.shape)}")
     r, d = flat.shape
     _check_cuda_f32("flat", flat, (r, d))
+    rows, n_splits, width = sqnorm_plan(r, d)
+    part = torch.empty((n_splits, r), dtype=torch.float32, device=flat.device)
     out = torch.empty((r,), dtype=torch.float32, device=flat.device)
-    sq_kernel, _ = _kernels()
-    sq_kernel[(r,)](flat, out, d, BLOCK_D=BLOCK_D_SQNORM, num_warps=8)
+    sq_kernel, finish_kernel, _ = _kernels()
+    vec = 4 if d % 4 == 0 else 1
+    sq_kernel[(n_splits, cdiv(r, rows))](
+        flat, part, r, d // vec, width, n_splits * width // 16 - cdiv(d, 16),
+        VEC=vec, ROWS=rows, BLOCK_D=sqnorm_block_d(rows, width),
+        num_warps=SQNORM_WARPS)
+    finish_kernel[(cdiv(r, SQNORM_FINISH_ROWS),)](
+        part, out, r, SPLITS=n_splits, BLOCK_R=SQNORM_FINISH_ROWS,
+        num_warps=4)
     sqnorm_launches += 1
     return out
 
@@ -205,7 +295,7 @@ def cohort_scale_mean(flat: torch.Tensor, scales: torch.Tensor, *, k: int,
         _check_cuda_f32("z", z, (k, d))
         _check_cuda_f32("stddev", stddev, (1,))
     out = torch.empty((k, d), dtype=torch.float32, device=flat.device)
-    _, mean_kernel = _kernels()
+    *_, mean_kernel = _kernels()
     rows, block_d, warps, _ = mean_tile(k)
     per, span = mean_plan(k, d, sm_count(flat.device))
     vec = 4 if d % 4 == 0 else 1

@@ -1,8 +1,9 @@
-"""Launcher of the SSD intra-chunk kernel, CUDA C++ for Hopper
-(``kernels/csrc/ssd_intra.cu``).
+"""Launcher of the SSD intra-chunk kernels, CUDA C++ for Hopper: bf16
+inputs on the tensor cores (``kernels/csrc/ssd_intra_tc.cu``), f32 inputs
+on the CUDA cores (``kernels/csrc/ssd_intra.cu``).
 
 It replaces the Pallas TPU kernel ``ssd_intra_chunk`` of
-``repro/kernels/ssd_scan/ssd_scan.py``; the source's note gives its bound
+``repro/kernels/ssd_scan/ssd_scan.py``; each source's note gives its bound
 on the H100 and what the design does about it.  The library is built at
 the first launch (:mod:`repro_torch.kernels.build`).  The output is
 allocated here with ``torch.empty``; the kernel runs on PyTorch's current

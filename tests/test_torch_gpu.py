@@ -43,6 +43,25 @@ def test_dp_clip_kernels_match_plain_on_card(cuda, k, b, d, noise):
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
+@pytest.mark.parametrize("r,d", [(1, 317124), (13, 1031), (131, 4093),
+                                 (3, 37), (256, 317124), (512, 317124)],
+                         ids=str)
+def test_sqnorms_kernel_matches_plain_on_card(cuda, r, d):
+    """The split-D norms pass at R = 1, prime R and prime D and the main
+    path's R = 256 and 512: within 1e-5 of the plain version (f32 sums in
+    another order), one launch counted, and bit-identical on a rerun (the
+    partials are added in split order)."""
+    from repro_torch.kernels.dp_clip import dp_clip, ref
+    gen = torch.Generator(cuda).manual_seed(r + d)
+    flat = torch.randn((r, d), generator=gen, device=cuda) * (2.0 / d ** 0.5)
+    n0 = dp_clip.sqnorm_launches
+    got = dp_clip.sqnorms(flat)
+    torch.cuda.synchronize()
+    assert dp_clip.sqnorm_launches == n0 + 1
+    torch.testing.assert_close(got, ref.sqnorms_ref(flat), rtol=1e-5, atol=0)
+    assert torch.equal(got, dp_clip.sqnorms(flat))
+
+
 def test_kernels_refuse_wrong_inputs_on_card(cuda):
     from repro_torch.kernels.dp_clip import dp_clip
     g = torch.zeros(6, 5, device=cuda)
@@ -79,9 +98,13 @@ def test_small_run_on_card_matches_cpu_route(cuda):
 # the zoo's CUDA C++ kernels: ssd_intra_chunk and flash_decode
 # ---------------------------------------------------------------------------
 
-# (b, c, q, h, p, n): zamba2-1.2b's prefill shape, then tests/test_kernels.py's
+# (b, c, q, h, p, n): zamba2-1.2b's prefill shape, then tests/test_kernels.py's,
+# then ragged ones: q and n not multiples of 16 (element copies where n or
+# p is not a multiple of 8), p of two 64-column chunks with n past 128
 SSD_SHAPES = [(8, 16, 128, 64, 64, 64), (1, 2, 32, 2, 16, 16),
-              (2, 4, 64, 4, 64, 64), (1, 1, 128, 8, 64, 32)]
+              (2, 4, 64, 4, 64, 64), (1, 1, 128, 8, 64, 32),
+              (1, 1, 20, 2, 16, 12), (2, 3, 36, 3, 24, 40),
+              (1, 2, 64, 2, 128, 160)]
 # (B, S, H, Hkv, Dh, window, softcap, pos range): zamba2-1.2b's decode
 # shape, then GQA, windows, softcap, S below one tile, ragged S, pos = 0
 FLASH_CASES = [(8, 2112, 32, 32, 64, 0, 0.0, (2048, 2112)),

@@ -1,14 +1,21 @@
 """The launch plans of the port's split kernels, checked on the CPU: the
-host functions that cut the work of ``flash_decode`` into splits of S and
+host functions that cut the work of ``flash_decode`` into splits of S,
 that of the clipped-mean kernel (``dp_clip._scale_mean_kernel``, Triton)
-into column ranges, and a PyTorch model of each kernel's arithmetic under
-its plan, held against the plain versions and the JAX package's oracles.
+into column ranges and that of the norms pass (``dp_clip._sqnorm_kernel``,
+Triton) into row tiles and column ranges, and a PyTorch model of each
+kernel's arithmetic under its plan, held against the plain versions and
+the JAX package's oracles; and a model of the tensor-core
+``ssd_intra_chunk`` kernel's tile arithmetic (``csrc/ssd_intra_tc.cu``).
 
 The kernels themselves run only on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).  Inputs are made with numpy from a seed.  Tolerances:
 1e-6 in f32 for the split-and-merge model against the plain version (the
-same softmax, merged in another order); 1e-6 for the clipped-mean model.
+same softmax, merged in another order); 1e-6 for the clipped-mean and
+norms models (f32 sums in another order); for the SSD model the bf16
+tolerance of ``chip_smoke.py`` (rtol 5e-2, atol 1% of max |y|: the decayed
+scores and y are rounded to bf16).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,10 +23,13 @@ import torch
 
 from repro.kernels.flash_attn.ref import flash_decode_ref as r_flash_ref
 from repro.kernels.dp_clip.ops import dp_clip_mean_noise_cohort as r_clip
+from repro.kernels.dp_clip.ref import dp_clip_mean_flat_ref as r_clip_flat
+from repro.kernels.ssd_scan.ref import ssd_intra_chunk_ref as r_ssd_ref
 
 from repro_torch.kernels.dp_clip import dp_clip, ref as clip_ref
 from repro_torch.kernels.flash_attn import flash_attn
 from repro_torch.kernels.flash_attn.ref import flash_decode_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 
 # (B, S, H, Hkv, Dh, window, softcap, pos range): chip_smoke.py's
 # FLASH_CASES, the full-width decode first
@@ -303,3 +313,188 @@ def test_clipped_mean_order_does_not_depend_on_the_sm_count(k, b, d):
     jax_means = r_clip(jnp.asarray(g), 1.0)[0]
     np.testing.assert_allclose(outs[0].numpy(), np.asarray(jax_means),
                                rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the norms pass: the split-D plan
+# ---------------------------------------------------------------------------
+
+# (R, D) of chip_smoke.py's phase_kernels: the main path's K*B = 128, 256
+# and 512 rows at full D, then the awkward ones
+NORM_SHAPES = [(128, FULL_D), (256, FULL_D), (512, FULL_D), (1, FULL_D),
+               (39, 1031), (14, 37), (512, 4093)]
+
+
+def _norm_ranges(d, n_splits, width):
+    """Column range of each split, as ``_sqnorm_kernel`` computes it: the
+    first n_narrow ranges take width - 16 columns, the rest width, the
+    last cut at D."""
+    n_narrow = n_splits * width // 16 - -(-d // 16)
+    out = []
+    for s in range(n_splits):
+        lo = s * width - 16 * min(s, n_narrow)
+        out.append((lo, min(lo + width - 16 * (s < n_narrow), d)))
+    return out
+
+
+@pytest.fixture
+def fake_sm_count(monkeypatch, no_device):
+    """Make every SM-count lookup answer ``n``; returns the setter."""
+    from repro_torch.kernels import common
+
+    def set_count(n):
+        monkeypatch.setattr(common, "sm_count", lambda dev: n)
+        monkeypatch.setattr(dp_clip, "sm_count", lambda dev: n)
+    return set_count
+
+
+@pytest.mark.parametrize("n_sm", SM_COUNTS)
+@pytest.mark.parametrize("r,d", NORM_SHAPES, ids=str)
+def test_norm_plan_covers_every_value_once(fake_sm_count, r, d, n_sm):
+    """Every (row, column) is summed by exactly one program; the ranges
+    are multiples of 16 columns wide (the last cut at D) and equal to
+    within 16 columns; the plan is the same whatever the SM count."""
+    fake_sm_count(n_sm)
+    rows, n_splits, width = dp_clip.sqnorm_plan(r, d)
+    assert all(type(v) is int for v in (rows, n_splits, width))
+    assert width % 16 == 0 and rows & (rows - 1) == 0
+    assert 1 <= n_splits <= dp_clip.SQNORM_MAX_SPLITS
+    seen = np.zeros((r, d), np.int64)
+    ranges = _norm_ranges(d, n_splits, width)
+    for t in range(-(-r // rows)):
+        for lo, hi in ranges:
+            assert hi > lo, "a program without columns"
+            seen[t * rows:(t + 1) * rows, lo:hi] += 1
+    assert (seen == 1).all()
+    widths = [hi - lo for lo, hi in ranges]
+    assert all(w % 16 == 0 for w in widths[:-1])
+    assert max(widths) - min(widths) <= 16
+    fake_sm_count(SM_COUNTS[0])
+    assert dp_clip.sqnorm_plan(r, d) == (rows, n_splits, width)
+
+
+@pytest.mark.parametrize("r", [256, 512])
+def test_norm_plan_is_balanced_on_132_sms(no_device, r):
+    """At K = 2 and 4 (R = 256, 512) at full D: a whole number of
+    programs per SM of an H100 SXM, between 8 and 20, every program with
+    the same rows and the same columns to within 16, and a range several
+    tiles long."""
+    rows, n_splits, width = dp_clip.sqnorm_plan(r, FULL_D)
+    n_prog = n_splits * -(-r // rows)
+    assert n_prog % H100_SMS == 0
+    assert 8 <= n_prog // H100_SMS <= 20
+    assert r % rows == 0
+    assert width >= 4 * dp_clip.sqnorm_block_d(rows, width)
+
+
+def _tree_sum(v):
+    """The in-tile reduction, modelled as halving: a fixed order for a
+    fixed BLOCK_D (Triton's own tree is another fixed one)."""
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
+def sqnorm_model(flat):
+    """The norms pass's arithmetic under its plan: per row tile and range,
+    BLOCK_D lanes each summing their columns tile by tile in order, the
+    lanes reduced in a fixed tree; then each row's partials added in split
+    order."""
+    r, d = flat.shape
+    rows, n_splits, width = dp_clip.sqnorm_plan(r, d)
+    block_d = dp_clip.sqnorm_block_d(rows, width)
+    parts = []
+    for lo, hi in _norm_ranges(d, n_splits, width):
+        acc = torch.zeros(r, block_d)
+        for c0 in range(lo, hi, block_d):
+            x = torch.zeros(r, block_d)
+            x[:, :min(block_d, hi - c0)] = flat[:, c0:min(c0 + block_d, hi)]
+            acc = acc + x * x
+        parts.append(_tree_sum(acc))
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+@pytest.mark.parametrize("r,d", [(39, 1031), (14, 37), (7, 4093),
+                                 (2, 20011), (1, 600)], ids=str)
+def test_norm_order_does_not_depend_on_the_sm_count(fake_sm_count, r, d):
+    rng = np.random.default_rng(r * 1000 + d)
+    g = (rng.standard_normal((r, d)) * 0.05).astype(np.float32)
+    flat = torch.from_numpy(g)
+    outs = []
+    for n_sm in SM_COUNTS:
+        fake_sm_count(n_sm)
+        outs.append(sqnorm_model(flat))
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    torch.testing.assert_close(outs[0], clip_ref.sqnorms_ref(flat),
+                               rtol=1e-6, atol=0)
+    jax_norms = jax.vmap(lambda row: r_clip_flat(row[None], 1.0)[1])(
+        jnp.asarray(g))
+    np.testing.assert_allclose(outs[0].numpy(),
+                               np.square(np.asarray(jax_norms)), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# ssd_intra_chunk: the tensor-core kernel's tile arithmetic
+# ---------------------------------------------------------------------------
+
+# (b, c, q, h, p, n): chip_smoke.py's SSD_SHAPES with the full-width one
+# cut from b * c = 128 chunks to 2 (its widths kept), then the ragged ones
+SSD_TC_SHAPES = [(1, 2, 128, 64, 64, 64), (1, 2, 32, 2, 16, 16),
+                 (2, 4, 64, 4, 64, 64), (1, 1, 128, 8, 64, 32),
+                 (1, 1, 20, 2, 16, 12), (2, 3, 36, 3, 24, 40),
+                 (1, 2, 64, 2, 128, 160)]
+LOG2E = 1.4426950408889634
+
+
+def ssd_tc_model(xr, ar, Br, Cr):
+    """The bf16 kernel's arithmetic: q padded to 16-row blocks with zeros;
+    S = C.B^T in f32; on the causal lower triangle, masked BEFORE exp, the
+    decay exp2(cs_i - cs_j) with cs the cumsum of a in log2 units; the
+    decayed scores rounded to bf16; y_i summed over the key blocks j in
+    order in f32, then rounded to bf16."""
+    b, c, q, h, p = xr.shape
+    qp = -(-q // 16) * 16
+    pad = qp - q
+    x = torch.nn.functional.pad(xr.float(), (0, 0, 0, 0, 0, pad))
+    B = torch.nn.functional.pad(Br.float(), (0, 0, 0, pad))
+    C = torch.nn.functional.pad(Cr.float(), (0, 0, 0, pad))
+    cs = torch.cumsum(torch.nn.functional.pad(ar, (0, pad)), -1)
+    cs = (cs * np.float32(LOG2E)).permute(0, 2, 1, 3)          # (b,c,h,qp)
+    S = torch.matmul(C, B.transpose(-1, -2))[:, :, None]       # (b,c,1,i,j)
+    d = cs[..., :, None] - cs[..., None, :]                   # (b,c,h,i,j)
+    mask = torch.tril(torch.ones(qp, qp, dtype=torch.bool))
+    w = torch.where(mask, S * torch.exp2(torch.where(mask, d, 0.0)), 0.0)
+    P = w.to(torch.bfloat16).float()
+    xh = x.permute(0, 1, 3, 2, 4)                              # (b,c,h,j,p)
+    y = torch.zeros(b, c, h, qp, p)
+    for jb in range(0, qp, 16):
+        y = y + torch.matmul(P[..., jb:jb + 16], xh[..., jb:jb + 16, :])
+    return y.permute(0, 1, 3, 2, 4)[:, :, :q].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", SSD_TC_SHAPES, ids=str)
+def test_ssd_tensor_core_model_matches_jax_oracle_bf16(shape):
+    b, c, q, h, p, n = shape
+    rng = np.random.default_rng(q * 100 + n)
+    xr = rng.standard_normal((b, c, q, h, p)).astype(np.float32)
+    ar = (-rng.random((b, h, c, q)) * 0.2).astype(np.float32)
+    Br = rng.standard_normal((b, c, q, n)).astype(np.float32)
+    Cr = rng.standard_normal((b, c, q, n)).astype(np.float32)
+    tx, tB, tC = (torch.from_numpy(v).to(torch.bfloat16)
+                  for v in (xr, Br, Cr))
+    got = ssd_tc_model(tx, torch.from_numpy(ar), tB, tC)
+    assert got.dtype == torch.bfloat16 and got.shape == tx.shape
+    bf = jnp.bfloat16
+    want = np.asarray(r_ssd_ref(jnp.asarray(xr).astype(bf), jnp.asarray(ar),
+                                jnp.asarray(Br).astype(bf),
+                                jnp.asarray(Cr).astype(bf)), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=5e-2,
+                               atol=1e-2 * float(np.abs(want).max()))
+    plain = ssd_intra_chunk_ref(tx, torch.from_numpy(ar), tB, tC)
+    torch.testing.assert_close(got.float(), plain, rtol=5e-2,
+                               atol=1e-2 * float(plain.abs().max()))

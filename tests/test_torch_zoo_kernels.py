@@ -232,7 +232,7 @@ def test_build_declares_every_c_entry_point_the_sources_define():
                                   src.read_text()))
     assert set(build.SIGNATURES) | {"repro_cuda_error_string"} == defined
     assert {p.name for p in build.CSRC.glob("*.cu")} == {
-        "errors.cu", "flash_decode.cu", "ssd_intra.cu"}
+        "errors.cu", "flash_decode.cu", "ssd_intra.cu", "ssd_intra_tc.cu"}
 
 
 def test_build_dir_is_keyed_by_sources_and_ignored_by_git():
