@@ -27,26 +27,36 @@ package ``repro``) and fails with a non-zero exit on the first problem:
 5. a small-input check of the card's run against the CPU plain route
    (which the CPU tests hold to the JAX reference);
 6. a bit-identical rerun;
-7. where one full-width cohort's time goes (profiled cohort step, idle
+7. [api] ``Session.sweep`` of the main path's configuration over sigma in
+   {0.5, 1, 1.5, 2} x {FedAvg, FedAsync}, cold then warm: step builds
+   within the sweep's budget cold and 0 warm, the Triton kernels recorded
+   at every point, the wall per point and the time of one step build;
+8. [legacy] the legacy per-client loop at full width: dp_clip launched
+   once per client local step, at K = 1, and member local steps/s;
+9. [robust] faults and screening: the tiny testbed on the card against
+   the CPU plain route (equal fault events, counters and bookkeeping),
+   then full width on the card (the screening ledger, every x50 upload
+   delivered to the screen and rejected there, a bit-identical rerun);
+10. where one full-width cohort's time goes (profiled cohort step, idle
    share, the fused step's stages);
-8. [kernels-zoo] the CUDA C++ kernels ``ssd_intra_chunk`` and
+11. [kernels-zoo] the CUDA C++ kernels ``ssd_intra_chunk`` and
    ``flash_decode`` against their plain versions, at zamba2-1.2b's shapes,
    the awkward ones of ``tests/test_kernels.py`` and the split-S cases
    (pos = 0 at full width, a window across chunks, GQA 56/8 at Dh 128,
    GQA 2 at Dh 256 with softcap), f32 and bf16; each instantiation's
    registers, shared memory and spills from nvcc's log;
-9. [times-zoo] their times, plain and library times and bounds at
+12. [times-zoo] their times, plain and library times and bounds at
    zamba2-1.2b's shapes, ``flash_decode`` at pos = S - 1 and S / 2 with
    its split plan;
-10. [serve] zamba2-1.2b at full width (38 layers, d_model 2048, bf16,
+13. [serve] zamba2-1.2b at full width (38 layers, d_model 2048, bf16,
     random weights from a seed): one prefill of 8 prompts of 2048 tokens,
     then 64 greedy decode steps; 38 ``ssd_intra_chunk`` and 6 x 64
     ``flash_decode`` launches;
-11. [serve-small] the reduced config on the card against the CPU plain
+14. [serve-small] the reduced config on the card against the CPU plain
     route, same weights;
-12. [serve-rerun] the full-width serve again: bit-identical logits and
+15. [serve-rerun] the full-width serve again: bit-identical logits and
     tokens;
-13. [serve-breakdown] one profiled prefill and decode step: top device
+16. [serve-breakdown] one profiled prefill and decode step: top device
     kernels and the device idle share.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -445,6 +455,346 @@ def phase_rerun():
               "eps_trajectory", "local_acc", "cohort_sizes", "influence"):
         require(getattr(l1, f) == getattr(l2, f), f"rerun RunLog.{f} differs")
     log("[rerun] full-width fedasync rerun: params and RunLog bit-identical")
+
+
+# ---------------------------------------------------------------------------
+# the declarative API, the legacy loop, faults and screening
+# ---------------------------------------------------------------------------
+
+# faults of every kind (corrupted uploads all-NaN or their delta x 50) and
+# a screen that rejects update norms above the threshold; the tiny
+# testbed's clean norms are ~0.1 and its x50 ones 4-6 (threshold 1), the
+# full width's 0.8-1.8 and 41-56 on an H100 (threshold 8); _ledger
+# checks every run's norms lie a factor 2 or more from the threshold
+ROBUST_FAULTS = dict(seed=1, failure_prob=0.1, upload_loss_prob=0.2,
+                     late_prob=0.1, duplicate_prob=0.1, leave_prob=0.1,
+                     corrupt_prob=0.3, corrupt_scale=50.0)
+FEDAVG_FAULTS = dict(ROBUST_FAULTS, seed=2, leave_prob=0.2,
+                     round_deadline_s=300.0, min_quorum=2)
+# at full width (testbed seed 0) fault seed 2 drops 2 of its 4 x50 uploads
+# at the deadline, before the screen; seed 11 delivers all 3 of its x50
+# uploads in time and still drops 6 others at the deadline (the timeline
+# depends only on the tier clocks and the fault seed)
+FULL_FEDAVG_FAULTS = dict(FEDAVG_FAULTS, seed=11)
+SMALL_THRESHOLD, FULL_THRESHOLD = 1.0, 8.0
+
+
+def _main_cfg(**kw):
+    from repro_torch.core.testbed import TestbedConfig
+    return TestbedConfig(batch_size=128, sigma=1.0, dp_path="pallas", **kw)
+
+
+def _steps(cfg):
+    """Every client's local steps per round; the default corpus gives all
+    five clients the same count."""
+    from repro_torch.core.testbed import build_partitions
+    from repro_torch.engine.cohort import steps_per_round
+    counts = {steps_per_round(tr["y"].shape[0], cfg.batch_size,
+                              cfg.local_epochs)
+              for tr, _ in build_partitions(cfg)[0]}
+    require(len(counts) == 1, f"clients differ in local steps: {counts}")
+    return counts.pop()
+
+
+def phase_api(smi):
+    """``Session.sweep`` on the card: the [main] configuration over sigma x
+    strategy, cold (the step cache emptied first) and again warm."""
+    import torch
+    from repro_torch.analysis.guard import sweep_max_builds
+    from repro_torch.api import ExperimentSpec, RunBudget, Session, \
+        StrategySpec
+    from repro_torch.engine import cohort_step
+    from repro_torch.engine.engine import EngineConfig
+    from repro_torch.kernels.dp_clip import dp_clip
+    spec = ExperimentSpec(
+        testbed=_main_cfg(), strategy=StrategySpec("fedasync", alpha=0.4),
+        run=RunBudget(rounds=1, max_updates=10, eval_every=10),
+        engine=EngineConfig(staleness_window=120.0, max_cohort=4))
+    axes = {"testbed.sigma": [0.5, 1.0, 1.5, 2.0],
+            "strategy": [StrategySpec("fedavg"),
+                         StrategySpec("fedasync", alpha=0.4)]}
+    sess = Session()
+    cohort_step.invalidate_step_cache()
+    walls, rates, deltas, launches = {}, {}, {}, {}
+    for turn in ("cold", "warm"):
+        b0 = cohort_step.step_builds()
+        dp_clip.reset_launches()
+        res = sess.sweep(spec, axes)
+        torch.cuda.synchronize()
+        deltas[turn] = cohort_step.step_builds() - b0
+        launches[turn] = (dp_clip.sqnorm_launches,
+                          dp_clip.scale_mean_launches)
+        walls[turn] = res.wall_s
+        rates[turn] = [_steps(s.testbed) * sum(log_.cohort_sizes) / w
+                       for s, log_, w in zip(res.specs, res.logs, res.wall_s)]
+        for point, log_ in zip(res.points, res.logs):
+            info = log_.engine_stats["pallas_interpret"]
+            require(info["kernel"] == "triton" and info["launches"] > 0,
+                    f"[api] {turn} {point}: kernels not recorded: {info}")
+        require(launches[turn][0] == launches[turn][1] > 0,
+                f"[api] {turn}: dp_clip launches {launches[turn]}")
+    # what a step-cache miss costs: one make_cohort_step call of this
+    # configuration (closures only; the port compiles nothing), best of 20
+    c0 = sess._clients[0]
+    build_s = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        cohort_step.make_cohort_step(c0.loss_fn, c0.dp_cfg, c0.opt,
+                                     use_dp=c0.use_dp, dp_path=c0.dp_path)
+        build_s.append(time.perf_counter() - t0)
+    budget = sweep_max_builds(res.specs)
+    require(deltas["cold"] <= budget,
+            f"[api] cold sweep built {deltas['cold']} steps, budget {budget}")
+    require(deltas["warm"] == 0,
+            f"[api] warm sweep built {deltas['warm']} steps")
+    log(f"[api] {smi}; Session.sweep over sigma x strategy (8 points, full "
+        f"width, 1 round / 10 updates each): step builds cold "
+        f"{deltas['cold']} (budget {budget}), warm {deltas['warm']}; "
+        f"dp_clip launches (norms, mean) cold {launches['cold']} warm "
+        f"{launches['warm']}")
+    for turn in ("cold", "warm"):
+        log(f"[api] {turn} wall per point (s): "
+            f"{[round(w, 3) for w in walls[turn]]}; sum "
+            f"{sum(walls[turn]):.3f} s; member local steps/s per point "
+            f"{[round(r, 1) for r in rates[turn]]}")
+    log(f"[api] one make_cohort_step build (a step-cache miss): "
+        f"{min(build_s) * 1e6:.1f} us best of 20, median "
+        f"{sorted(build_s)[10] * 1e6:.1f} us; the shortest warm sweep point "
+        f"{min(walls['warm']):.3f} s")
+    for row in res.table():
+        log(f"[api]   {row}")
+    log(f"[api] session layers: {sess.stats()}")
+
+
+def phase_legacy(smi):
+    """The legacy per-client loop at full width in one Session: one FedAvg
+    round, then 10 FedAsync updates; every client local step is one K = 1
+    dp_clip call.  The same FedAsync spec then runs on the engine at
+    ``staleness_window=0`` (cohorts of one) in the same session, for
+    member local steps/s side by side."""
+    import dataclasses
+    import torch
+    from repro_torch.api import ExperimentSpec, RunBudget, Session, \
+        StrategySpec
+    from repro_torch.kernels.dp_clip import dp_clip, ops
+    cfg = _main_cfg()
+    steps = _steps(cfg)
+    specs = {
+        "fedavg": ExperimentSpec(testbed=cfg, strategy=StrategySpec("fedavg"),
+                                 run=RunBudget(rounds=1), backend="legacy"),
+        "fedasync": ExperimentSpec(
+            testbed=cfg, strategy=StrategySpec("fedasync", alpha=0.4),
+            run=RunBudget(max_updates=10, eval_every=10), backend="legacy")}
+    sess = Session()
+    ks = []
+    real = ops.dp_clip_mean_noise_cohort
+
+    def recorded(g, *a, **kw):
+        ks.append(int(g.shape[0]))
+        return real(g, *a, **kw)
+
+    ops.dp_clip_mean_noise_cohort = recorded
+    try:
+        walls, counts = {}, {}
+        for name, spec in specs.items():
+            dp_clip.reset_launches()
+            t0 = time.perf_counter()
+            p, log_ = sess.run(spec)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            updates = sum(log_.update_counts.values())
+            # local trains: every client per round (fedavg); every client
+            # at start, then one re-dispatch per merge but the last (async)
+            trains = (5 * spec.run.rounds if name == "fedavg"
+                      else 5 + updates - 1)
+            counts[name] = (dp_clip.sqnorm_launches,
+                            dp_clip.scale_mean_launches, trains * steps)
+            require(counts[name][0] == counts[name][1] == trains * steps,
+                    f"[legacy] {name}: launches {counts[name][:2]}, "
+                    f"expected {trains} local trains x {steps} steps")
+            _check_finite(p, f"[legacy] {name}")
+    finally:
+        ops.dp_clip_mean_noise_cohort = real
+    require(set(ks) == {1}, f"[legacy] dp_clip cohort sizes {set(ks)}")
+    for name in walls:
+        n = counts[name][2]
+        log(f"[legacy] {smi}; {name}: {n} client local steps, launches "
+            f"(norms, mean) {counts[name][:2]} all at K = 1; "
+            f"{walls[name]:.3f} s wall = {n / walls[name]:.2f} member local "
+            f"steps/s (one eval, the testbed built in the fedavg run)")
+    engine_spec = dataclasses.replace(specs["fedasync"], backend="cohort")
+    for turn in ("first", "warm"):
+        t0 = time.perf_counter()
+        _, log_ = sess.run(engine_spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = steps * sum(log_.cohort_sizes)
+        log(f"[legacy] the same fedasync spec on the engine "
+            f"(staleness_window=0, cohorts of one), {turn} run: {n} member "
+            f"local steps, {wall:.3f} s wall = {n / wall:.2f} member local "
+            f"steps/s")
+
+
+def _check_finite(params, what):
+    import torch
+    from repro_torch.pytree import tree_leaves
+    for leaf in tree_leaves(params):
+        require(bool(torch.isfinite(leaf).all()), f"{what}: nonfinite params")
+
+
+def _robust_specs(tb, threshold, fedavg_faults, fedavg_kw):
+    import dataclasses
+    from repro_torch.api import ExperimentSpec, RunBudget, StrategySpec
+    from repro_torch.core.faults import FaultModel
+    from repro_torch.core.screening import ScreeningConfig
+    tb = dataclasses.replace(tb, screening=ScreeningConfig(
+        max_update_norm=threshold, quarantine_after=2))
+    return {
+        "fedasync_normbound": ExperimentSpec(
+            testbed=dataclasses.replace(
+                tb, faults=FaultModel(**ROBUST_FAULTS)),
+            strategy=StrategySpec("fedasync_normbound", alpha=0.4,
+                                  norm_bound=threshold / 10),
+            run=RunBudget(max_updates=10, eval_every=5)),
+        "fedavg_trimmed": ExperimentSpec(
+            testbed=dataclasses.replace(
+                tb, faults=FaultModel(**fedavg_faults)),
+            strategy=StrategySpec("fedavg_trimmed", trim_frac=0.34),
+            run=RunBudget(rounds=3, eval_every=1), **fedavg_kw)}
+
+
+def _screened(sess, spec):
+    """Run ``spec``, recording every screen verdict's (cid, t, finite,
+    norm)."""
+    from repro_torch.core.screening import ScreeningState
+    calls = []
+    screen = ScreeningState.screen
+
+    def recorded(self, cid, t, finite, norm):
+        calls.append((cid, t, bool(finite), float(norm)))
+        return screen(self, cid, t, finite, norm)
+
+    ScreeningState.screen = recorded
+    try:
+        params, log_ = sess.run(spec)
+    finally:
+        ScreeningState.screen = screen
+    return params, log_, calls
+
+
+def _ledger(log_, calls, threshold, what, deadline_ok):
+    """The screening ledger laws, and every corrupted upload at scale >= 10
+    rejected (a norm reject, or dropped while its client is suspended).
+    A corrupted upload dropped at the round's deadline never meets the
+    screen: allowed only where ``deadline_ok``, and returned apart."""
+    st = log_.engine_stats
+    require(st["screen_rejections"]
+            == st["screen_nonfinite"] + st["screen_norm_rejects"],
+            f"{what}: screen_rejections != nonfinite + norm rejects: {st}")
+    require(st["screen_verdict_syncs"] == st["cohorts"],
+            f"{what}: verdict fetches {st['screen_verdict_syncs']} for "
+            f"{st['cohorts']} cohorts")
+    events = {(k, c, t) for k, c, t in log_.fault_events}
+    scaled = [(c, t) for k, c, t in log_.fault_events if k == "corrupt_scale"]
+    late = [(c, t) for c, t in scaled if ("deadline_drop", c, t) in events]
+    require(deadline_ok or not late,
+            f"{what}: corrupted uploads {late} dropped at the deadline, "
+            f"before the screen")
+    for c, t in scaled:
+        require(("screen_norm", c, t) in events
+                or ("quarantine_drop", c, t) in events
+                or (c, t) in late,
+                f"{what}: corrupted upload of client {c} at t={t} merged")
+    by_key = {(c, t): n for c, t, f, n in calls if f}
+    bad = {(c, t) for c, t in scaled}
+    clean = [n for k, n in by_key.items() if k not in bad]
+    hot = [n for k, n in by_key.items() if k in bad]
+    require(all(n < threshold / 2 for n in clean)
+            and all(n > 2 * threshold for n in hot),
+            f"{what}: norms too close to the threshold {threshold}: clean "
+            f"{clean} corrupted {hot}")
+    return scaled, late, clean, hot
+
+
+def phase_robust(smi):
+    """Faults + screening: the tiny testbed on the card against the CPU
+    plain route, then the full width on the card (ledger laws, a
+    bit-identical rerun)."""
+    import dataclasses
+    import torch
+    from repro_torch.api import Session
+    from repro_torch.core.testbed import TestbedConfig
+    from repro_torch.data.synthetic_ser import SERDataConfig
+    from repro_torch.engine.engine import EngineConfig
+    from repro_torch.models.ser_cnn import SERConfig
+    from repro_torch.pytree import tree_leaves
+    dims = dict(time_frames=12, n_mels=12)
+    small = TestbedConfig(
+        batch_size=16, sigma=0.0, dp_path="pallas", seed=3,
+        data=SERDataConfig(n_total=360, **dims),
+        model=SERConfig(channels1=8, channels2=16, fc_dim=32, **dims))
+    specs = _robust_specs(small, SMALL_THRESHOLD, FEDAVG_FAULTS,
+                          dict(engine=EngineConfig(max_cohort=2)))
+    gpu, cpu = Session(), Session(device="cpu")
+    for name, spec in specs.items():
+        p_g, l_g, c_g = _screened(gpu, spec)
+        p_c, l_c, c_c = _screened(cpu, spec)
+        for f in ("fault_events", "times", "update_counts", "staleness",
+                  "eps_trajectory", "cohort_sizes"):
+            require(getattr(l_g, f) == getattr(l_c, f),
+                    f"[robust] small {name}: {f} differs card vs CPU")
+        keys = [k for k in l_g.engine_stats
+                if k.startswith(("fault_", "screen_", "degraded", "deadline"))]
+        require({k: l_g.engine_stats[k] for k in keys}
+                == {k: l_c.engine_stats[k] for k in keys},
+                f"[robust] small {name}: counters differ card vs CPU")
+        d = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)))
+        require(d < 1e-2, f"[robust] small {name}: params differ by {d}")
+        _ledger(l_g, c_g, SMALL_THRESHOLD, f"[robust] small {name}",
+                deadline_ok=True)
+        log(f"[robust] small {name}: card vs CPU fault events "
+            f"({len(l_g.fault_events)}), counters, bookkeeping equal, max "
+            f"|dparam| {d:.3e}; counters "
+            f"{ {k: l_g.engine_stats[k] for k in keys if l_g.engine_stats[k]} }")
+    full = _robust_specs(_main_cfg(), FULL_THRESHOLD, FULL_FEDAVG_FAULTS, dict(
+        engine=EngineConfig(staleness_window=120.0, max_cohort=4)))
+    full["fedasync_normbound"] = dataclasses.replace(
+        full["fedasync_normbound"],
+        engine=EngineConfig(staleness_window=120.0, max_cohort=4))
+    sess = Session()
+    for name, spec in full.items():
+        t0 = time.perf_counter()
+        p1, l1, c1 = _screened(sess, spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        p2, l2, c2 = _screened(sess, spec)
+        _check_finite(p1, f"[robust] full {name}")
+        for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
+            require(torch.equal(a, b), f"[robust] full {name}: rerun params "
+                    "are not bit-identical")
+        for f in ("fault_events", "times", "global_acc", "update_counts",
+                  "eps_trajectory", "cohort_sizes", "engine_stats"):
+            require(getattr(l1, f) == getattr(l2, f),
+                    f"[robust] full {name}: rerun RunLog.{f} differs")
+        require(repr(c1) == repr(c2),
+                f"[robust] full {name}: rerun verdicts differ")
+        scaled, _, clean, hot = _ledger(l1, c1, FULL_THRESHOLD,
+                                        f"[robust] full {name}",
+                                        deadline_ok=False)
+        st = l1.engine_stats
+        events = {tuple(e) for e in l1.fault_events}
+        norm_rejected = sum(("screen_norm", c, t) in events
+                            for c, t in scaled)
+        log(f"[robust] {smi}; full {name}: {sum(l1.update_counts.values())} "
+            f"updates in {wall:.3f} s; corrupted x50 uploads {len(scaled)}, "
+            f"each delivered and rejected ({norm_rejected} norm rejects, "
+            f"{len(scaled) - norm_rejected} dropped in quarantine), deadline "
+            f"drops {st['deadline_drops']}; screen counters "
+            f"{ {k: v for k, v in st.items() if k.startswith('screen_')} }; "
+            f"update norms clean {min(clean):.3f}-{max(clean):.3f}, "
+            f"corrupted {[round(n, 1) for n in hot]} (threshold "
+            f"{FULL_THRESHOLD}); rerun bit-identical")
 
 
 def phase_breakdown(smi):
@@ -952,6 +1302,9 @@ def main():
     launches = phase_main_path()
     phase_small_vs_cpu()
     phase_rerun()
+    phase_api(smi)
+    phase_legacy(smi)
+    phase_robust(smi)
     phase_breakdown(smi)
     errs.update(phase_kernels_zoo(dev))
     times.update(phase_times_zoo(dev, smi))

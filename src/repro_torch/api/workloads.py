@@ -71,6 +71,11 @@ def get_workload(name: str) -> Workload:
             f"(registered: {', '.join(sorted(_REGISTRY))})") from None
 
 
+def workload_names() -> tuple:
+    """Names of every registered workload (sorted)."""
+    return tuple(sorted(_REGISTRY))
+
+
 # ---------------------------------------------------------------------------
 # built-ins
 # ---------------------------------------------------------------------------

@@ -2,12 +2,12 @@
 paper's figures/tables need, plus the engine's cohort statistics.
 
 ``ENGINE_STATS_KEYS`` is key-for-key the reference's schema
-(runlog.py:42).  The fault, screening and tiered-store counter names are
-copied constants here (the reference takes them from
-``repro.core.faults``, ``repro.core.screening`` and its own store tuple);
-in this slice of the port those features do not exist yet and their
-counters are always zero.  The ``pallas_interpret`` slot holds the port's
-kernel-dispatch record (:func:`repro_torch.kernels.common.kernel_info`).
+(runlog.py:42).  The fault and screening counter names come from
+:mod:`repro_torch.core.faults` and :mod:`repro_torch.core.screening`,
+next to the code that increments them; the tiered-store counters are
+defined here (the store is not ported yet, so they are always zero).
+The ``pallas_interpret`` slot holds the port's kernel-dispatch record
+(:func:`repro_torch.kernels.common.kernel_info`).
 """
 from __future__ import annotations
 
@@ -15,28 +15,8 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from repro_torch.core.fairness import fairness_report
-
-FAULT_STATS_KEYS = (
-    "fault_failures",
-    "fault_upload_losses",
-    "fault_retries",
-    "fault_lost_updates",
-    "fault_duplicates_dropped",
-    "fault_late_deliveries",
-    "fault_churn_leaves",
-    "fault_corruptions",
-    "degraded_cohorts",
-    "deadline_drops",
-)
-
-SCREEN_STATS_KEYS = (
-    "screen_rejections",
-    "screen_nonfinite",
-    "screen_norm_rejects",
-    "screen_quarantined",
-    "screen_quarantine_drops",
-    "screen_verdict_syncs",
-)
+from repro_torch.core.faults import FAULT_STATS_KEYS
+from repro_torch.core.screening import SCREEN_STATS_KEYS
 
 STORE_STATS_KEYS = (
     "store_fetches",
@@ -63,10 +43,10 @@ ENGINE_STATS_KEYS = (
 ) + FAULT_STATS_KEYS + SCREEN_STATS_KEYS + STORE_STATS_KEYS
 
 
-def zero_feature_stats() -> dict:
-    """The fault/screen/store counters of a run without those features."""
-    return {k: 0 for k in FAULT_STATS_KEYS + SCREEN_STATS_KEYS
-            + STORE_STATS_KEYS}
+def zero_store_stats() -> dict:
+    """The store counters of an all-resident run (the only kind the port
+    has)."""
+    return {k: 0 for k in STORE_STATS_KEYS}
 
 
 def validate_engine_stats(stats: dict, context: str = "engine_stats"):
@@ -123,3 +103,16 @@ def eval_all(clients, params, accuracy_fn, log: RunLog):
     """Append every client's local-test accuracy to the log."""
     for c in clients:
         log.local_acc.setdefault(c.tier, []).append(c.evaluate(params, accuracy_fn))
+
+
+def finish_log(log: RunLog, clients, injector=None, screener=None):
+    """End-of-run bookkeeping shared by both backends: resource samples,
+    dropouts, and the fault then screening events in order."""
+    for c in clients:
+        log.resources[c.tier] = c.clock.resource_sample()
+        log.dropouts[c.tier] = c.clock.dropouts
+    if injector is not None or screener is not None:
+        ev = list(injector.events) if injector is not None else []
+        if screener is not None:
+            ev += list(screener.events)
+        log.fault_events = ev

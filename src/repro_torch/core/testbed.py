@@ -1,12 +1,12 @@
 """Wires the paper testbed on the port (port of ``repro/core/testbed.py``):
 synthetic CREMA-D + heterogeneous clients (HW_T1..T5) + a registry
-workload + DP-SGD + the cohort engine.
+workload + DP-SGD + the server loops.
 
-Layers as in the reference: :func:`build_partitions` (pure numpy corpus,
-partitions and splits — bitwise the reference's), :func:`build_clients`,
-:func:`build_testbed`; :func:`run_experiment` keeps the reference's
-signature (``engine="cohort"`` only) and calls the engine loops directly
-(the declarative ``ExperimentSpec``/``Session`` API is the next slice).
+Layers the Session keys on, as in the reference: :func:`build_partitions`
+(pure numpy corpus, partitions and splits — bitwise the reference's;
+keyed by :func:`partition_key`), :func:`build_clients`,
+:func:`build_testbed`.  :func:`run_experiment` keeps the reference's
+signature and is, as there, a shim over :class:`repro_torch.api.Session`.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -17,10 +17,11 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.core.aggregation import make_strategy
 from repro_torch.core.client import Client
 from repro_torch.core.dp import DPConfig, validate_dp_path
+from repro_torch.core.faults import FaultModel
 from repro_torch.core.heterogeneity import PROFILES, TIERS
+from repro_torch.core.screening import ScreeningConfig
 from repro_torch.data.partition import dirichlet_partition, iid_partition
 from repro_torch.data.synthetic_ser import (
     SERDataConfig, generate, train_test_split)
@@ -41,26 +42,25 @@ class TestbedConfig:
     sigma: float = 1.0             # paper sweeps {0.5, 1, 1.5, 2}
     use_dp: bool = True
     dp_path: str = "jnp"           # "jnp" | "pallas" (fused dp_clip kernels)
-    personalized: bool = False     # not ported yet (legacy client slice)
+    personalized: bool = False     # per-client local output head (beyond-paper)
     partition: str = "iid"         # iid (paper) | dirichlet (beyond-paper)
     dirichlet_alpha: float = 0.5
     seed: int = 0
     data: SERDataConfig = SERDataConfig()
     model: ser_cnn.SERConfig = ser_cnn.SERConfig()
     workload: str = "ser_cnn"      # repro_torch.api.workloads entry
-    faults: Optional[object] = None     # not ported yet (must be None)
-    screening: Optional[object] = None  # not ported yet (must be None)
+    faults: Optional[FaultModel] = None  # deterministic fault injection
+                                   # (core.faults; None = fault-free run)
+    screening: Optional[ScreeningConfig] = None  # update screening /
+                                   # quarantine (core.screening; None =
+                                   # every delivered upload merges)
 
 
-def _check_ported(cfg: TestbedConfig):
-    for name, bad in (("personalized", cfg.personalized),
-                      ("faults", cfg.faults is not None),
-                      ("screening", cfg.screening is not None)):
-        if bad:
-            raise ValueError(
-                f"TestbedConfig.{name} is not ported yet (ROADMAP.md "
-                "queue 1: 'legacy client and server loop' / 'faults, "
-                "screening, robust defence')")
+def partition_key(cfg: TestbedConfig) -> tuple:
+    """The fields :func:`build_partitions` depends on: sweeps that touch
+    anything else reuse the generated partitions."""
+    return (cfg.data, cfg.partition, cfg.dirichlet_alpha,
+            cfg.num_clients, cfg.seed)
 
 
 def build_partitions(cfg: TestbedConfig):
@@ -89,7 +89,6 @@ def build_clients(cfg: TestbedConfig, splits) -> list:
     """Wrap partitions in Client objects (tier cycling for >5 clients)."""
     from repro_torch.api.workloads import get_workload
     validate_dp_path(cfg.dp_path)
-    _check_ported(cfg)
     wl = get_workload(cfg.workload)
     loss = wl.shared_loss(cfg.model)
     opt = Adam(lr=cfg.lr)
@@ -105,7 +104,8 @@ def build_clients(cfg: TestbedConfig, splits) -> list:
             cid=cid, tier=tier, profile=PROFILES[tier], data=tr,
             test_data=te, loss_fn=loss, dp_cfg=dp_cfg, opt=opt,
             batch_size=cfg.batch_size, local_epochs=cfg.local_epochs,
-            seed=cfg.seed, use_dp=cfg.use_dp, dp_path=cfg.dp_path))
+            seed=cfg.seed, use_dp=cfg.use_dp, dp_path=cfg.dp_path,
+            personal_keys=("out",) if cfg.personalized else ()))
     return clients
 
 
@@ -113,7 +113,6 @@ def build_testbed(cfg: TestbedConfig, device=None):
     """Returns (clients, global_params, accuracy_fn, pooled_test); the
     params are the workload's init from ``cfg.seed`` on ``device``."""
     from repro_torch.api.workloads import get_workload
-    _check_ported(cfg)
     dev = resolve_device(device)
     wl = get_workload(cfg.workload)
     splits, pooled_test = build_partitions(cfg)
@@ -138,34 +137,18 @@ def run_experiment(
     device=None,
     **strategy_kw,
 ):
-    """One full FL run on the cohort engine; returns (params, RunLog).
+    """One full FL run; returns (params, RunLog).
 
-    Same signature as the reference, plus ``device`` (default: the card).
-    ``engine="legacy"`` and ``mesh`` belong to later slices and raise."""
-    from repro_torch.engine.engine import (
-        EngineConfig, run_async_engine, run_fedavg_engine)
-    if engine != "cohort":
-        raise ValueError(
-            f"engine={engine!r} is not ported yet (ROADMAP.md queue 1, "
-            "'legacy client and server loop'); use engine='cohort'")
-    if mesh is not None:
-        raise ValueError("mesh execution is not ported yet (ROADMAP.md "
-                         "queue 1, 'production round and multi-GPU')")
-    name = str(strategy_name).lower()
-    kw = dict(strategy_kw)
-    if name != "fedavg":
-        kw = dict(alpha=alpha, **strategy_kw)
-        if name == "fedasync":
-            kw["staleness_aware"] = staleness_aware
-    strategy = make_strategy(name, **kw)
-    clients, params, acc_fn, pooled = build_testbed(cfg, device)
-    ecfg = engine_cfg or EngineConfig()
-    if not strategy.is_async:
-        return run_fedavg_engine(
-            clients, params, acc_fn, pooled, rounds=rounds, seed=cfg.seed,
-            eval_every=eval_every, target_acc=target_acc, engine_cfg=ecfg,
-            strategy=strategy)
-    return run_async_engine(
-        clients, params, acc_fn, pooled, strategy, max_updates=max_updates,
-        seed=cfg.seed, eval_every=eval_every, target_acc=target_acc,
-        engine_cfg=ecfg)
+    The reference's signature plus ``device`` (default: the card), and
+    like the reference a shim over the declarative API: the arguments
+    become an :class:`repro_torch.api.ExperimentSpec` run by a fresh
+    one-run :class:`repro_torch.api.Session`.  ``engine`` is "cohort"
+    (the batched engine) or "legacy" (the per-client loop); ``mesh``
+    raises (ROADMAP.md queue 1 item 14)."""
+    from repro_torch.api import ExperimentSpec, Session
+    spec = ExperimentSpec.from_legacy(
+        strategy_name, cfg, rounds=rounds, max_updates=max_updates,
+        alpha=alpha, staleness_aware=staleness_aware, target_acc=target_acc,
+        eval_every=eval_every, engine=engine, engine_cfg=engine_cfg,
+        mesh=mesh, **strategy_kw)
+    return Session(device=device).run(spec)

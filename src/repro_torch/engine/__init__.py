@@ -1,1 +1,57 @@
-"""Port of ``repro.engine``."""
+"""Cohort-batched asynchronous FL execution engine (port of
+``repro.engine``): virtual-clock event heap -> ``cohort.pop_cohort``
+(staleness window) -> one cohort step per cohort
+(``cohort_step.make_cohort_step``, cached by training config) -> the
+fused weights-vector merge or ``aggregation.apply_update`` member by
+member -> a ``RunLog`` with the legacy loop's schema.
+
+Frontends: ``repro_torch.core.server.run_fedavg`` / ``run_async`` take
+``engine="cohort"`` (this package) or ``engine="legacy"`` (the per-client
+loop).  Not ported yet, each rejected naming its ROADMAP.md item: mesh
+execution and the other client axes, the host data path, the pipelined
+scheduler, the tiered store (only its ``StoreConfig`` exists) and
+checkpoint/resume.
+"""
+from repro_torch.engine.cohort import (
+    LocalRoundPlan,
+    fedavg_weights,
+    fold_cohort_weights,
+    padded_cohort_size,
+    plan_batches,
+    pop_cohort,
+)
+from repro_torch.engine.cohort_step import (
+    cached_cohort_step,
+    invalidate_step_cache,
+    make_cohort_step,
+    stack_trees,
+    step_builds,
+    unstack_tree,
+)
+from repro_torch.engine.engine import (
+    CohortRunner,
+    EngineConfig,
+    run_async_engine,
+    run_fedavg_engine,
+)
+from repro_torch.engine.statestore import StoreConfig
+
+__all__ = [
+    "CohortRunner",
+    "EngineConfig",
+    "LocalRoundPlan",
+    "StoreConfig",
+    "cached_cohort_step",
+    "fedavg_weights",
+    "fold_cohort_weights",
+    "invalidate_step_cache",
+    "make_cohort_step",
+    "padded_cohort_size",
+    "plan_batches",
+    "pop_cohort",
+    "run_async_engine",
+    "run_fedavg_engine",
+    "stack_trees",
+    "step_builds",
+    "unstack_tree",
+]

@@ -30,14 +30,22 @@ depends only on (dispatch seed, local step) and never on how members
 were grouped into cohorts.  The noise scale is a runtime one-element
 tensor: one built step serves a whole sigma sweep.
 
-The step returns ``(upload, arena_opt, screen)``: uploads pass through
-the clean-scale ``_corrupt_members`` epilogue and ``_screen_members``
-computes each member's finite verdict and update-delta norm, as the
-reference's step always does (faults and screening themselves come with
-a later slice, so the scale is always 1.0 here).
+The step returns ``(upload, arena_opt, screen)``: each member's upload is
+``p0 + scale * (p - p0)`` under its runtime transit-corruption scale
+(``_corrupt_members``; 1.0 is the clean sentinel and passes ``p``
+through), and ``_screen_members`` computes each member's finite verdict
+and update-delta norm, which the engine compares with the screening
+thresholds on the host — so faults and screening never change the step.
+
+Built steps are cached by their training config (:func:`cached_cohort_step`,
+the reference's ``_STEP_CACHE``): sigma is stripped from the key (the
+noise scale is a runtime tensor), so every runner over one testbed
+config — a whole sigma sweep — shares one step, and :func:`step_builds`
+counts cache misses.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import replace
 from typing import Callable
 
@@ -50,8 +58,8 @@ from repro_torch.pytree import (
     tree_flatten_to_vector, tree_leaves, tree_map, tree_size,
     tree_unflatten_from_vector)
 
-# make_cohort_step invocations since process start (the reference's
-# cache-miss counter; a warm sigma sweep must not grow it per point)
+# make_cohort_step invocations since process start: the step cache's
+# misses (a warm sigma sweep must not grow it per point)
 _STEP_BUILDS = 0
 
 
@@ -103,11 +111,13 @@ def put_rows_(tree, idx, rows):
     return tree
 
 
-def _member(tree, i):
+def unstack_tree(tree, i: int):
+    """Member ``i``'s slice of a stacked tree."""
     return tree_map(lambda l: l[i], tree)
 
 
-def _stack(trees):
+def stack_trees(trees):
+    """Stack identically shaped trees on a new leading axis."""
     return tree_map(lambda *ls: torch.stack(ls), *trees)
 
 
@@ -159,13 +169,13 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         """Member-major executor: member i runs its n_steps[i] steps."""
         outs_p, outs_o = [], []
         for i in range(len(gens)):
-            p, o = _member(stacked_params, i), _member(stacked_opt, i)
+            p, o = unstack_tree(stacked_params, i), unstack_tree(stacked_opt, i)
             for s in range(int(n_steps[i])):
                 batch = {k: v[i, s] for k, v in batches.items()}
                 p, o = one_step(p, o, batch, gens[i], noise_stddev)
             outs_p.append(p)
             outs_o.append(o)
-        return _stack(outs_p), _stack(outs_o)
+        return stack_trees(outs_p), stack_trees(outs_o)
 
     def run_members_fused(stacked_params, stacked_opt, gens, batches,
                           n_steps, noise_stddev):
@@ -173,7 +183,7 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         whole cohort's stacked (K, B, D) per-example grad matrix."""
         from repro_torch.kernels.dp_clip.ops import dp_clip_mean_noise_cohort
 
-        template = _member(stacked_params, 0)
+        template = unstack_tree(stacked_params, 0)
         d = tree_size(template)
         dev = tree_leaves(stacked_params)[0].device
         live_steps = torch.as_tensor(n_steps, dtype=torch.int32, device=dev)
@@ -231,3 +241,55 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         return tree_map(leaf, global_params, stacked_uploads)
 
     return cohort_step, merge_cohort
+
+
+# ---------------------------------------------------------------------------
+# cross-run step cache: runs over the same testbed config (sweeps, parity
+# tests) reuse the built step instead of building it again
+# ---------------------------------------------------------------------------
+
+_STEP_CACHE: dict = {}
+
+
+def _hashable_loss(loss_fn):
+    """Normalize ``functools.partial`` losses so two testbeds built from the
+    same model config share one step."""
+    if isinstance(loss_fn, functools.partial):
+        try:
+            key = (loss_fn.func, loss_fn.args,
+                   tuple(sorted(loss_fn.keywords.items())))
+            hash(key)
+            return key
+        except TypeError:
+            pass
+    return loss_fn
+
+
+def cached_cohort_step(loss_fn, dp_cfg: DPConfig, opt, use_dp: bool = True,
+                       dp_path: str = "jnp", add_noise: bool = True):
+    """Memoized :func:`make_cohort_step`, keyed as the reference keys it
+    (training config, DP path, the static noise on/off) minus what the
+    port has no counterpart of (shardings, donation, executor choice).
+    ``dp_cfg.noise_multiplier`` is stripped from the key: the noise scale
+    is a runtime argument, so every sigma of a sweep shares one entry.
+    The cache holds step functions only, never device buffers."""
+    dp_cfg = replace(dp_cfg, noise_multiplier=0.0)
+    key = (_hashable_loss(loss_fn), dp_cfg, opt, use_dp, dp_path, add_noise)
+    try:
+        hash(key)
+    except TypeError:
+        return make_cohort_step(loss_fn, dp_cfg, opt, use_dp=use_dp,
+                                dp_path=dp_path, add_noise=add_noise)
+    if key not in _STEP_CACHE:
+        _STEP_CACHE[key] = make_cohort_step(
+            loss_fn, dp_cfg, opt, use_dp=use_dp, dp_path=dp_path,
+            add_noise=add_noise)
+    return _STEP_CACHE[key]
+
+
+def invalidate_step_cache() -> int:
+    """Drop every cached step; returns how many entries were dropped.  (The
+    port keeps no compiled graph or other state behind the entries.)"""
+    n = len(_STEP_CACHE)
+    _STEP_CACHE.clear()
+    return n

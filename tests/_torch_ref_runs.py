@@ -1,78 +1,243 @@
-"""Reference (JAX) engine runs for ``tests/test_torch_engine_parity.py``.
+"""Reference (JAX) runs for the port's run-level parity tests
+(``tests/test_torch_*.py``).
 
-Run as a script in a subprocess: ``python tests/_torch_ref_runs.py OUT``
-writes ``OUT/<name>.npz`` (initial and final params, leaves in flat leaf
-order) and ``OUT/<name>.json`` (the RunLog fields) for every entry of
-:data:`RUNS`.  The parity test starts it with
+Run as a script in a subprocess: ``python tests/_torch_ref_runs.py OUT
+[NAME ...]`` writes ``OUT/<name>.npz`` (initial and final params, leaves
+in flat leaf order) and ``OUT/<name>.json`` (the RunLog fields, the
+engine's fault/screen counters and every ``ScreeningState.screen`` call
+as ``[cid, t, finite, norm]``) for the named entries of :data:`RUNS`
+(all of them without names).  The tests start it with
 ``XLA_FLAGS=--xla_disable_hlo_passes=algsimp``: on the installed JAX,
 XLA:CPU's algebraic simplifier miscompiles ``jit(vmap(grad))`` through
 this tiny CNN's convolutions (wrong per-example conv-weight gradients),
 and the flag has to be set before JAX starts, which only a fresh process
-guarantees.
+guarantees.  :func:`run_reference` is the tests' side of it.
 """
+import contextlib
 import json
+import os
 import pathlib
+import subprocess
 import sys
 
 # tiny testbed of tests/test_dp_path_engine.py: 5 clients x 72 clips,
 # 12x12 patches, B = 16, SERConfig(8, 16, 32)
 DIMS = dict(time_frames=12, n_mels=12)
 COMMON = dict(batch_size=16, num_clients=5, seed=3)
+
+# faults of every kind; corrupted uploads are all-NaN or scaled by 50,
+# which puts their update norms at 4.2-5.2 against clean norms of
+# 0.08-0.11 on this testbed, far on either side of the screen threshold
+FAULTS = dict(seed=1, failure_prob=0.1, upload_loss_prob=0.2,
+              late_prob=0.1, duplicate_prob=0.1, leave_prob=0.1,
+              corrupt_prob=0.3, corrupt_scale=50.0)
+FEDAVG_FAULTS = dict(FAULTS, seed=2, leave_prob=0.2, round_deadline_s=300.0,
+                     min_quorum=2)
+SCREEN_THRESHOLD = 1.0
+SCREENING = dict(max_update_norm=SCREEN_THRESHOLD, quarantine_after=2)
+
+_ASYNC = dict(max_updates=10, eval_every=5)
+_W0 = dict(staleness_window=0.0, max_cohort=2)
+
+
+def _run(strategy, sigma=0.0, engine=None, run=None, backend="cohort",
+         faults=None, screening=None, personalized=False):
+    """One entry: ``strategy`` is ``(name, kwargs)``; ``engine`` the
+    EngineConfig kwargs; ``run`` the loop's budget kwargs."""
+    return dict(strategy=strategy, sigma=sigma, engine=engine or {},
+                run=run or dict(_ASYNC), backend=backend, faults=faults,
+                screening=screening, personalized=personalized)
+
+
 RUNS = {
-    # name: (strategy, sigma, engine kwargs, run kwargs)
-    "async_w0": ("fedasync", 0.0, dict(staleness_window=0.0, max_cohort=2),
-                 dict(max_updates=10, eval_every=5)),
-    "async_window": ("fedasync", 0.0,
-                     dict(staleness_window=1e9, max_cohort=2),
-                     dict(max_updates=10, eval_every=5)),
-    "fedavg": ("fedavg", 0.0, dict(max_cohort=2),
-               dict(rounds=2, eval_every=1)),
-    "async_noisy": ("fedasync", 1.0,
-                    dict(staleness_window=1e9, max_cohort=2),
-                    dict(max_updates=10, eval_every=5)),
+    # the cohort engine's parity runs (tests/test_torch_engine_parity.py)
+    "async_w0": _run(("fedasync", dict(alpha=0.4)), engine=_W0),
+    "async_window": _run(("fedasync", dict(alpha=0.4)),
+                         engine=dict(staleness_window=1e9, max_cohort=2)),
+    "fedavg": _run(("fedavg", {}), engine=dict(max_cohort=2),
+                   run=dict(rounds=2, eval_every=1)),
+    "async_noisy": _run(("fedasync", dict(alpha=0.4)), sigma=1.0,
+                        engine=dict(staleness_window=1e9, max_cohort=2)),
+    # the legacy loop and the member-by-member strategies
+    # (tests/test_torch_strategies.py)
+    "legacy_async": _run(("fedasync", dict(alpha=0.4)), backend="legacy"),
+    "legacy_fedavg": _run(("fedavg", {}), backend="legacy",
+                          run=dict(rounds=2, eval_every=1)),
+    "fedbuff_legacy": _run(("fedbuff", dict(alpha=0.4, buffer_size=3)),
+                           backend="legacy"),
+    "fedbuff_engine": _run(("fedbuff", dict(alpha=0.4, buffer_size=3)),
+                           engine=dict(staleness_window=1e9, max_cohort=2)),
+    # personalized clients at sigma = 0, held to the reference: the
+    # overlay of the personal heads, their upload and local_acc
+    "personal_async_legacy": _run(("fedasync", dict(alpha=0.4)),
+                                  backend="legacy", personalized=True),
+    "personal_async_engine": _run(("fedasync", dict(alpha=0.4)), engine=_W0,
+                                  personalized=True),
+    "personal_fedavg_legacy": _run(("fedavg", {}), backend="legacy",
+                                   personalized=True,
+                                   run=dict(rounds=2, eval_every=1)),
+    "personal_fedavg_engine": _run(("fedavg", {}), personalized=True,
+                                   engine=dict(max_cohort=2),
+                                   run=dict(rounds=2, eval_every=1)),
+    # sigma = 1 so that epsilon is finite and the budget stops some
+    # clients mid-run (at sigma = 0 it is infinite after the first round)
+    "adaptive_personal_legacy": _run(
+        ("adaptive_async", dict(alpha=0.4, eps_target=6.0)), sigma=1.0,
+        backend="legacy", personalized=True, run=dict(max_updates=20)),
+    "adaptive_personal_engine": _run(
+        ("adaptive_async", dict(alpha=0.4, eps_target=6.0)), sigma=1.0,
+        engine=_W0, personalized=True, run=dict(max_updates=20)),
+    # faults + screening on both backends (tests/test_torch_faults.py)
+    "robust_async_engine": _run(
+        ("fedasync_normbound", dict(alpha=0.4, norm_bound=0.1)), engine=_W0,
+        faults=FAULTS, screening=SCREENING),
+    "robust_async_legacy": _run(
+        ("fedasync_normbound", dict(alpha=0.4, norm_bound=0.1)),
+        backend="legacy", faults=FAULTS, screening=SCREENING),
+    "robust_fedavg_engine": _run(
+        ("fedavg_trimmed", dict(trim_frac=0.34)), engine=dict(max_cohort=2),
+        run=dict(rounds=3, eval_every=1), faults=FEDAVG_FAULTS,
+        screening=SCREENING),
+    "robust_fedavg_legacy": _run(
+        ("fedavg_trimmed", dict(trim_frac=0.34)), backend="legacy",
+        run=dict(rounds=3, eval_every=1), faults=FEDAVG_FAULTS,
+        screening=SCREENING),
 }
 LOG_FIELDS = ("times", "global_acc", "server_version", "update_counts",
               "influence", "staleness", "eps_trajectory", "local_acc",
-              "cohort_sizes")
+              "cohort_sizes", "fault_events")
+COUNTER_PREFIXES = ("fault_", "screen_", "degraded_cohorts", "deadline_drops")
 
 
 def testbed_kwargs(sigma):
     return dict(COMMON, use_dp=True, sigma=sigma, dp_path="jnp")
 
 
-def main(out_dir):
+def execute(pkg, name, init_leaves=None, dp_path="jnp", device=None):
+    """Run entry ``name`` through package ``pkg`` ("repro" or
+    "repro_torch") and its server frontends.  ``init_leaves`` (the
+    reference's initial leaves) replace the port's initial params.
+    Returns ``(params0, final_params, RunLog, screen_calls)``."""
+    import importlib
+    mod = lambda m: importlib.import_module(f"{pkg}.{m}")  # noqa: E731
+    r = RUNS[name]
+    cfg = mod("core.testbed").TestbedConfig(
+        data=mod("data.synthetic_ser").SERDataConfig(
+            n_total=72 * COMMON["num_clients"], **DIMS),
+        model=mod("models.ser_cnn").SERConfig(
+            channels1=8, channels2=16, fc_dim=32, **DIMS),
+        personalized=r["personalized"],
+        **dict(testbed_kwargs(r["sigma"]), dp_path=dp_path))
+    kw = {} if device is None else dict(device=device)
+    clients, params0, acc_fn, pooled = mod("core.testbed").build_testbed(
+        cfg, **kw)
+    if init_leaves is not None:
+        params0 = port_params(init_leaves, params0)
+    faults = (None if r["faults"] is None
+              else mod("core.faults").FaultModel(**r["faults"]))
+    screening = (None if r["screening"] is None
+                 else mod("core.screening").ScreeningConfig(**r["screening"]))
+    strategy = mod("core.aggregation").make_strategy(
+        r["strategy"][0], **r["strategy"][1])
+    server = mod("core.server")
+    ecfg = mod("engine.engine").EngineConfig(**r["engine"])
+    calls = []
+    state_cls = mod("core.screening").ScreeningState
+    screen = state_cls.screen
+
+    def recorded(self, cid, t, finite, norm):
+        calls.append([int(cid), float(t), bool(finite), float(norm)])
+        return screen(self, cid, t, finite, norm)
+
+    state_cls.screen = recorded
+    try:
+        common = dict(seed=cfg.seed, engine=r["backend"], faults=faults,
+                      screening=screening, **r["run"])
+        if r["backend"] == "cohort":
+            common["engine_cfg"] = ecfg
+        if strategy.is_async:
+            final, log = server.run_async(clients, params0, acc_fn, pooled,
+                                          strategy, **common)
+        else:
+            final, log = server.run_fedavg(clients, params0, acc_fn, pooled,
+                                           strategy=strategy, **common)
+    finally:
+        state_cls.screen = screen
+    return params0, final, log, calls
+
+
+def log_dict(log, calls):
+    """The RunLog fields, counters and screen calls as plain JSON data."""
+    out = {f: getattr(log, f) for f in LOG_FIELDS}
+    out["counters"] = {k: v for k, v in (log.engine_stats or {}).items()
+                       if k.startswith(COUNTER_PREFIXES)}
+    out["screen_calls"] = calls
+    return json.loads(json.dumps(out))
+
+
+def main(out_dir, names):
     import jax
     import numpy as np
-    from repro.core.aggregation import FedAsync
-    from repro.core.testbed import TestbedConfig, build_testbed
-    from repro.data.synthetic_ser import SERDataConfig
-    from repro.engine import EngineConfig, run_async_engine, run_fedavg_engine
-    from repro.models.ser_cnn import SERConfig
 
     out = pathlib.Path(out_dir)
-    for name, (strategy, sigma, ekw, rkw) in RUNS.items():
-        cfg = TestbedConfig(
-            data=SERDataConfig(n_total=72 * COMMON["num_clients"], **DIMS),
-            model=SERConfig(channels1=8, channels2=16, fc_dim=32, **DIMS),
-            **testbed_kwargs(sigma))
-        clients, params0, acc_fn, pooled = build_testbed(cfg)
-        ecfg = EngineConfig(**ekw)
-        if strategy == "fedavg":
-            params, log = run_fedavg_engine(
-                clients, params0, acc_fn, pooled, seed=cfg.seed,
-                engine_cfg=ecfg, **rkw)
-        else:
-            params, log = run_async_engine(
-                clients, params0, acc_fn, pooled, FedAsync(alpha=0.4),
-                seed=cfg.seed, engine_cfg=ecfg, **rkw)
+    for name in names or RUNS:
+        params0, params, log, calls = execute("repro", name)
         leaves = {}
         for tag, tree in (("init", params0), ("final", params)):
             for i, leaf in enumerate(jax.tree_util.tree_leaves(tree)):
                 leaves[f"{tag}_{i}"] = np.asarray(leaf)
         np.savez(out / f"{name}.npz", **leaves)
-        (out / f"{name}.json").write_text(json.dumps(
-            {f: getattr(log, f) for f in LOG_FIELDS}))
+        (out / f"{name}.json").write_text(json.dumps(log_dict(log, calls)))
+
+
+def run_reference(out, names):
+    """The tests' side: run ``names`` in a fresh process with the XLA flag,
+    load them as ``{name: {"init": leaves, "final": leaves, "log": dict}}``."""
+    import numpy as np
+    here = pathlib.Path(__file__).resolve()
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(here.parents[1] / "src"),
+               XLA_FLAGS="--xla_disable_hlo_passes=algsimp")
+    res = subprocess.run([sys.executable, str(here), str(out), *names],
+                         env=env, capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stderr[-4000:]
+    runs = {}
+    for name in names:
+        arrs = np.load(pathlib.Path(out) / f"{name}.npz")
+        n = sum(1 for k in arrs.files if k.startswith("init_"))
+        runs[name] = {
+            "init": [arrs[f"init_{i}"] for i in range(n)],
+            "final": [arrs[f"final_{i}"] for i in range(n)],
+            "log": json.loads((pathlib.Path(out) / f"{name}.json").read_text()),
+        }
+    return runs
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run the port's tiny-model CPU work on one intra-op thread: the suite
+    runs in several worker processes at once, where PyTorch's default of
+    one thread per core makes each tiny op wait on the others' threads."""
+    import torch
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+def port_params(init_leaves, template):
+    """The reference's initial leaves as a port param dict shaped like
+    ``template`` (leaves in flat, sorted-key order)."""
+    import torch
+    from repro_torch.pytree import tree_paths
+    params = {}
+    for path, leaf in zip(tree_paths(template), init_leaves):
+        params.setdefault(path[0], {})[path[1]] = torch.from_numpy(
+            leaf.copy())
+    return params
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], sys.argv[2:])

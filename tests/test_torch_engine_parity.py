@@ -24,10 +24,9 @@ process on the CPU through both of its DP paths.
   held to the reference only on epsilon bookkeeping — and to themselves
   bit for bit on a rerun.
 """
+import dataclasses
 import json
-import os
 import pathlib
-import subprocess
 import sys
 
 import numpy as np
@@ -35,43 +34,37 @@ import pytest
 import torch
 
 from repro_torch.core.aggregation import FedAsync
+from repro_torch.core.faults import FaultModel
+from repro_torch.core.fl_step import FLStepConfig
+from repro_torch.core.screening import ScreeningConfig
 from repro_torch.core.testbed import (
     TestbedConfig, build_partitions, build_testbed)
 from repro_torch.data.synthetic_ser import SERDataConfig
 from repro_torch.engine import cohort_step
-from repro_torch.engine.engine import (
-    EngineConfig, run_async_engine, run_fedavg_engine)
+from repro_torch.engine.engine import EngineConfig, run_async_engine
+from repro_torch.engine.statestore import StoreConfig
 from repro_torch.models.ser_cnn import SERConfig
-from repro_torch.pytree import tree_leaves, tree_paths
+from repro_torch.pytree import tree_leaves
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
 import _torch_ref_runs as R  # noqa: E402
 
-HELPER = pathlib.Path(__file__).parent / "_torch_ref_runs.py"
-SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    with R.one_torch_thread():
+        yield
+
 PARAMS_ATOL = 1e-2
 EXACT_FIELDS = ("times", "server_version", "update_counts", "staleness",
                 "eps_trajectory", "cohort_sizes", "influence")
+CLEAN = ("async_w0", "async_window", "fedavg")
 
 
 @pytest.fixture(scope="module")
 def ref_runs(tmp_path_factory):
-    out = tmp_path_factory.mktemp("ref_runs")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(SRC),
-               XLA_FLAGS="--xla_disable_hlo_passes=algsimp")
-    res = subprocess.run([sys.executable, str(HELPER), str(out)], env=env,
-                         capture_output=True, text=True, timeout=900)
-    assert res.returncode == 0, res.stderr[-4000:]
-    runs = {}
-    for name in R.RUNS:
-        arrs = np.load(out / f"{name}.npz")
-        n = sum(1 for k in arrs.files if k.startswith("init_"))
-        runs[name] = {
-            "init": [arrs[f"init_{i}"] for i in range(n)],
-            "final": [arrs[f"final_{i}"] for i in range(n)],
-            "log": json.loads((out / f"{name}.json").read_text()),
-        }
-    return runs
+    return R.run_reference(tmp_path_factory.mktemp("ref_runs"),
+                           CLEAN + ("async_noisy",))
 
 
 def _cfg(sigma, dp_path="jnp"):
@@ -84,20 +77,9 @@ def _cfg(sigma, dp_path="jnp"):
 
 
 def _run_port(name, dp_path, init_leaves):
-    strategy, sigma, ekw, rkw = R.RUNS[name]
-    cfg = _cfg(sigma, dp_path)
-    clients, init_like, acc_fn, pooled = build_testbed(cfg, device="cpu")
-    # the reference's initial params, leaves in flat (sorted-key) order
-    params = {}
-    for path, leaf in zip(tree_paths(init_like), init_leaves):
-        params.setdefault(path[0], {})[path[1]] = torch.from_numpy(leaf.copy())
-    ecfg = EngineConfig(**ekw)
-    if strategy == "fedavg":
-        return run_fedavg_engine(clients, params, acc_fn, pooled,
-                                 seed=cfg.seed, engine_cfg=ecfg, **rkw)
-    return run_async_engine(clients, params, acc_fn, pooled,
-                            FedAsync(alpha=0.4), seed=cfg.seed,
-                            engine_cfg=ecfg, **rkw)
+    _, params, log, _ = R.execute("repro_torch", name, init_leaves,
+                                  dp_path=dp_path, device="cpu")
+    return params, log
 
 
 _PORT_CACHE = {}
@@ -112,9 +94,6 @@ def _port(ref_runs, name, dp_path):
 
 def _log_dict(log):
     return json.loads(json.dumps({f: getattr(log, f) for f in R.LOG_FIELDS}))
-
-
-CLEAN = ("async_w0", "async_window", "fedavg")
 
 
 @pytest.mark.parametrize("dp_path", ["jnp", "pallas"])
@@ -184,19 +163,27 @@ def test_engine_stats_record_the_plain_route_on_cpu(ref_runs):
 
 
 def test_each_runner_builds_one_step():
-    b0 = cohort_step.step_builds()
+    """The step cache's reference semantics: a fresh key builds once, and
+    a second runner over the same key builds nothing."""
+    cohort_step.invalidate_step_cache()
     cfg = _cfg(0.0)
-    clients, params, acc_fn, pooled = build_testbed(cfg, device="cpu")
-    run_async_engine(clients, params, acc_fn, pooled, FedAsync(),
-                     max_updates=2, eval_every=2, seed=cfg.seed)
-    assert cohort_step.step_builds() == b0 + 1
+    b0 = cohort_step.step_builds()
+    for _ in range(2):
+        clients, params, acc_fn, pooled = build_testbed(cfg, device="cpu")
+        run_async_engine(clients, params, acc_fn, pooled, FedAsync(),
+                         max_updates=2, eval_every=2, seed=cfg.seed)
+        assert cohort_step.step_builds() == b0 + 1
+    assert cohort_step.invalidate_step_cache() == 1
 
 
-@pytest.mark.parametrize("bad", [dict(pipeline_depth=2), dict(store=object()),
-                                 dict(client_axis="vmap"),
-                                 dict(device_arena=False)])
+@pytest.mark.parametrize("bad", [
+    dict(pipeline_depth=2), dict(store=StoreConfig(hot_slots=4)),
+    dict(client_axis="vmap"), dict(device_arena=False),
+    dict(fl_cfg=FLStepConfig(num_clients=4)), dict(mesh=object())],
+    ids=["pipeline_depth", "store", "client_axis", "device_arena", "fl_cfg",
+         "mesh"])
 def test_unported_engine_features_raise_naming_the_roadmap(bad):
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item \d+"):
         EngineConfig(**bad)
 
 
@@ -205,15 +192,14 @@ def test_unfused_merge_equals_fused(ref_runs):
     the folded weights-vector merge is the same linear map."""
     name = "async_window"
     fused, log_f = _port(ref_runs, name, "pallas")
-    strategy, sigma, ekw, rkw = R.RUNS[name]
-    cfg = _cfg(sigma, "pallas")
+    r = R.RUNS[name]
+    cfg = _cfg(r["sigma"], "pallas")
     clients, init_like, acc_fn, pooled = build_testbed(cfg, device="cpu")
-    params = {}
-    for path, leaf in zip(tree_paths(init_like), ref_runs[name]["init"]):
-        params.setdefault(path[0], {})[path[1]] = torch.from_numpy(leaf.copy())
+    params = R.port_params(ref_runs[name]["init"], init_like)
     unfused, log_u = run_async_engine(
         clients, params, acc_fn, pooled, FedAsync(alpha=0.4), seed=cfg.seed,
-        engine_cfg=EngineConfig(fused_merge=False, **ekw), **rkw)
+        engine_cfg=EngineConfig(fused_merge=False, **r["engine"]),
+        **r["run"])
     assert log_u.update_counts == log_f.update_counts
     assert log_u.influence == log_f.influence
     for a, b in zip(tree_leaves(fused), tree_leaves(unfused)):
@@ -221,19 +207,38 @@ def test_unfused_merge_equals_fused(ref_runs):
                                    atol=PARAMS_ATOL)
 
 
-def test_strategies_and_testbed_features_of_later_slices_raise():
-    from repro_torch.core.aggregation import make_strategy
+def test_strategies_and_testbed_features_of_later_slices_raise(tmp_path):
+    """The strategies, the legacy loop and the testbed features of this
+    slice build; what is still unported — checkpoint/resume, a mesh in the
+    spec codec or the frontends — raises, naming its ROADMAP.md item."""
+    from repro_torch.api import ExperimentSpec, RunBudget, Session
+    from repro_torch.api.spec import decode
+    from repro_torch.core.aggregation import STRATEGY_NAMES, make_strategy
     from repro_torch.core.testbed import run_experiment
     assert make_strategy("fedasync_nostale", staleness_aware=True
                          ).mixing_weight(3) == 0.4
     assert make_strategy("fedasync", alpha=0.5).mixing_weight(1) == 0.25
-    for name in ("fedbuff", "adaptive_async", "fedavg_trimmed",
-                 "fedasync_normbound"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            make_strategy(name)
+    assert len(STRATEGY_NAMES) == 7
+    for name in STRATEGY_NAMES:      # the nostale variant is a FedAsync
+        assert make_strategy(name).name == name.replace("_nostale", "")
     with pytest.raises(ValueError, match="unknown"):
         make_strategy("fedmagic")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        run_experiment("fedasync", _cfg(0.0), engine="legacy", device="cpu")
-    with pytest.raises(ValueError, match="personalized"):
-        build_testbed(TestbedConfig(personalized=True), device="cpu")
+    cfg = dataclasses.replace(
+        _cfg(0.0), personalized=True, faults=FaultModel(**R.FAULTS),
+        screening=ScreeningConfig(**R.SCREENING))
+    for engine in ("legacy", "cohort"):
+        _, log = run_experiment("fedasync", cfg, max_updates=3, eval_every=3,
+                                engine=engine, device="cpu")
+        assert sum(log.update_counts.values()) == 3 and log.fault_events
+    roadmap = r"ROADMAP\.md queue 1 item"
+    with pytest.raises(ValueError, match=roadmap + " 12"):
+        Session(device="cpu").run(
+            ExperimentSpec(testbed=_cfg(0.0), run=RunBudget(max_updates=1)),
+            checkpoint_every=1, checkpoint_dir=str(tmp_path))
+    with pytest.raises(ValueError, match=roadmap + " 12"):
+        Session(device="cpu").run(ExperimentSpec(testbed=_cfg(0.0)),
+                                  resume_from=str(tmp_path))
+    with pytest.raises(ValueError, match=roadmap + " 14"):
+        decode({"__mesh__": {"data": 8, "model": 1}})
+    with pytest.raises(ValueError, match=roadmap + " 14"):
+        run_experiment("fedasync", _cfg(0.0), mesh=object(), device="cpu")

@@ -94,6 +94,83 @@ def test_small_run_on_card_matches_cpu_route(cuda):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-2)
 
 
+def _tiny_testbed(**kw):
+    from repro_torch.core.testbed import TestbedConfig
+    from repro_torch.data.synthetic_ser import SERDataConfig
+    from repro_torch.models.ser_cnn import SERConfig
+    dims = dict(time_frames=12, n_mels=12)
+    return TestbedConfig(
+        batch_size=16, seed=3, dp_path="pallas",
+        data=SERDataConfig(n_total=360, **dims),
+        model=SERConfig(channels1=8, channels2=16, fc_dim=32, **dims), **kw)
+
+
+def test_local_train_launches_dp_clip_at_k1_matching_plain(cuda,
+                                                           monkeypatch):
+    """The legacy loop's client step: one K = 1 dp_clip call per local
+    step, launched on the card, each agreeing with the plain version on
+    the same inputs (1e-5: f32 sums in another order)."""
+    from repro_torch.core.testbed import build_testbed
+    from repro_torch.engine.cohort import steps_per_round
+    from repro_torch.kernels.dp_clip import dp_clip, ops, ref
+    real = ops.dp_clip_mean_noise_cohort
+    seen = []
+
+    def checked(g, clip, noise_stddev=None, z=None):
+        out = real(g, clip, noise_stddev, z)
+        want = ref.dp_clip_mean_noise_cohort_ref(g, clip, noise_stddev, z)
+        torch.testing.assert_close(out[0], want[0], rtol=1e-5, atol=1e-6)
+        seen.append(g.shape[0])
+        return out
+
+    monkeypatch.setattr(ops, "dp_clip_mean_noise_cohort", checked)
+    clients, params, _, _ = build_testbed(_tiny_testbed(sigma=1.0), cuda)
+    c = clients[0]
+    n0 = (dp_clip.sqnorm_launches, dp_clip.scale_mean_launches)
+    new, info = c.local_train(params, 1234)
+    steps = steps_per_round(c.n_train, c.batch_size, c.local_epochs)
+    assert info["dp_steps"] == steps == len(seen) > 0
+    assert set(seen) == {1}
+    assert (dp_clip.sqnorm_launches - n0[0],
+            dp_clip.scale_mean_launches - n0[1]) == (steps, steps)
+    for leaf in new.values():
+        for v in leaf.values():
+            assert v.device.type == "cuda" and torch.isfinite(v).all()
+
+
+def test_screened_fedasync_on_card_matches_cpu_route(cuda):
+    """Faults + screening: the same spec on the card and on the CPU gives
+    equal fault events, screen counters and bookkeeping, and params
+    within the CPU tests' run-level tolerance."""
+    import dataclasses
+    from repro_torch.api import ExperimentSpec, RunBudget, Session, \
+        StrategySpec
+    from repro_torch.core.faults import FaultModel
+    from repro_torch.core.screening import ScreeningConfig
+    from repro_torch.pytree import tree_leaves
+    tb = dataclasses.replace(
+        _tiny_testbed(sigma=0.0),
+        faults=FaultModel(seed=1, failure_prob=0.1, upload_loss_prob=0.2,
+                          late_prob=0.1, duplicate_prob=0.1, leave_prob=0.1,
+                          corrupt_prob=0.3, corrupt_scale=50.0),
+        screening=ScreeningConfig(max_update_norm=1.0, quarantine_after=2))
+    spec = ExperimentSpec(testbed=tb, strategy=StrategySpec(
+        "fedasync_normbound", alpha=0.4, norm_bound=0.1),
+        run=RunBudget(max_updates=10, eval_every=5))
+    p_g, l_g = Session().run(spec)
+    p_c, l_c = Session(device="cpu").run(spec)
+    for f in ("fault_events", "times", "update_counts", "staleness",
+              "eps_trajectory", "cohort_sizes", "influence"):
+        assert getattr(l_g, f) == getattr(l_c, f), f
+    keys = [k for k in l_c.engine_stats if k.startswith(("fault_", "screen_"))]
+    assert {k: l_g.engine_stats[k] for k in keys} == \
+        {k: l_c.engine_stats[k] for k in keys}
+    assert l_g.engine_stats["screen_rejections"] > 0
+    assert l_g.engine_stats["pallas_interpret"]["kernel"] == "triton"
+    for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-2)
+
+
 # ---------------------------------------------------------------------------
 # the zoo's CUDA C++ kernels: ssd_intra_chunk and flash_decode
 # ---------------------------------------------------------------------------

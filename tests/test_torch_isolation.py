@@ -38,7 +38,11 @@ def test_port_has_the_slice_modules():
               "repro_torch.kernels.ssd_scan.ref",
               "repro_torch.kernels.flash_attn.flash_attn",
               "repro_torch.kernels.flash_attn.ops",
-              "repro_torch.kernels.flash_attn.ref"):
+              "repro_torch.kernels.flash_attn.ref",
+              "repro_torch.core.faults", "repro_torch.core.screening",
+              "repro_torch.core.server", "repro_torch.core.fl_step",
+              "repro_torch.engine.statestore", "repro_torch.api.spec",
+              "repro_torch.api.session", "repro_torch.analysis.guard"):
         assert m in mods
 
 
