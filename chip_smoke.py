@@ -37,8 +37,23 @@ package ``repro``) and fails with a non-zero exit on the first problem:
    the CPU plain route (equal fault events, counters and bookkeeping),
    then full width on the card (the screening ledger, every x50 upload
    delivered to the screen and rejected there, a bit-identical rerun);
-10. where one full-width cohort's time goes (profiled cohort step, idle
-   share, the fused step's stages);
+10. the engine's run modes on [main]'s configuration, each with the
+   ``dp_clip`` counters set to 0 before it and S_max x cohorts launches
+   per kernel required after it: [resume] (checkpointed, crashed after
+   the first snapshot, resumed: RunLog and params bit-identical to
+   [main]; snapshot bytes, save and restore ms), [hostfed]
+   (``device_arena=False``: bit-identical, H2D bytes and member steps/s
+   against the arena path), [pipeline] (``pipeline_depth=2``:
+   bit-identical, no host sync between evals by the counter and by
+   PyTorch's sync debug mode, member steps/s against serial, the idle
+   share of a profiled window between evals) and [tiered]
+   (``StoreConfig(hot_slots=128, lookahead=16)`` over N = 1,000 and
+   100,000 clients sharing one dataset: equal hot-arena bytes, the store
+   ledger law, bit-identical to all-resident at N = 1,000, a churning
+   24-client run that spills and reloads rows, and a tiered
+   crash/resume);
+   then where one full-width cohort's time goes (profiled cohort step,
+   idle share, the fused step's stages);
 11. [kernels-zoo] the CUDA C++ kernels ``ssd_intra_chunk`` and
    ``flash_decode`` against their plain versions, at zamba2-1.2b's shapes,
    the awkward ones of ``tests/test_kernels.py`` and the split-S cases
@@ -407,7 +422,9 @@ def phase_main_path():
         f"DP-SGD steps = {member_steps / t_async:.2f} steps/s (wall of "
         f"run_experiment: corpus, arenas, evals included); fedavg "
         f"{t_fedavg:.3f} s wall for 2 rounds")
-    return launches
+    runs = {"fedasync": (p_a, log_a, t_async), "fedavg": (p_f, log_f,
+                                                          t_fedavg)}
+    return launches, runs
 
 
 def phase_small_vs_cpu():
@@ -494,6 +511,560 @@ def _steps(cfg):
               for tr, _ in build_partitions(cfg)[0]}
     require(len(counts) == 1, f"clients differ in local steps: {counts}")
     return counts.pop()
+
+
+
+# ---------------------------------------------------------------------------
+# the engine's run modes: checkpoint/resume, the host-fed data path, the
+# pipelined scheduler and the tiered client-state store, each at [main]'s
+# full width (SERConfig, B = 128, sigma = 1, dp_path="pallas")
+# ---------------------------------------------------------------------------
+
+MAIN_ASYNC = dict(max_updates=40, eval_every=10)
+MAIN_FEDAVG = dict(rounds=2, eval_every=1)
+RUNLOG_FIELDS = ("times", "global_acc", "server_version", "update_counts",
+                 "influence", "staleness", "eps_trajectory", "local_acc",
+                 "cohort_sizes", "fault_events", "dropouts")
+
+
+def _main_spec(kind, **engine):
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.engine.engine import EngineConfig
+    ecfg = EngineConfig(staleness_window=120.0, max_cohort=4, **engine)
+    kw = MAIN_ASYNC if kind == "fedasync" else MAIN_FEDAVG
+    return ExperimentSpec.from_legacy(kind, _main_cfg(), engine_cfg=ecfg,
+                                      **kw)
+
+
+def _max_diff(pa, pb):
+    from repro_torch.pytree import tree_leaves
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(tree_leaves(pa), tree_leaves(pb)))
+
+
+def _same_run(a, b, what, stats_drop=None, params="bitwise"):
+    """``b`` equals the reference run ``a``: every RunLog field down to the
+    float, the engine stats except ``stats_drop`` (None: skip them), and
+    the params bit for bit (``params`` a float: within that bound)."""
+    (pa, la), (pb, lb) = a, b
+    for f in RUNLOG_FIELDS:
+        require(getattr(la, f) == getattr(lb, f), f"{what}: RunLog.{f} "
+                f"differs: {getattr(la, f)} vs {getattr(lb, f)}")
+    if stats_drop is not None:
+        sa = {k: v for k, v in la.engine_stats.items() if k not in stats_drop}
+        sb = {k: v for k, v in lb.engine_stats.items() if k not in stats_drop}
+        diff = {k: (sa[k], sb.get(k)) for k in sa if sa[k] != sb.get(k)}
+        require(sa == sb, f"{what}: engine_stats differ: {diff}")
+    d = _max_diff(pa, pb)
+    if params == "bitwise":
+        require(d == 0.0, f"{what}: params differ by up to {d}")
+    else:
+        require(d <= params, f"{what}: params differ by {d} > {params}")
+    return d
+
+
+def _modes_session():
+    """One Session for [resume], [hostfed] and [pipeline], warmed by a
+    short run of [main]'s testbed: the corpus, its device arena and the
+    cohort step are built once; every run still starts from fresh client
+    and runner state (``Session`` resets them between runs)."""
+    from repro_torch.api import ExperimentSpec, Session
+    sess = Session()
+    spec = _main_spec("fedasync")
+    sess.run(ExperimentSpec.from_legacy(
+        "fedasync", spec.testbed, max_updates=4, eval_every=4,
+        engine_cfg=spec.engine))
+    return sess
+
+
+def _require_launches(name, cohorts, s_max):
+    """Each ``dp_clip`` counter, set to 0 before the phase's run, equals
+    S_max x cohorts after it."""
+    from repro_torch.kernels.dp_clip import dp_clip
+    got = {"dp_clip_sqnorm": dp_clip.sqnorm_launches,
+           "dp_clip_scale_mean": dp_clip.scale_mean_launches}
+    for k, n in got.items():
+        require(n == s_max * cohorts, f"[{name}] {k} launched {n} times, "
+                f"expected S_max x cohorts = {s_max} x {cohorts}")
+    log(f"[{name}] dp_clip launches {got} (= S_max {s_max} x "
+        f"{cohorts} cohorts each)")
+
+
+def phase_resume(smi, main_runs, sess):
+    """[main]'s two runs checkpointed, crashed after their first snapshot
+    and resumed: RunLog and params equal the uninterrupted runs."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.engine import resilience
+    from repro_torch.kernels.dp_clip import dp_clip
+    s_max = _steps(_main_cfg())
+    timed = {"save": [], "restore": []}
+    originals = {}
+    for name, key in (("save_async", "save"), ("save_fedavg", "save"),
+                      ("restore_async", "restore"),
+                      ("restore_fedavg", "restore")):
+        fn = getattr(resilience, name)
+        originals[name] = fn
+
+        def wrapped(*a, _fn=fn, _key=key, **kw):
+            import torch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                timed[_key].append(time.perf_counter() - t0)
+
+        setattr(resilience, name, wrapped)
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    try:
+        for kind, every in (("fedasync", 20), ("fedavg", 1)):
+            spec = _main_spec(kind)
+            ckdir = tempfile.mkdtemp(prefix="resume_", dir=root)
+            dp_clip.reset_launches()
+            try:
+                sess.run(spec, checkpoint_every=every,
+                              checkpoint_dir=ckdir, crash_after_saves=1)
+                require(False, f"[resume] {kind}: no simulated crash")
+            except resilience.SimulatedCrash:
+                pass
+            step = latest_step(ckdir)
+            nbytes = os.path.getsize(
+                os.path.join(ckdir, f"step_{step:08d}.npz"))
+            p, lg = sess.run(spec, checkpoint_every=every,
+                             checkpoint_dir=ckdir, resume_from=ckdir)
+            p0, l0, _ = main_runs[kind]
+            _same_run((p0, l0), (p, lg), f"[resume] {kind}", stats_drop=())
+            # the snapshot closes an iteration: crash + resume run exactly
+            # the uninterrupted run's cohorts
+            _require_launches("resume", l0.engine_stats["cohorts"], s_max)
+            log(f"[resume] {smi}; {kind}: crashed after the snapshot at "
+                f"step {step} ({nbytes} bytes), resumed: RunLog (engine "
+                f"stats included) and params bit-identical to [main]")
+            shutil.rmtree(ckdir)
+    finally:
+        for name, fn in originals.items():
+            setattr(resilience, name, fn)
+    log(f"[resume] save ms {[round(t * 1e3, 1) for t in timed['save']]}, "
+        f"restore ms {[round(t * 1e3, 1) for t in timed['restore']]} "
+        f"(synchronized before and after)")
+
+
+def _staging_costs(run):
+    """Run ``run()`` with the runner's cohort halves timed on the host:
+    per cohort, the serial driver's wait for the previous cohort, staging
+    without that wait, and submission; for host-fed staging also its
+    numpy gather/stack and its pinned pack-and-copy apart, the pinned
+    buffers it newly allocated, and the device time of one pinned copy of
+    its mean upload size (CUDA events, best of 5, timed after the run).
+    Returns (run's result, per-cohort ms dict)."""
+    import torch
+    from repro_torch.engine import engine as eng
+    R, P = eng.CohortRunner, eng._PinnedStaging
+    names = ("stage_cohort", "_await_serial", "submit_cohort",
+             "_gather_batches", "_h2d")
+    real = {n: getattr(R, n) for n in names}
+    real_buffer = P._buffer
+    acc = {n: 0.0 for n in names}
+    acc.update(cohorts=0, allocs=0, alloc=0.0, host_stage=False)
+    upload_bytes = []
+
+    def wrap(name):
+        def f(self, *a, **kw):
+            host_copy = name == "_h2d" and acc["host_stage"]
+            if host_copy:
+                upload_bytes.append(sum(x.nbytes for x in a))
+            if name == "stage_cohort":
+                acc["cohorts"] += 1
+                acc["host_stage"] = not self.use_arena
+            t0 = time.perf_counter()
+            try:
+                out = real[name](self, *a, **kw)
+            finally:
+                if name == "stage_cohort":
+                    acc["host_stage"] = False
+            if name != "_h2d" or host_copy:
+                acc[name] += time.perf_counter() - t0
+            return out
+        return f
+
+    def buffer(self, nbytes):
+        n0, t0 = len(self.bufs), time.perf_counter()
+        out = real_buffer(self, nbytes)
+        if len(self.bufs) > n0:
+            acc["allocs"] += 1
+            acc["alloc"] += time.perf_counter() - t0
+        return out
+
+    for n in names:
+        setattr(R, n, wrap(n))
+    P._buffer = buffer
+    try:
+        result = run()
+    finally:
+        for n in names:
+            setattr(R, n, real[n])
+        P._buffer = real_buffer
+    torch.cuda.synchronize()
+    k = max(acc["cohorts"], 1)
+    ms = {"wait": acc["_await_serial"], "submit": acc["submit_cohort"],
+          "stage": acc["stage_cohort"] - acc["_await_serial"],
+          "gather": acc["_gather_batches"], "pack_copy": acc["_h2d"],
+          "alloc": acc["alloc"]}
+    ms = {n: round(v * 1e3 / k, 3) for n, v in ms.items()}
+    ms["copy_device"] = 0.0
+    if upload_bytes:
+        src = torch.empty(sum(upload_bytes) // len(upload_bytes),
+                          dtype=torch.uint8, pin_memory=True)
+        best = []
+        for _ in range(5):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            src.to("cuda", non_blocking=True)
+            e1.record()
+            e1.synchronize()
+            best.append(e0.elapsed_time(e1))
+        ms["copy_device"] = round(min(best), 3)
+    ms["allocs"] = acc["allocs"]
+    ms["cohorts"] = acc["cohorts"]
+    return result, ms
+
+
+def phase_hostfed(smi, main_runs, sess):
+    """``device_arena=False`` on [main]'s configuration: bookkeeping equal
+    to the arena runs, params bit-identical or within 1e-5; member
+    steps/s of both paths in one warm session, and where each path's
+    host time per cohort goes."""
+    import torch
+    from repro_torch.kernels.dp_clip import dp_clip
+    s_max = _steps(_main_cfg())
+    for kind in ("fedasync", "fedavg"):
+        walls, runs, costs = {}, {}, {}
+        for arena in (True, False):
+            dp_clip.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[arena], costs[arena] = _staging_costs(
+                lambda: sess.run(_main_spec(kind, device_arena=arena)))
+            torch.cuda.synchronize()
+            walls[arena] = time.perf_counter() - t0
+            _require_launches("hostfed",
+                              runs[arena][1].engine_stats["cohorts"], s_max)
+        p, lg = runs[False]
+        p0, l0, _ = main_runs[kind]
+        d = _same_run((p0, l0), (p, lg), f"[hostfed] {kind}", params=1e-5)
+        st, st0 = lg.engine_stats, runs[True][1].engine_stats
+        require(st["data_path"] == "host" and st0["data_path"] == "arena",
+                "[hostfed] data paths")
+        steps = s_max * sum(lg.cohort_sizes)
+        log(f"[hostfed] {smi}; {kind}: bookkeeping equal to [main], max "
+            f"|dparam| {d:.3e} ({'bit-identical' if d == 0 else 'differs'})"
+            f"; H2D bytes per cohort host {st['h2d_bytes_per_cohort']:.0f} "
+            f"vs arena {st0['h2d_bytes_per_cohort']:.0f}; member steps/s "
+            f"host {steps / walls[False]:.2f} vs arena "
+            f"{steps / walls[True]:.2f} (warm session, walls "
+            f"{walls[False]:.3f} / {walls[True]:.3f} s, evals included)")
+        log(f"[hostfed] {smi}; {kind}: host ms per cohort (serial wait "
+            f"for the previous cohort / staging without it / submission; "
+            f"host-fed staging = numpy gather+stack, pinned pack + copy "
+            f"enqueue, of which new pinned buffers; device ms of one "
+            f"pinned copy of the mean upload): host {costs[False]} vs "
+            f"arena {costs[True]}")
+
+
+def _window_idle_share(run):
+    """Run ``run()`` with the profiler on over its first window between
+    evals only: started at the end of the first eval, stopped at the start
+    of the second after a synchronise (the wait the eval's fetch makes
+    anyway).  Returns (window ms, device busy ms, idle share), the busy
+    time being the union of the device activities' intervals."""
+    import torch
+    from repro_torch.engine.engine import CohortRunner
+    real = CohortRunner.eval_boundary
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    state = {"evals": 0}
+
+    def boundary(self, inside):
+        if inside:
+            state["evals"] += 1
+            if state["evals"] == 2:
+                torch.cuda.synchronize()
+                state["t1"] = time.perf_counter()
+                state["prof"].stop()
+        out = real(self, inside)
+        if not inside and state["evals"] == 1:
+            state["prof"] = torch.profiler.profile(activities=acts)
+            state["prof"].start()
+            state["t0"] = time.perf_counter()
+        return out
+
+    CohortRunner.eval_boundary = boundary
+    try:
+        run()
+    finally:
+        CohortRunner.eval_boundary = real
+    require("t1" in state, f"no window between evals: {state}")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in state["prof"].events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False))
+    busy, cur_a, cur_b = 0.0, None, None
+    for a, b in spans:
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    if cur_b is not None:
+        busy += cur_b - cur_a
+    window = (state["t1"] - state["t0"]) * 1e6
+    require(busy > 0, "the profiled window holds no device activity")
+    return window / 1e3, busy / 1e3, max(0.0, 1.0 - busy / window)
+
+
+def phase_pipeline(smi, main_runs, sess):
+    """``pipeline_depth=2``: RunLog and params bit-identical to [main]'s
+    serial runs, no host sync between evals (the counter, and PyTorch's
+    sync debug mode over the windows between evals), and member steps/s
+    serial against pipelined in one warm session."""
+    import warnings
+    import torch
+    from repro_torch.engine.engine import CohortRunner
+    from repro_torch.kernels.dp_clip import dp_clip
+    s_max = _steps(_main_cfg())
+    sched = ("pipeline_depth", "blocking_submits", "drain_waits",
+             "host_syncs_between_evals")
+    from repro_torch.api import ExperimentSpec
+    spec = _main_spec("fedasync")
+    for kind in ("fedasync", "fedavg"):
+        walls = {1: [], 2: []}
+        for depth in (1, 2, 2, 1):          # turns: serial, pipelined x2
+            dp_clip.reset_launches()
+            real_b, real_d = CohortRunner.eval_boundary, CohortRunner.drain
+            caught = []
+            if depth == 2:
+                # sync debug mode on between evals, off inside evals and
+                # backpressure drains (the sanctioned waits)
+                def boundary(self, inside, _real=real_b):
+                    torch.cuda.set_sync_debug_mode(0 if inside else "warn")
+                    return _real(self, inside)
+
+                def drain(self, inflight, _real=real_d):
+                    torch.cuda.set_sync_debug_mode(0)
+                    try:
+                        return _real(self, inflight)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("warn")
+
+                CohortRunner.eval_boundary = boundary
+                CohortRunner.drain = drain
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    p, lg = sess.run(_main_spec(kind, pipeline_depth=depth))
+                    torch.cuda.synchronize()
+                    walls[depth].append(time.perf_counter() - t0)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                CohortRunner.eval_boundary, CohortRunner.drain = real_b, real_d
+            p0, l0, _ = main_runs[kind]
+            _same_run((p0, l0), (p, lg), f"[pipeline] {kind} depth {depth}",
+                      stats_drop=sched)
+            st = lg.engine_stats
+            _require_launches("pipeline", st["cohorts"], s_max)
+            if depth == 2:
+                syncs = [str(w.message)[:120] for w in caught
+                         if "synchroniz" in str(w.message).lower()]
+                require(st["host_syncs_between_evals"] == 0
+                        and st["blocking_submits"] == 0,
+                        f"[pipeline] {kind}: {st}")
+                require(not syncs, f"[pipeline] {kind}: sync debug mode "
+                        f"caught {len(syncs)} syncs between evals: "
+                        f"{sorted(set(syncs))[:3]}")
+                drains = st["drain_waits"]
+        steps = s_max * sum(lg.cohort_sizes)
+        rate = {d: [round(steps / w, 2) for w in ws]
+                for d, ws in walls.items()}
+        log(f"[pipeline] {smi}; {kind}: RunLog and params bit-identical to "
+            f"[main] in all 4 turns; pipelined: host_syncs_between_evals 0, "
+            f"blocking_submits 0, drain_waits {drains}, sync debug warnings "
+            f"between evals 0; member steps/s serial {rate[1]} vs pipelined "
+            f"{rate[2]} (warm session, turns serial, pipelined, pipelined, "
+            f"serial; evals included)")
+    # one profiled window between evals of a FedAsync run, each driver
+    import dataclasses
+    for depth in (1, 2):
+        sp = ExperimentSpec.from_legacy(
+            "fedasync", spec.testbed, max_updates=20, eval_every=10,
+            engine_cfg=dataclasses.replace(spec.engine,
+                                           pipeline_depth=depth))
+        w, busy, idle = _window_idle_share(lambda: sess.run(sp))
+        log(f"[pipeline] {smi}; profiled window between evals 1 and 2 "
+            f"(FedAsync, depth {depth}): {w:.1f} ms wall, {busy:.1f} ms of "
+            f"device kernels -> device idle share {idle:.3f}")
+
+
+def phase_tiered(smi):
+    """The tiered store at full width: FedAsync, depth 2,
+    StoreConfig(hot_slots=128, lookahead=16), 32 updates over N = 1,000
+    and N = 100,000 clients sharing one dataset dict (the reference's
+    bench_scale set-up at the full-width SERConfig)."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.api.workloads import get_workload
+    from repro_torch.core.aggregation import FedAsync
+    from repro_torch.core.testbed import build_clients, build_partitions
+    from repro_torch.engine import resilience
+    from repro_torch.engine.cohort import steps_per_round
+    from repro_torch.engine.engine import (
+        CohortRunner, EngineConfig, run_async_engine)
+    from repro_torch.engine.statestore import StoreConfig
+    from repro_torch.kernels.dp_clip import dp_clip
+    from repro_torch.pytree import tree_leaves
+    base = _main_cfg()
+    splits, pooled = build_partitions(base)
+    tmpl = splits[0][0]          # every client shares client 0's dataset
+    wl = get_workload(base.workload)
+    params0 = wl.init(base.seed, base.model, "cuda")
+    acc_fn = wl.shared_accuracy(base.model)
+    s_max = steps_per_round(tmpl["y"].shape[0], base.batch_size,
+                            base.local_epochs)
+    hot, look, updates = 128, 16, 32
+
+    def nbytes(tree):
+        return sum(l.numel() * l.element_size() for l in tree_leaves(tree))
+
+    def go(n, store, **kw):
+        ec = EngineConfig(staleness_window=60.0, max_cohort=8,
+                          pipeline_depth=2, store=store)
+        gc.collect()                 # the last run's runner and arenas
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        clients = build_clients(base, [splits[0]] * n)
+        runner = CohortRunner(clients, ec, "cuda")
+        first = []
+        real_stage = runner.stage_cohort
+
+        def stage(plans):
+            if not first:
+                first.append(time.perf_counter())
+            return real_stage(plans)
+
+        runner.stage_cohort = stage
+        p, lg = run_async_engine(clients, params0, acc_fn, pooled,
+                                 FedAsync(alpha=0.4), max_updates=updates,
+                                 seed=0, eval_every=10 ** 9, runner=runner,
+                                 **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del runner.stage_cohort
+        return dict(params=p, log=lg, wall=wall, startup=first[0] - t0,
+                    state_bytes=nbytes(runner._arena_params)
+                    + nbytes(runner._arena_opt),
+                    data_bytes=nbytes(runner._arena_data),
+                    row_bytes=(nbytes(runner._arena_params)
+                               + nbytes(runner._arena_opt))
+                    // runner.arena_slots,
+                    peak=torch.cuda.max_memory_allocated())
+
+    tiered = StoreConfig(hot_slots=hot, lookahead=look)
+    dp_clip.reset_launches()
+    resident = go(1_000, StoreConfig())
+    _require_launches("tiered", resident["log"].engine_stats["cohorts"],
+                      s_max)
+    rows = {}
+    for n in (1_000, 100_000):
+        dp_clip.reset_launches()
+        r = go(n, tiered)
+        st = r["log"].engine_stats
+        _require_launches("tiered", st["cohorts"], s_max)
+        require(st["store_fetches"] == st["store_hot_hits"]
+                + st["store_prefetch_hits"] + st["store_stall_waits"],
+                f"[tiered] N={n}: store ledger {st}")
+        require(st["host_syncs_between_evals"] == 0
+                and st["blocking_submits"] == 0, f"[tiered] N={n}: {st}")
+        require(sum(r["log"].update_counts.values()) >= updates,
+                f"[tiered] N={n}: updates {r['log'].update_counts}")
+        rows[n] = r
+        resident_eq = r["row_bytes"] * (n + 1) + r["data_bytes"]
+        store = {k[6:]: v for k, v in st.items() if k.startswith("store_")}
+        log(f"[tiered] {smi}; N={n}: hot arena {r['state_bytes']} bytes "
+            f"({hot + 1} rows) + data {r['data_bytes']} bytes; all-resident "
+            f"equivalent {resident_eq / 1e9:.2f} GB; peak device memory "
+            f"{r['peak'] / 2 ** 30:.2f} GiB; startup {r['startup']:.2f} s, "
+            f"wall {r['wall']:.2f} s, {updates / r['wall']:.2f} updates/s; "
+            f"cohorts {st['cohorts']} sizes {r['log'].cohort_sizes}; store "
+            f"{store}; drain_waits {st['drain_waits']}")
+    require(rows[1_000]["state_bytes"] == rows[100_000]["state_bytes"],
+            "[tiered] hot-arena bytes differ between N = 1,000 and 100,000")
+    _same_run((resident["params"], resident["log"]),
+              (rows[1_000]["params"], rows[1_000]["log"]),
+              "[tiered] N=1000 vs all-resident")
+    log(f"[tiered] N=1000 tiered vs all-resident ({resident['state_bytes']} "
+        f"bytes of client state, peak {resident['peak'] / 2 ** 30:.2f} GiB):"
+        f" RunLog and params bit-identical")
+    # churn: 24 clients over 8 hot slots, so rows spill to pinned host
+    # memory and come back through the side stream
+    churn = StoreConfig(hot_slots=8, lookahead=4)
+
+    def go_churn(store):
+        ec = EngineConfig(staleness_window=60.0, max_cohort=4,
+                          pipeline_depth=2, store=store)
+        clients = build_clients(base, [splits[0]] * 24)
+        return run_async_engine(
+            clients, params0, acc_fn, pooled, FedAsync(alpha=0.4),
+            max_updates=48, seed=0, eval_every=16,
+            runner=CohortRunner(clients, ec, "cuda"))
+
+    dp_clip.reset_launches()
+    p_res, l_res = go_churn(StoreConfig())
+    p_tier, l_tier = go_churn(churn)
+    _require_launches("tiered", l_res.engine_stats["cohorts"]
+                      + l_tier.engine_stats["cohorts"], s_max)
+    _same_run((p_res, l_res), (p_tier, l_tier), "[tiered] churn")
+    st = l_tier.engine_stats
+    store = {k[6:]: v for k, v in st.items() if k.startswith("store_")}
+    require(st["store_spill_bytes"] > 0 and st["store_evictions"] > 0
+            and st["store_fetches"] == st["store_hot_hits"]
+            + st["store_prefetch_hits"] + st["store_stall_waits"]
+            and st["host_syncs_between_evals"] == 0, f"[tiered] churn {st}")
+    log(f"[tiered] {smi}; churn (24 clients, hot_slots 8, lookahead 4, 48 "
+        f"updates): RunLog and params bit-identical to all-resident; store "
+        f"{store}; H2D bytes {st['h2d_bytes_total']} (cold rows included); "
+        f"host_syncs_between_evals 0")
+    # a tiered crash/resume at N = 1,000
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="tiered_", dir=root)
+    try:
+        try:
+            go(1_000, tiered, checkpoint=resilience.CheckpointPolicy(
+                ckdir, every=16, crash_after_saves=1))
+            require(False, "[tiered] no simulated crash")
+        except resilience.SimulatedCrash:
+            pass
+        res = go(1_000, tiered, resume_from=ckdir)
+        _same_run((rows[1_000]["params"], rows[1_000]["log"]),
+                  (res["params"], res["log"]), "[tiered] resume",
+                  stats_drop=("drain_waits",))
+        size = sum(f.stat().st_size for f in pathlib.Path(ckdir).iterdir())
+        log(f"[tiered] N=1000 crash after the snapshot at 16 updates "
+            f"({size} bytes) and resume: RunLog, params and store counters "
+            f"bit-identical")
+    finally:
+        shutil.rmtree(ckdir)
 
 
 def phase_api(smi):
@@ -1299,12 +1870,24 @@ def main():
     dev, smi = phase_device()
     errs = phase_kernels(dev)
     times = phase_times(dev, smi)
-    launches = phase_main_path()
+    launches, main_runs = phase_main_path()
     phase_small_vs_cpu()
     phase_rerun()
     phase_api(smi)
     phase_legacy(smi)
     phase_robust(smi)
+    t_modes = time.perf_counter()
+    sess = _modes_session()
+    for phase in (phase_resume, phase_hostfed, phase_pipeline):
+        t0 = time.perf_counter()
+        phase(smi, main_runs, sess)
+        log(f"[{phase.__name__[6:]}] phase wall "
+            f"{time.perf_counter() - t0:.1f} s")
+    del sess
+    t0 = time.perf_counter()
+    phase_tiered(smi)
+    log(f"[tiered] phase wall {time.perf_counter() - t0:.1f} s; the run "
+        f"modes took {time.perf_counter() - t_modes:.1f} s in all")
     phase_breakdown(smi)
     errs.update(phase_kernels_zoo(dev))
     times.update(phase_times_zoo(dev, smi))

@@ -109,9 +109,10 @@ class Session:
 
     One live testbed and one live cohort runner at a time; dataset
     partitions are kept per distinct data config, and the uploaded device
-    data arena per ``partition_key`` (it is immutable, so a sweep whose
-    axes only touch client-state config hands the same device tensors to
-    every rebuilt runner and legacy run).  The step cache itself is process-global
+    :class:`~repro_torch.engine.statestore.DataArena` per
+    ``partition_key`` (it is immutable, so a sweep whose axes only touch
+    client-state config hands the same device tensors to every rebuilt
+    runner and legacy run).  The step cache itself is process-global
     (:mod:`repro_torch.engine.cohort_step`)."""
 
     def __init__(self, device=None):
@@ -158,14 +159,15 @@ class Session:
         self._runner_key = None
         self.events["testbed_builds"] += 1
 
-    def _data_arena(self, tb: TestbedConfig) -> dict:
-        """The device data arena of ``tb``'s partitions, uploaded once per
-        ``partition_key`` and shared by every runner and legacy run."""
-        from repro_torch.engine.engine import build_data_arena
+    def _data_arena(self, tb: TestbedConfig):
+        """The device data arena (a ``statestore.DataArena``) of ``tb``'s
+        partitions, uploaded once per ``partition_key`` and shared by
+        every runner and legacy run."""
+        from repro_torch.engine.statestore import DataArena
         key = partition_key(tb)
         arena = self._data_arenas.get(key)
         if arena is None:
-            arena = build_data_arena(self._clients, self.device)
+            arena = DataArena.build(self._clients, self.device)
             self._data_arenas[key] = arena
             self.events["data_arena_builds"] += 1
         else:
@@ -179,9 +181,11 @@ class Session:
             self._runner.reset_for_run()
             self.events["runner_reuses"] += 1
         else:
+            # the host-fed path reads the clients' numpy splits instead
+            arena = (self._data_arena(tb) if engine_cfg.device_arena
+                     else None)
             self._runner = CohortRunner(self._clients, engine_cfg,
-                                        self.device,
-                                        data_arena=self._data_arena(tb))
+                                        self.device, data_arena=arena)
             self._runner_key = key
             self.events["runner_builds"] += 1
         return self._runner
@@ -195,16 +199,26 @@ class Session:
             resume_from: Optional[str] = None) -> tuple:
         """Execute one spec; returns ``(final_params, RunLog)``.
         ``spec.testbed.faults`` and ``.screening`` flow to either backend's
-        loop.  Checkpointing (``checkpoint_every``, ``resume_from`` and
-        their options) is not ported yet and raises, naming ROADMAP.md
-        queue 1 item 12."""
+        loop.  ``checkpoint_every=N`` with ``checkpoint_dir`` snapshots
+        the run every N rounds (FedAvg) / merged updates (async), keeping
+        the newest ``keep_last`` steps; ``resume_from=<dir>`` resumes an
+        aborted run from its latest checkpoint bit-identically;
+        ``crash_after_saves`` raises
+        :class:`repro_torch.engine.resilience.SimulatedCrash` after that
+        many snapshots.  Checkpoint/resume is cohort-engine only."""
         if not isinstance(spec, ExperimentSpec):
             raise TypeError(f"Session.run takes an ExperimentSpec: {spec!r}")
-        if (checkpoint_every is not None or checkpoint_dir is not None
-                or crash_after_saves is not None or resume_from is not None):
-            from repro_torch.engine.engine import not_ported
-            raise not_ported("checkpoint/resume", 12)
         tb, b = spec.testbed, spec.run
+        checkpoint = None
+        if checkpoint_every is not None:
+            if checkpoint_dir is None:
+                raise ValueError(
+                    "checkpoint_every requires checkpoint_dir (where the "
+                    "step_*.npz snapshots go)")
+            from repro_torch.engine.resilience import CheckpointPolicy
+            checkpoint = CheckpointPolicy(
+                directory=checkpoint_dir, every=checkpoint_every,
+                keep_last=keep_last, crash_after_saves=crash_after_saves)
         self._materialize(tb)
         clients, params0 = self._clients, self._params0
         acc_fn, pooled = self._acc_fn, self._pooled
@@ -213,6 +227,10 @@ class Session:
         # robust fedavg variant is a barrier loop too
         strategy = spec.strategy.make()
         if spec.backend == "legacy":
+            if checkpoint is not None or resume_from is not None:
+                raise ValueError(
+                    "checkpoint/resume requires backend='cohort' — the "
+                    "legacy reference loop has no snapshot support")
             from repro_torch.core.server import run_async, run_fedavg
             arena = self._data_arena(tb)
             if not strategy.is_async:
@@ -236,12 +254,14 @@ class Session:
                 clients, params0, acc_fn, pooled, rounds=b.rounds,
                 seed=tb.seed, eval_every=b.eval_every,
                 target_acc=b.target_acc, runner=runner, faults=tb.faults,
+                checkpoint=checkpoint, resume_from=resume_from,
                 strategy=strategy, screening=tb.screening)
         return run_async_engine(
             clients, params0, acc_fn, pooled, strategy,
             max_updates=b.max_updates, max_time=b.max_time, seed=tb.seed,
             eval_every=b.eval_every, target_acc=b.target_acc, runner=runner,
-            faults=tb.faults, screening=tb.screening)
+            faults=tb.faults, checkpoint=checkpoint, resume_from=resume_from,
+            screening=tb.screening)
 
     def sweep(self, spec: ExperimentSpec, axes: dict) -> SweepResult:
         """Run the cartesian grid of ``spec`` with ``axes`` mapping dotted

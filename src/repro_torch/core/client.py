@@ -99,7 +99,7 @@ class Client:
         """Run E epochs of DP-SGD from ``global_params``; ``seed`` is the
         dispatch seed of this round's noise generator, ``data`` this
         client's train split on the params' device (its row of the data
-        arena, ``engine.build_data_arena``; uploaded for this call when
+        arena, ``statestore.DataArena``; uploaded for this call when
         None).
 
         Returns (new_params, info) with the virtual ``duration`` drawn from

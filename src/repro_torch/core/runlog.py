@@ -5,7 +5,7 @@ paper's figures/tables need, plus the engine's cohort statistics.
 (runlog.py:42).  The fault and screening counter names come from
 :mod:`repro_torch.core.faults` and :mod:`repro_torch.core.screening`,
 next to the code that increments them; the tiered-store counters are
-defined here (the store is not ported yet, so they are always zero).
+defined here (``engine.statestore`` fills them; zero when all-resident).
 The ``pallas_interpret`` slot holds the port's kernel-dispatch record
 (:func:`repro_torch.kernels.common.kernel_info`).
 """
@@ -29,24 +29,19 @@ STORE_STATS_KEYS = (
 )
 
 ENGINE_STATS_KEYS = (
-    "data_path",                 # "arena" (the only data path of the port)
+    "data_path",                 # "arena" | "host"
     "dp_path",                   # "jnp" | "pallas"
     "pallas_interpret",          # kernel_info() dict, or None off-pallas
     "cohorts",                   # cohorts merged this run
     "h2d_bytes_total",           # host->device staging traffic (bytes)
     "h2d_bytes_per_cohort",      # h2d_bytes_total / cohorts
-    "pipeline_depth",            # EngineConfig.pipeline_depth (1)
+    "pipeline_depth",            # EngineConfig.pipeline_depth
     "host_syncs_at_eval",        # sanctioned _host_fetch blocking points
-    "host_syncs_between_evals",  # serial path: one per blocking submit
+    "host_syncs_between_evals",  # serial path: one per blocking submit;
+                                 # 0 on the pipelined path
     "blocking_submits",          # serial path's per-cohort submits
-    "drain_waits",               # pipelined backpressure waits (0)
+    "drain_waits",               # pipelined backpressure waits
 ) + FAULT_STATS_KEYS + SCREEN_STATS_KEYS + STORE_STATS_KEYS
-
-
-def zero_store_stats() -> dict:
-    """The store counters of an all-resident run (the only kind the port
-    has)."""
-    return {k: 0 for k in STORE_STATS_KEYS}
 
 
 def validate_engine_stats(stats: dict, context: str = "engine_stats"):

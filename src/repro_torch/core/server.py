@@ -75,10 +75,11 @@ def run_fedavg(
     the synchronous aggregator (default FedAvg; ``TrimmedMeanFedAvg`` is
     the robust one); ``screening`` rejects nonfinite/oversized uploads
     identically on both paths.  ``data_arena`` is the clients' device
-    datasets in the engine's layout (``engine.build_data_arena``; built
-    for the run when None), which a Session uploads once.  ``mesh`` and
-    checkpoint/resume are cohort-engine features the port does not have
-    yet: the engine raises on them."""
+    datasets (a ``statestore.DataArena``; built for the run when None),
+    which a Session uploads once.  ``checkpoint``/``resume_from``
+    (cohort engine only) snapshot and resume the run — see
+    :mod:`repro_torch.engine.resilience`; ``mesh`` raises (ROADMAP.md
+    queue 1 item 14)."""
     eval_every = _normalize_eval_every(eval_every)
     if engine == "cohort":
         from repro_torch.engine.engine import run_fedavg_engine
@@ -145,11 +146,10 @@ def _client_rows(clients, global_params, data_arena):
     """Each client's device dataset: its row of the data arena, uploaded
     for this run when no arena is given."""
     if data_arena is None:
-        from repro_torch.engine.engine import build_data_arena
-        data_arena = build_data_arena(
+        from repro_torch.engine.statestore import DataArena
+        data_arena = DataArena.build(
             clients, tree_leaves(global_params)[0].device)
-    return {c.cid: {k: v[c.cid] for k, v in data_arena.items()}
-            for c in clients}
+    return {c.cid: data_arena.rows_of(c.cid) for c in clients}
 
 
 def _run_fedavg_legacy(

@@ -3,14 +3,15 @@
 (staleness window) -> one cohort step per cohort
 (``cohort_step.make_cohort_step``, cached by training config) -> the
 fused weights-vector merge or ``aggregation.apply_update`` member by
-member -> a ``RunLog`` with the legacy loop's schema.
+member -> a ``RunLog`` with the legacy loop's schema.  Around it: the
+host-fed and arena data paths, the pipelined scheduler
+(``EngineConfig.pipeline_depth``), the tiered client-state store
+(``statestore``) and checkpoint/resume (``resilience``).
 
 Frontends: ``repro_torch.core.server.run_fedavg`` / ``run_async`` take
 ``engine="cohort"`` (this package) or ``engine="legacy"`` (the per-client
 loop).  Not ported yet, each rejected naming its ROADMAP.md item: mesh
-execution and the other client axes, the host data path, the pipelined
-scheduler, the tiered store (only its ``StoreConfig`` exists) and
-checkpoint/resume.
+execution, the other client axes and the production round (item 14).
 """
 from repro_torch.engine.cohort import (
     LocalRoundPlan,
@@ -21,6 +22,7 @@ from repro_torch.engine.cohort import (
     pop_cohort,
 )
 from repro_torch.engine.cohort_step import (
+    CLIENT_AXES,
     cached_cohort_step,
     invalidate_step_cache,
     make_cohort_step,
@@ -31,16 +33,28 @@ from repro_torch.engine.cohort_step import (
 from repro_torch.engine.engine import (
     CohortRunner,
     EngineConfig,
+    StagedCohort,
     run_async_engine,
     run_fedavg_engine,
 )
-from repro_torch.engine.statestore import StoreConfig
+from repro_torch.engine.resilience import CheckpointPolicy, SimulatedCrash
+from repro_torch.engine.statestore import (
+    DataArena,
+    StoreConfig,
+    TieredStateStore,
+)
 
 __all__ = [
+    "CLIENT_AXES",
+    "CheckpointPolicy",
     "CohortRunner",
+    "DataArena",
     "EngineConfig",
     "LocalRoundPlan",
+    "SimulatedCrash",
+    "StagedCohort",
     "StoreConfig",
+    "TieredStateStore",
     "cached_cohort_step",
     "fedavg_weights",
     "fold_cohort_weights",

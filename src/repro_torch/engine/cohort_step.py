@@ -1,15 +1,21 @@
-"""The cohort step (port of ``repro/engine/cohort_step.py``, arena path):
-every cohort member's whole local round plus the fused weighted merge.
+"""The cohort step (port of ``repro/engine/cohort_step.py``): every
+cohort member's whole local round plus the fused weighted merge.
 
-The cohort assembles on the device from persistent arenas: all clients'
-params / optimizer state live in stacked (A, ...) tensors (a slot per
-client), every client's dataset was uploaded once, and
-a cohort is gathered by ``index_select`` over a (K,) slot vector with its
-minibatches gathered from the resident data by the (K, S_max, B) int32
-plan.  The new optimizer state is scattered back into its slots in place
-(the runner owns the arena; the reference copies it, being pure).
-Slots may repeat only if they carry identical rows (the reference's pad
-members); the port's runner never pads.
+Two data paths (``make_cohort_step(arena=...)``):
+
+* **arena** (the engine's default) — the cohort assembles on the device
+  from persistent arenas: the resident clients' params / optimizer state
+  live in stacked (A, ...) tensors (a slot per resident client), every
+  distinct dataset was uploaded once, and a cohort is gathered by
+  ``index_select`` over a (K,) slot vector with its minibatches gathered
+  from the resident data by the (K, S_max, B) int32 plan.  The new
+  optimizer state is scattered back into its slots in place (the runner
+  owns the arena; the reference copies it, being pure).  Slots may
+  repeat only if they carry identical rows (the reference's pad
+  members); the port's runner never pads.
+* **host-fed** (``EngineConfig(device_arena=False)``) — the runner stacks
+  the members' params, optimizer states and (K, S_max, B, ...) batches
+  itself and the step returns the new stacked optimizer state.
 
 Two executors:
 
@@ -61,6 +67,17 @@ from repro_torch.pytree import (
 # make_cohort_step invocations since process start: the step cache's
 # misses (a warm sigma sweep must not grow it per point)
 _STEP_BUILDS = 0
+
+# the reference's executor set (cohort_step.py:110); the port runs
+# "unroll" and rejects the others by name (EngineConfig)
+CLIENT_AXES = ("unroll", "map", "vmap", "fl_step")
+
+
+def validate_client_axis(client_axis: str) -> str:
+    if client_axis not in CLIENT_AXES:
+        raise ValueError(
+            f"client_axis must be one of {CLIENT_AXES}: {client_axis!r}")
+    return client_axis
 
 
 def step_builds() -> int:
@@ -123,11 +140,12 @@ def stack_trees(trees):
 
 def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
                      use_dp: bool = True, dp_path: str = "jnp",
-                     add_noise: bool = True):
+                     add_noise: bool = True, arena: bool = True):
     """Build ``(cohort_step, merge_cohort)``.
 
-    ``cohort_step(arena_params, arena_opt, arena_data, slots, data_slots,
-    batch_idx, gens, n_steps, noise_stddev, corrupt_scale)``:
+    With ``arena=True``: ``cohort_step(arena_params, arena_opt,
+    arena_data, slots, data_slots, batch_idx, gens, n_steps, noise_stddev,
+    corrupt_scale, live_steps) -> (upload, arena_opt, screen)``:
 
       arena_params / arena_opt: stacked (A, ...) client state
       arena_data:  dict of (A_d, n_max, ...) resident datasets
@@ -137,6 +155,14 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
       n_steps:     (K,) host int array of real local steps per member
       noise_stddev: one-element f32 device tensor (runtime sigma*C/B)
       corrupt_scale: (K,) f32 device tensor (1.0 = clean)
+      live_steps:  the same (K,) counts as an int32 device tensor (the
+                   step-major executor's live mask), staged with the
+                   cohort so that the step itself uploads nothing.
+
+    With ``arena=False`` (the host-fed path): ``cohort_step(
+    stacked_params, stacked_opt, batches, gens, n_steps, noise_stddev,
+    corrupt_scale, live_steps) -> (upload, new_opt, screen)`` with
+    ``batches`` a dict of (K, S_max, B, ...) device tensors.
 
     ``dp_cfg.noise_multiplier`` is ignored (the runtime stddev carries
     it); ``add_noise=False`` is the statically noise-free variant for
@@ -165,7 +191,7 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         return opt.update(g, opt_state, params)
 
     def run_members(stacked_params, stacked_opt, gens, batches, n_steps,
-                    noise_stddev):
+                    live_steps, noise_stddev):
         """Member-major executor: member i runs its n_steps[i] steps."""
         outs_p, outs_o = [], []
         for i in range(len(gens)):
@@ -178,7 +204,7 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         return stack_trees(outs_p), stack_trees(outs_o)
 
     def run_members_fused(stacked_params, stacked_opt, gens, batches,
-                          n_steps, noise_stddev):
+                          n_steps, live_steps, noise_stddev):
         """Step-major executor: one dp_clip call per local step over the
         whole cohort's stacked (K, B, D) per-example grad matrix."""
         from repro_torch.kernels.dp_clip.ops import dp_clip_mean_noise_cohort
@@ -186,7 +212,6 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         template = unstack_tree(stacked_params, 0)
         d = tree_size(template)
         dev = tree_leaves(stacked_params)[0].device
-        live_steps = torch.as_tensor(n_steps, dtype=torch.int32, device=dev)
         s_max = next(iter(batches.values())).shape[1]
         member_grads = vmap(lambda p, b: per_example_grads(loss_fn, p, b))
         p, o = stacked_params, stacked_opt
@@ -210,8 +235,9 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
 
     execute = run_members_fused if fused_dp else run_members
 
-    def cohort_step(arena_params, arena_opt, arena_data, slots, data_slots,
-                    batch_idx, gens, n_steps, noise_stddev, corrupt_scale):
+    def cohort_step_arena(arena_params, arena_opt, arena_data, slots,
+                          data_slots, batch_idx, gens, n_steps, noise_stddev,
+                          corrupt_scale, live_steps):
         stacked_params = take_rows(arena_params, slots)
         stacked_opt = take_rows(arena_opt, slots)
         # in-step batch gather from the resident datasets: only the index
@@ -219,13 +245,25 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         batches = {k: l[data_slots[:, None, None], batch_idx]
                    for k, l in arena_data.items()}
         new_params, new_opt = execute(stacked_params, stacked_opt, gens,
-                                      batches, n_steps, noise_stddev)
+                                      batches, n_steps, live_steps,
+                                      noise_stddev)
         # write-back: the honest post-training state; corruption below
         # touches only the returned upload payload
         put_rows_(arena_opt, slots, new_opt)
         upload = _corrupt_members(stacked_params, new_params, corrupt_scale)
         screen = _screen_members(stacked_params, upload)
         return upload, arena_opt, screen
+
+    def cohort_step_host(stacked_params, stacked_opt, batches, gens, n_steps,
+                         noise_stddev, corrupt_scale, live_steps):
+        new_params, new_opt = execute(stacked_params, stacked_opt, gens,
+                                      batches, n_steps, live_steps,
+                                      noise_stddev)
+        upload = _corrupt_members(stacked_params, new_params, corrupt_scale)
+        screen = _screen_members(stacked_params, upload)
+        return upload, new_opt, screen
+
+    cohort_step = cohort_step_arena if arena else cohort_step_host
 
     def merge_cohort(global_params, stacked_uploads, coeffs, g_coeff):
         coeffs = coeffs.to(torch.float32)
@@ -266,24 +304,28 @@ def _hashable_loss(loss_fn):
 
 
 def cached_cohort_step(loss_fn, dp_cfg: DPConfig, opt, use_dp: bool = True,
-                       dp_path: str = "jnp", add_noise: bool = True):
+                       dp_path: str = "jnp", add_noise: bool = True,
+                       arena: bool = True):
     """Memoized :func:`make_cohort_step`, keyed as the reference keys it
-    (training config, DP path, the static noise on/off) minus what the
-    port has no counterpart of (shardings, donation, executor choice).
+    (training config, DP path, the static noise on/off, the data path)
+    minus what the port has no counterpart of (shardings, donation,
+    executor choice).
     ``dp_cfg.noise_multiplier`` is stripped from the key: the noise scale
     is a runtime argument, so every sigma of a sweep shares one entry.
     The cache holds step functions only, never device buffers."""
     dp_cfg = replace(dp_cfg, noise_multiplier=0.0)
-    key = (_hashable_loss(loss_fn), dp_cfg, opt, use_dp, dp_path, add_noise)
+    key = (_hashable_loss(loss_fn), dp_cfg, opt, use_dp, dp_path, add_noise,
+           arena)
     try:
         hash(key)
     except TypeError:
         return make_cohort_step(loss_fn, dp_cfg, opt, use_dp=use_dp,
-                                dp_path=dp_path, add_noise=add_noise)
+                                dp_path=dp_path, add_noise=add_noise,
+                                arena=arena)
     if key not in _STEP_CACHE:
         _STEP_CACHE[key] = make_cohort_step(
             loss_fn, dp_cfg, opt, use_dp=use_dp, dp_path=dp_path,
-            add_noise=add_noise)
+            add_noise=add_noise, arena=arena)
     return _STEP_CACHE[key]
 
 

@@ -1,16 +1,37 @@
 """Cohort-batched async execution engine (port of
-``repro/engine/engine.py``): serial, all-resident.
+``repro/engine/engine.py``).
 
 The event loop is the reference's: dispatch plans each client's local
 round on the host (clock draw, accountant step, version pull), cohorts
 pop off the virtual-clock heap within ``staleness_window`` of the
 earliest completion, each cohort runs as one cohort step
-(:mod:`repro_torch.engine.cohort_step`) over device-resident arenas, and
-FedAvg/FedAsync weights fold into one weights-vector merge, while
-FedBuff, AdaptiveAsync, the robust strategies and personalized clients
-go member by member through ``aggregation.apply_update`` /
-``strategy.aggregate`` — the switch the legacy loop uses.  RunLog
-bookkeeping is host-deterministic and equals the reference's.
+(:mod:`repro_torch.engine.cohort_step`), and FedAvg/FedAsync weights
+fold into one weights-vector merge, while FedBuff, AdaptiveAsync, the
+robust strategies and personalized clients go member by member through
+``aggregation.apply_update`` / ``strategy.aggregate`` — the switch the
+legacy loop uses.  RunLog bookkeeping is host-deterministic and equals
+the reference's.
+
+Data paths (``EngineConfig.device_arena``): the default arena path keeps
+the clients' params and optimizer state in stacked device arenas and
+every distinct dataset on the device once (:class:`DataArena`), so a
+cohort's only upload is a few KB of index plans; the host-fed path
+(``device_arena=False``) stacks each cohort's params, optimizer states
+and batches on the host side and writes each member's optimizer state
+back to its client.  ``StoreConfig(hot_slots=...)`` bounds the arena to
+a hot set backed by a host cold store
+(:mod:`repro_torch.engine.statestore`).
+
+Scheduling (``EngineConfig.pipeline_depth``): a cohort is staged (lazy
+batch plans drawn, index plans copied to the card from pinned buffers
+without blocking) and then submitted (the step and merge enqueued on the
+stream).  Depth 1 is the serial driver: each cohort is waited for
+before the next one is staged (``blocking_submits``).  Depth >= 2 keeps
+up to that many cohorts in flight; past it the loop waits on the oldest
+cohort's CUDA event (``drain_waits``), and the host blocks only at
+evals, screen-verdict fetches and store spills, each counted in its own
+bucket, so ``host_syncs_between_evals`` is 0.  Everything runs on one stream in the
+serial order, so a pipelined run is bit-identical to the serial one.
 
 Faults and screening (RESILIENCE.md): a ``FaultInjector`` resolves every
 popped completion (or FedAvg delivery) on the host; a lost update stays
@@ -20,19 +41,22 @@ vector.  Screening compares the step's per-member (finite, norm) outputs
 with the thresholds on the host, after one counted fetch per cohort
 (``screen_verdict_syncs``).  Neither changes the built step.
 
+Checkpoint/resume (:mod:`repro_torch.engine.resilience`): the loops
+snapshot at loop-consistent points and resume bit-identically.
+
 Randomness: dispatch seeds come from ``np.random.default_rng(seed)`` in
 the order the reference splits its PRNG key — N at startup, then one per
 re-dispatch (async) or one per client per round (FedAvg).  Each seed
 seeds that member's device ``torch.Generator`` for its DP noise.
 
 Not in this slice (rejected by :class:`EngineConfig` with the ROADMAP
-item that brings them): the pipelined scheduler, the tiered store, mesh
-execution and the other client-axis executors, the host data path; and
-checkpoint/resume (rejected by the loops).
+item that brings them): mesh execution, the other client-axis executors
+and the production round.
 """
 from __future__ import annotations
 
 import heapq
+from collections import deque
 from dataclasses import dataclass, replace
 from typing import Callable, Optional
 
@@ -41,27 +65,26 @@ import torch
 
 from repro_torch.core import accountant as _accountant
 from repro_torch.core.aggregation import (
-    AdaptiveAsync, FedAsync, FedAvg, apply_update)
+    AdaptiveAsync, FedAsync, FedAvg, FedBuff, apply_update)
 from repro_torch.core.client import SEED_HIGH
 from repro_torch.core.faults import (
     FaultInjector, apply_deadline, zero_fault_stats)
 from repro_torch.core.runlog import (
-    RunLog, eval_all, finish_log, validate_engine_stats, zero_store_stats)
+    RunLog, eval_all, finish_log, validate_engine_stats)
 from repro_torch.core.screening import ScreeningState, zero_screen_stats
 from repro_torch.engine.cohort import (
     LocalRoundPlan, fedavg_weights, fold_cohort_weights, plan_batches,
     pop_cohort, steps_per_round)
 from repro_torch.engine.cohort_step import (
-    cached_cohort_step, take_rows, unstack_tree)
-from repro_torch.engine.statestore import StoreConfig
+    cached_cohort_step, put_rows_, stack_trees, take_rows, unstack_tree,
+    validate_client_axis)
+from repro_torch.engine.statestore import (
+    DataArena, StoreConfig, TieredStateStore, _tree_nbytes, zero_store_stats)
 from repro_torch.kernels.common import kernel_info
 from repro_torch.pytree import tree_leaves, tree_map
 
 # the ROADMAP.md queue 1 items that bring what the port still rejects
-_ROADMAP_ITEMS = {9: "pipelined scheduler", 11: "tiered client-state store",
-                  12: "checkpoint/resume",
-                  14: "production round and multi-GPU",
-                  16: "benchmarks: the host data path"}
+_ROADMAP_ITEMS = {14: "production round and multi-GPU"}
 
 
 def not_ported(what: str, item: int) -> ValueError:
@@ -71,9 +94,8 @@ def not_ported(what: str, item: int) -> ValueError:
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """The reference's fields and defaults; non-default values of the
-    features the port does not have yet raise, naming the ROADMAP.md
-    item."""
+    """The reference's fields, defaults and validation; the features the
+    port does not have yet raise, naming the ROADMAP.md item."""
 
     staleness_window: float = 0.0  # virtual seconds of completions per cohort
     max_cohort: int = 2            # cap on popped cohort size
@@ -83,18 +105,32 @@ class EngineConfig:
     pow2_cohorts: bool = True      # bucket cohort sizes (K in {1, 2, 4, ...})
     mesh: Optional[object] = None
     fl_cfg: Optional[object] = None
-    device_arena: bool = True
-    pipeline_depth: int = 1
-    store: StoreConfig = StoreConfig()
+    device_arena: bool = True      # False: the host-fed data path
+    pipeline_depth: int = 1        # cohorts in flight (1: the serial driver)
+    store: StoreConfig = StoreConfig()  # hot_slots bounds the device arena
 
     def __post_init__(self):
+        validate_client_axis(self.client_axis)
+        if int(self.pipeline_depth) < 1 or self.pipeline_depth != int(
+                self.pipeline_depth):
+            raise ValueError(
+                f"pipeline_depth must be an integer >= 1: "
+                f"{self.pipeline_depth!r}")
+        if self.store.hot_slots is not None:
+            if not self.device_arena:
+                raise ValueError(
+                    "StoreConfig.hot_slots requires device_arena=True — "
+                    "the host data path has no device arena to bound")
+            if self.store.hot_slots < self.max_cohort:
+                raise ValueError(
+                    f"StoreConfig.hot_slots={self.store.hot_slots} must be "
+                    f">= max_cohort={self.max_cohort}: a staged cohort pins "
+                    "one hot slot per member, so a smaller hot set "
+                    "deadlocks slot acquisition")
         later = (
-            ("pipeline_depth", self.pipeline_depth != 1, 9),
-            ("store", self.store.hot_slots is not None, 11),
             ("mesh", self.mesh is not None, 14),
             ("client_axis", self.client_axis != "unroll", 14),
             ("fl_cfg", self.fl_cfg is not None, 14),
-            ("device_arena", not self.device_arena, 16),
         )
         for name, bad, item in later:
             if bad:
@@ -104,14 +140,12 @@ class EngineConfig:
             raise ValueError(f"max_cohort must be >= 1: {self.max_cohort}")
 
 
-def _resolve_cfg(engine_cfg, mesh, checkpoint, resume_from) -> EngineConfig:
-    """The loops' keyword features the port does not have yet raise here,
-    naming their ROADMAP.md item."""
-    if checkpoint is not None or resume_from is not None:
-        raise not_ported("checkpoint/resume", 12)
+def _resolve_cfg(engine_cfg, mesh) -> EngineConfig:
+    """Fold a frontend-supplied mesh into the config (raises, naming item
+    14)."""
     cfg = engine_cfg or EngineConfig()
     if mesh is not None and cfg.mesh is None:
-        cfg = replace(cfg, mesh=mesh)     # raises, naming item 14
+        cfg = replace(cfg, mesh=mesh)
     return cfg
 
 
@@ -122,33 +156,106 @@ def _host_fetch(runner, value) -> float:
     return out
 
 
+def _to_host(tree):
+    """A host copy of a tree of tensors: pinned buffers filled by
+    asynchronous copies and one wait on the card, plain clones on the
+    CPU."""
+    if tree_leaves(tree)[0].device.type != "cuda":
+        return tree_map(lambda l: l.detach().clone(), tree)
+
+    def fetch(l):
+        dst = torch.empty(l.shape, dtype=l.dtype, pin_memory=True)
+        dst.copy_(l, non_blocking=True)
+        return dst
+
+    out = tree_map(fetch, tree)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return out
+
+
 def _host_fetch_array(runner, value):
-    """The :func:`_host_fetch` sibling for the one array read, a cohort's
-    screen verdicts (bucketed as ``screen_verdict_syncs``)."""
-    out = tuple(v.cpu().numpy() for v in value)
+    """The :func:`_host_fetch` sibling for tensor reads: a cohort's screen
+    verdicts (bucketed as ``screen_verdict_syncs``) and the store's spills
+    (``store_sync_reads``).  Returns the tree as host tensors."""
+    out = _to_host(value)
     runner.note_host_sync()
     return out
 
 
-def build_data_arena(clients, device) -> dict:
-    """Every client's train split uploaded once as (n, n_max, ...) per
-    key, slot = cid, short datasets zero-padded, labels int64.  The
-    engine gathers its cohorts' minibatches from it and the legacy loop
-    indexes a client's row."""
-    n = len(clients)
-    n_max = max(c.n_train for c in clients)
-    arena = {}
-    for k, v0 in clients[0].data.items():
-        buf = np.zeros((n, n_max) + v0.shape[1:], v0.dtype)
-        for c in clients:
-            buf[c.cid, : c.n_train] = c.data[k]
-        t = torch.from_numpy(buf).to(device)
-        arena[k] = t.long() if k == "y" else t
-    return arena
+class _PinnedStaging:
+    """Host->device copies without a host wait: each upload packs its
+    arrays into one pinned buffer, copies it with ``non_blocking=True``
+    and records a CUDA event; a buffer is reused only after its event has
+    completed, so the pool settles at the number of copies in flight
+    (about ``pipeline_depth + 1`` cohorts' worth).  A copy from pageable
+    memory would wait for the stream to drain: a hidden host sync per
+    cohort."""
+
+    ALIGN = 16
+
+    def __init__(self, device):
+        self.device = device
+        self.bufs = []            # [pinned uint8 buffer, event or None]
+
+    def _buffer(self, nbytes: int):
+        # best fit: a small upload must not take the buffer that the next
+        # cohort's batches need
+        free = [e for e in self.bufs if e[0].numel() >= nbytes
+                and (e[1] is None or e[1].query())]
+        if free:
+            return min(free, key=lambda e: e[0].numel())
+        entry = [torch.empty(max(nbytes, 1 << 16), dtype=torch.uint8,
+                             pin_memory=True), None]
+        self.bufs.append(entry)
+        return entry
+
+    def upload(self, arrays) -> list:
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        offs, total = [], 0
+        for a in arrays:
+            offs.append(total)
+            total += -(-a.nbytes // self.ALIGN) * self.ALIGN
+        entry = self._buffer(max(total, 1))
+        host = entry[0].numpy()
+        for a, off in zip(arrays, offs):
+            host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        dev = entry[0][:max(total, 1)].to(self.device, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        entry[1] = ev
+        out = []
+        for a, off in zip(arrays, offs):
+            dt = torch.from_numpy(a[:0]).dtype
+            out.append(dev[off:off + a.nbytes].view(dt).view(a.shape))
+        return out
+
+
+@dataclass
+class StagedCohort:
+    """One cohort's device inputs, assembled and copied ahead of
+    submission: on the arena path the index plans, on the host path the
+    stacked state and batch tensors."""
+
+    plans: list
+    k: int
+    degenerate: bool = False       # s_max == 0: no client has a full batch
+    arena: bool = True
+    slots: Optional[torch.Tensor] = None       # (K,) int64 state slots
+    data_slots: Optional[torch.Tensor] = None  # (K,) int64 dataset rows
+    batch_idx: Optional[torch.Tensor] = None   # (K, S_max, B) int64
+    n_steps: Optional[np.ndarray] = None       # (K,) host int32
+    live_steps: Optional[torch.Tensor] = None  # (K,) int32 on the device
+    corrupt: Optional[torch.Tensor] = None     # (K,) f32 corruption scales
+    stacked_params: Optional[object] = None    # host path only
+    stacked_opt: Optional[object] = None
+    batches: Optional[dict] = None
 
 
 class CohortRunner:
-    """Owns the cohort step, the device arenas and the host plan glue."""
+    """Owns the cohort step, the device arenas, the tiered store and the
+    host plan glue."""
 
     def __init__(self, clients, cfg: EngineConfig, device, data_arena=None):
         c0 = clients[0]
@@ -167,11 +274,16 @@ class CohortRunner:
         self.s_max = max(
             steps_per_round(c.n_train, c.batch_size, c.local_epochs)
             for c in clients)
+        self.use_arena = bool(cfg.device_arena)
+        self.tiered = self.use_arena and cfg.store.hot_slots is not None
+        self.pipelined = cfg.pipeline_depth > 1
+        # the serial driver consumes every cohort before staging the next
+        self._submits_block = not self.pipelined
         add_noise = bool(c0.use_dp and c0.dp_cfg.noise_multiplier > 0)
         self.dp_path = c0.dp_path if c0.use_dp else "jnp"
         self.cohort_step, self.merge_cohort = cached_cohort_step(
             c0.loss_fn, c0.dp_cfg, c0.opt, use_dp=c0.use_dp,
-            dp_path=self.dp_path, add_noise=add_noise)
+            dp_path=self.dp_path, add_noise=add_noise, arena=self.use_arena)
         # runtime noise scale sigma*C/B: float64 on the host, rounded once
         # to float32 (reference engine.py:360), then one device element
         self._noise_std = torch.tensor(
@@ -179,21 +291,20 @@ class CohortRunner:
                         / c0.batch_size if c0.use_dp else 0.0)],
             dtype=torch.float32, device=self.device)
         self._eps_sched = {}
-        # the dataset arena (build_data_arena); a Session hands one arena
-        # to every runner over the same partitions, so a sigma sweep
-        # uploads the corpus once.  The port never pads a cohort (there
-        # is no mesh to divide), so the reference's spare pad slot is not
-        # kept.
-        self.arena_slots = len(clients)
-        self._arena_data = (data_arena if data_arena is not None
-                            else build_data_arena(clients, self.device))
+        self._staging = (_PinnedStaging(self.device)
+                         if self.device.type == "cuda" else None)
+        self._side = None              # the store's prefetch copy stream
+        self.store = None
+        self.data_arena = None
+        if self.use_arena:
+            self._adopt_data_arena(data_arena)
         self.reset_for_run()
 
     def reset_for_run(self):
-        """Drop per-run state (client-state arenas, queued writes, fault and
-        screening oracles, counters); the dataset arena, the step and the
-        epsilon schedules survive (the Session reuses a runner across
-        runs)."""
+        """Drop per-run state (client-state arenas, queued writes, the
+        store's residency, fault and screening oracles, counters); the
+        dataset arena, the step and the epsilon schedules survive (the
+        Session reuses a runner across runs)."""
         from repro_torch.kernels.dp_clip import dp_clip
         self._arena_params = None
         self._arena_opt = None
@@ -204,16 +315,24 @@ class CohortRunner:
         self.host_syncs_at_eval = 0
         self.host_syncs_between_evals = 0
         self.blocking_submits = 0
+        self.drain_waits = 0
         self.fault_injector = None
         self.screening = None
         self._in_screen = False
         self.screen_verdict_syncs = 0
         self._last_screen = None
+        self._serial_done = None
+        self._in_store = False
         self._launches0 = dp_clip.launches()
+        if self.tiered:
+            self.store = TieredStateStore(
+                self.cfg.store, len(self.clients), self)
 
     # -- host-sync accounting ---------------------------------------------
     def note_host_sync(self):
-        if self._in_screen:
+        if self._in_store:
+            self.store.sync_reads += 1
+        elif self._in_screen:
             self.screen_verdict_syncs += 1
         elif self._in_eval:
             self.host_syncs_at_eval += 1
@@ -223,7 +342,65 @@ class CohortRunner:
     def eval_boundary(self, inside: bool):
         self._in_eval = inside
 
+    # -- host->device staging and the in-flight window ---------------------
+    def _h2d(self, *arrays) -> list:
+        """Copy host arrays to the device: through pinned staging on the
+        card (no host wait), as fresh tensors on the CPU."""
+        if self._staging is None:
+            return [torch.from_numpy(np.array(a)) for a in arrays]
+        return self._staging.upload(arrays)
+
+    def cohort_done(self):
+        """A marker of everything enqueued so far: a CUDA event on the
+        card, None on the CPU (where every op has already run)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _await_serial(self):
+        """The serial driver's wait for its previous cohort."""
+        done, self._serial_done = self._serial_done, None
+        if done is not None:
+            done.synchronize()
+
+    def drain(self, inflight: deque):
+        """Backpressure: wait on the oldest in-flight cohort's event until
+        at most ``pipeline_depth`` cohorts are in flight."""
+        while len(inflight) > self.cfg.pipeline_depth:
+            self.drain_waits += 1
+            ev = inflight.popleft()
+            if ev is not None:
+                ev.synchronize()
+
+    def _side_stream(self):
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
+
     # -- device-resident arenas -------------------------------------------
+    def _adopt_data_arena(self, data_arena):
+        """Size the client-state arena (``hot_slots`` rows under the store,
+        all N otherwise) and adopt, or build, the dataset arena.  On the
+        all-resident layout with distinct datasets both index spaces
+        coincide (slot == cid == data row) and staging uploads one slot
+        vector."""
+        n = len(self.clients)
+        if data_arena is None:
+            data_arena = DataArena.build(self.clients, self.device)
+        self.data_arena = data_arena
+        self._arena_data = data_arena.leaves
+        self._data_slot_of = data_arena.slot_of_cid
+        hot = self.cfg.store.hot_slots if self.tiered else n
+        # plus the reference's pad row, which the port never gathers (it
+        # does not pad cohorts): one row keeps both arenas' shapes, and so
+        # the snapshot arrays and the store's byte counts, the reference's
+        self.arena_slots = hot + 1
+        self._data_slots_identical = (
+            not self.tiered and np.array_equal(self._data_slot_of,
+                                               np.arange(n)))
+
     def _ensure_state_arenas(self, params):
         if self._arena_params is not None:
             return
@@ -240,8 +417,14 @@ class CohortRunner:
         self._ensure_state_arenas(params_tree)
         self._writeq.append((slot, params_tree))
 
+    def _cancel_writes(self, slot: int):
+        """Drop queued writes against ``slot`` (its occupant was evicted;
+        the replacement queues its own)."""
+        self._writeq = [(s, t) for s, t in self._writeq if s != slot]
+
     def _flush_writes(self):
         q, self._writeq = self._writeq, []
+        groups = []
         i = 0
         while i < len(q):
             tree = q[i][1]
@@ -250,17 +433,100 @@ class CohortRunner:
             while j < len(q) and q[j][1] is tree:
                 slots.append(q[j][0])
                 j += 1
-            idx = torch.as_tensor(slots, dtype=torch.int64,
-                                  device=self.device)
-            tree_map(lambda a, l: a.index_copy_(
-                0, idx, l.unsqueeze(0).expand((len(slots),) + l.shape)),
-                self._arena_params, tree)
+            groups.append((tree, slots))
             i = j
+        if not groups:
+            return
+        idxs = self._h2d(*[np.asarray(sl, np.int64) for _, sl in groups])
+        for (tree, slots), idx in zip(groups, idxs):
+            n = len(slots)
+            tree_map(lambda a, l: a.index_copy_(
+                0, idx, l.unsqueeze(0).expand((n,) + l.shape)),
+                self._arena_params, tree)
+
+    # -- tiered-store device plumbing (repro_torch.engine.statestore) ------
+    def spill_opt_slot(self, slot: int):
+        """Fetch one hot opt row to the host for the cold store, through
+        the ``_host_fetch_array`` funnel (counted ``store_sync_reads``).
+        The copy is enqueued on the main stream, after every in-flight
+        cohort that trains the row."""
+        idx = self._h2d(np.asarray([slot], np.int64))[0]
+        row = take_rows(self._arena_opt, idx)
+        self._in_store = True
+        try:
+            host = _host_fetch_array(self, row)
+        finally:
+            self._in_store = False
+        return tree_map(lambda l: l[0], host)
+
+    def load_opt_rows(self, rows, slots):
+        """Cold opt rows back into freshly assigned hot slots: one stacked
+        copy on the side stream into a fresh device buffer (it overlaps
+        the cohorts in flight), then the scatter on the main stream after
+        a stream wait, so in-flight cohorts that read the arena keep
+        stream order."""
+        cuda = self.device.type == "cuda"
+
+        def stack(*ls):
+            if not cuda:
+                return torch.stack(ls)
+            out = torch.empty((len(ls),) + tuple(ls[0].shape),
+                              dtype=ls[0].dtype, pin_memory=True)
+            return torch.stack(ls, out=out)
+
+        stacked = tree_map(stack, *rows)
+        self.h2d_bytes_total += _tree_nbytes(stacked)
+        if cuda:
+            main = torch.cuda.current_stream(self.device)
+            side = self._side_stream()
+            with torch.cuda.stream(side):
+                dev_rows = tree_map(
+                    lambda h: h.to(self.device, non_blocking=True), stacked)
+            main.wait_stream(side)
+            tree_map(lambda t: t.record_stream(main), dev_rows)
+        else:
+            dev_rows = stacked
+        idx = self._h2d(np.asarray(slots, np.int64))[0]
+        put_rows_(self._arena_opt, idx, dev_rows)
+
+    def init_opt_rows(self, params_tree, slots):
+        """Re-initialize never-spilled slots' opt rows on the device
+        (``opt.init`` is value-independent: bitwise the all-resident
+        arena's state for a client that has not trained yet)."""
+        self._ensure_state_arenas(params_tree)
+        n = len(slots)
+        fresh = self.clients[0].opt.init(params_tree)
+        rows = tree_map(lambda l: l.unsqueeze(0).expand((n,) + l.shape),
+                        fresh)
+        idx = self._h2d(np.asarray(slots, np.int64))[0]
+        put_rows_(self._arena_opt, idx, rows)
+
+    def prefetch_upcoming(self, heap, pending):
+        """Lookahead prefetch for the async loop: peek the next
+        ``lookahead`` completions of the event heap (pop k, push back:
+        O(k log N)) and stage their members' hot slots.  ``pending``
+        filters ghosts (fault duplicates whose plan already delivered)."""
+        if self.store is None or not heap:
+            return
+        k = min(self.store.lookahead, len(heap))
+        if k <= 0:
+            return
+        head = [heapq.heappop(heap) for _ in range(k)]
+        for entry in head:
+            heapq.heappush(heap, entry)
+        self.store.prefetch_cids(
+            [cid for _, cid in head if cid in pending])
+
+    def prefetch_plans(self, plans):
+        """Lookahead prefetch for the FedAvg barrier: stage the next
+        chunk's members (same-round plans only)."""
+        if self.store is not None:
+            self.store.prefetch_cids([p.cid for p in plans])
 
     def stats(self) -> dict:
         from repro_torch.kernels.dp_clip import dp_clip
         out = {
-            "data_path": "arena",
+            "data_path": "arena" if self.use_arena else "host",
             "dp_path": self.dp_path,
             "pallas_interpret": (
                 kernel_info(self.device, dp_clip,
@@ -275,7 +541,7 @@ class CohortRunner:
             "host_syncs_at_eval": self.host_syncs_at_eval,
             "host_syncs_between_evals": self.host_syncs_between_evals,
             "blocking_submits": self.blocking_submits,
-            "drain_waits": 0,
+            "drain_waits": self.drain_waits,
         }
         inj = self.fault_injector
         out.update(inj.stats() if inj is not None else zero_fault_stats())
@@ -284,15 +550,19 @@ class CohortRunner:
             scr.update(self.screening.counters)
         scr["screen_verdict_syncs"] = self.screen_verdict_syncs
         out.update(scr)
-        out.update(zero_store_stats())
+        st = zero_store_stats()
+        if self.store is not None:
+            st.update(self.store.stats())
+        out.update(st)
         return out
 
     # -- dispatch ----------------------------------------------------------
     def dispatch(self, c, global_params, seed: int, server_version: int
                  ) -> LocalRoundPlan:
         """Plan one local round: the reference's host bookkeeping (personal
-        overlay, accountant step, clock draw, version pull); training is
-        deferred to the cohort step and the batch plan to staging."""
+        overlay, accountant step, clock draw, version pull), O(1) per
+        client; training is deferred to the cohort step and the batch
+        plan to staging."""
         params0 = global_params
         personal_snapshot = None
         if c.personal_keys:
@@ -301,7 +571,14 @@ class CohortRunner:
             params0 = dict(global_params)
             params0.update(c._personal)
             personal_snapshot = {k: global_params[k] for k in c.personal_keys}
-        self._queue_write(c.cid, params0)
+        if self.store is not None:
+            # the client may hold no hot slot yet: the write happens at
+            # acquire/prefetch time against the slot it then holds
+            self.store.note_dispatch(c.cid, params0)
+        elif self.use_arena:
+            self._queue_write(c.cid, params0)
+        elif c.opt_state is None:
+            c.opt_state = c.opt.init(params0)
         steps = steps_per_round(c.n_train, c.batch_size, c.local_epochs)
         if c.use_dp and steps > 0:
             c.accountant.step(c.q, c.dp_cfg.noise_multiplier, steps)
@@ -309,11 +586,24 @@ class CohortRunner:
         c.update_count += 1
         c.model_version = server_version
         return LocalRoundPlan(
-            cid=c.cid, params0=None, opt_state=None, batch_idx=None,
-            key=int(seed), n_steps=steps, duration=duration,
+            cid=c.cid,
+            params0=None if self.use_arena else params0,
+            opt_state=None if self.use_arena else c.opt_state,
+            batch_idx=None, key=int(seed), n_steps=steps, duration=duration,
             epsilon=self._client_epsilon(c, steps) if c.use_dp else 0.0,
             model_version=server_version,
             personal_snapshot=personal_snapshot)
+
+    def _materialize_plans(self, plans):
+        """Draw the deferred minibatch permutations of the plans being
+        staged, in plan order: each client's RNG advances exactly as the
+        eager per-dispatch draws did (a client's next dispatch follows
+        the staging of its current plan)."""
+        for p in plans:
+            if p.batch_idx is None:
+                c = self.clients[p.cid]
+                p.batch_idx = plan_batches(
+                    c.rng, c.n_train, c.batch_size, c.local_epochs)
 
     def _client_epsilon(self, c, steps: int) -> float:
         """Per-round table lookup on the shared EpsilonSchedule
@@ -339,21 +629,35 @@ class CohortRunner:
                 pad_row, (self.s_max - idx.shape[0],) + pad_row.shape[1:])])
 
     def run_cohort(self, plans):
-        """Stage the cohort's index plans, run the cohort step; returns the
-        stacked (K, ...) uploads and keeps the screen outputs for
-        :meth:`take_screen_handle`."""
-        for p in plans:   # deferred permutation draws, in plan order
-            if p.batch_idx is None:
-                c = self.clients[p.cid]
-                p.batch_idx = plan_batches(
-                    c.rng, c.n_train, c.batch_size, c.local_epochs)
-        self._flush_writes()
+        """Stage and submit in one call (the serial driver's entry point;
+        the loops call the halves)."""
+        return self.submit_cohort(self.stage_cohort(plans))
+
+    def stage_cohort(self, plans) -> StagedCohort:
+        """Assemble one cohort's device inputs ahead of submission: draw
+        the lazy batch plans, resolve hot slots, flush the queued dispatch
+        writes and copy the plans to the device without a host wait."""
+        self._materialize_plans(plans)
+        self._await_serial()
         k = len(plans)
-        slots = np.array([p.cid for p in plans], np.int32)
-        slots_d = torch.from_numpy(slots).to(self.device).long()
+        if not self.use_arena:
+            return self._stage_host(plans, k)
+        # slot resolution precedes the flush: the store's acquire queues
+        # params writes for faulted-in members, and they ride this flush
+        cids = [p.cid for p in plans]
+        if self.store is not None:
+            member_slots = self.store.acquire_cohort(cids)
+        else:
+            member_slots = cids
+        self._flush_writes()
+        slots = np.array(member_slots, np.int32)
+        dslots = None
+        if not self._data_slots_identical:
+            dslots = self._data_slot_of[cids].astype(np.int32)
         if self.s_max == 0:  # degenerate: no client has a full batch
-            self._last_screen = None
-            return take_rows(self._arena_params, slots_d)
+            slots_d = self._h2d(slots)[0].long()
+            return StagedCohort(plans=plans, k=k, degenerate=True,
+                                slots=slots_d, data_slots=slots_d)
         batch_size = self.clients[0].batch_size
         batch_idx = np.zeros((k, self.s_max, batch_size), np.int32)
         for i, p in enumerate(plans):
@@ -362,17 +666,94 @@ class CohortRunner:
         scales = np.array([p.corrupt_scale for p in plans], np.float32)
         self.cohorts_run += 1
         self.h2d_bytes_total += (batch_idx.nbytes + slots.nbytes
-                                 + n_steps.nbytes + scales.nbytes)
+                                 + n_steps.nbytes + scales.nbytes
+                                 + (dslots.nbytes if dslots is not None
+                                    else 0))
+        arrays = [slots, batch_idx, n_steps, scales]
+        if dslots is not None:
+            arrays.append(dslots)
+        dev = self._h2d(*arrays)
+        slots_d = dev[0].long()
+        return StagedCohort(
+            plans=plans, k=k, slots=slots_d,
+            data_slots=dev[4].long() if dslots is not None else slots_d,
+            batch_idx=dev[1].long(), n_steps=n_steps, live_steps=dev[2],
+            corrupt=dev[3])
+
+    def _gather_batches(self, plans):
+        """The host-fed batches: each member's (s_max, B, ...) rows cut
+        from its numpy dataset, stacked to (K, s_max, B, ...) per key.
+        Returns (sorted keys, arrays)."""
+        member_batches = []
+        for p in plans:
+            c = self.clients[p.cid]
+            idx = self._pad_idx(p.batch_idx, c.batch_size)
+            member_batches.append({kk: v[idx] for kk, v in c.data.items()})
+        names = sorted(member_batches[0])
+        return names, [np.stack([mb[kk] for mb in member_batches])
+                       for kk in names]
+
+    def _stage_host(self, plans, k: int) -> StagedCohort:
+        """The host-fed path: the stacked batches copied up; the pulled
+        params and the clients' optimizer states stacked on the device."""
+        if self.s_max == 0:
+            return StagedCohort(plans=plans, k=k, degenerate=True,
+                                arena=False)
+        names, batches_np = self._gather_batches(plans)
+        n_steps = np.array([p.n_steps for p in plans], np.int32)
+        scales = np.array([p.corrupt_scale for p in plans], np.float32)
+        self.cohorts_run += 1
+        # the reference's count: the batches plus 4 bytes per member each
+        # for the step counts and the noise keys' share
+        self.h2d_bytes_total += (sum(a.nbytes for a in batches_np)
+                                 + 4 * k + 4 * k)
+        dev = self._h2d(*batches_np, n_steps, scales)
+        batches = {kk: (t.long() if kk == "y" else t)
+                   for kk, t in zip(names, dev)}
+        return StagedCohort(
+            plans=plans, k=k, arena=False,
+            stacked_params=stack_trees([p.params0 for p in plans]),
+            stacked_opt=stack_trees([p.opt_state for p in plans]),
+            batches=batches, n_steps=n_steps, live_steps=dev[-2],
+            corrupt=dev[-1])
+
+    def submit_cohort(self, staged: StagedCohort):
+        """Enqueue the cohort step; returns the stacked (K, ...) uploads
+        and keeps the screen outputs for :meth:`take_screen_handle`.  The
+        serial driver waits for the cohort (a counted ``blocking_submits``
+        host sync) when it stages the next one, so the merge is enqueued
+        while the step runs; the pipelined one never waits here."""
+        plans = staged.plans
+        if not staged.degenerate and self._submits_block:
+            self.blocking_submits += 1
+            self.note_host_sync()
+        if staged.degenerate:
+            self._last_screen = None
+            if not staged.arena:
+                return stack_trees([p.params0 for p in plans])
+            return take_rows(self._arena_params, staged.slots)
         gens = [torch.Generator(self.device).manual_seed(p.key)
                 for p in plans]
-        # the serial driver consumes every cohort before planning the next
-        self.blocking_submits += 1
-        self.note_host_sync()
-        upload, self._arena_opt, self._last_screen = self.cohort_step(
-            self._arena_params, self._arena_opt, self._arena_data, slots_d,
-            slots_d, torch.from_numpy(batch_idx).to(self.device).long(),
-            gens, n_steps, self._noise_std,
-            torch.from_numpy(scales).to(self.device))
+        if not staged.arena:
+            upload, new_opt, screen = self.cohort_step(
+                staged.stacked_params, staged.stacked_opt, staged.batches,
+                gens, staged.n_steps, self._noise_std, staged.corrupt,
+                live_steps=staged.live_steps)
+            for i, p in enumerate(plans):
+                self.clients[p.cid].opt_state = unstack_tree(new_opt, i)
+        else:
+            upload, self._arena_opt, screen = self.cohort_step(
+                self._arena_params, self._arena_opt, self._arena_data,
+                staged.slots, staged.data_slots, staged.batch_idx, gens,
+                staged.n_steps, self._noise_std, staged.corrupt,
+                live_steps=staged.live_steps)
+            if self.store is not None:
+                # every member's opt row was written (dropped and screened
+                # members trained too), so eviction must spill it
+                self.store.note_trained([p.cid for p in plans])
+        self._last_screen = screen
+        if self._submits_block:
+            self._serial_done = self.cohort_done()
         return upload
 
     def take_screen_handle(self):
@@ -391,7 +772,7 @@ class CohortRunner:
             fin, nrm = _host_fetch_array(self, handle)
         finally:
             self._in_screen = False
-        return fin[:k], nrm[:k]
+        return fin.numpy()[:k], nrm.numpy()[:k]
 
     def upload(self, plan: LocalRoundPlan, new_params):
         """A member's trained params as uploaded: personal subtrees stay on
@@ -405,10 +786,10 @@ class CohortRunner:
         return up
 
 
-def _coeffs_f32(coeffs, device):
+def _coeffs_f32(runner, coeffs):
     """Merge coefficients rounded to the merge dtype (float32) on the host
-    (reference engine.py:905), then one upload."""
-    return torch.from_numpy(np.asarray(coeffs, dtype=np.float32)).to(device)
+    (reference engine.py:905), then one staged upload."""
+    return runner._h2d(np.asarray(coeffs, dtype=np.float32))[0]
 
 
 def _fused_ok(strategy, clients, plans, cfg: EngineConfig) -> bool:
@@ -461,12 +842,14 @@ def run_fedavg_engine(
     renormalized weights, and churn stretches a member's round.
     ``strategy`` picks the aggregator (robust ones go through
     ``aggregate``); ``screening`` rejects delivered uploads from the
-    step's verdict outputs.  ``runner`` injects a prebuilt, reset
-    runner (the Session's); its config and data arena win over
-    ``engine_cfg`` and ``data_arena`` (:func:`build_data_arena`'s
-    layout; built from the clients when None)."""
-    cfg = _resolve_cfg(engine_cfg if runner is None else runner.cfg, mesh,
-                       checkpoint, resume_from)
+    step's verdict outputs.  ``checkpoint`` (a
+    :class:`repro_torch.engine.resilience.CheckpointPolicy`) snapshots
+    the run every ``checkpoint.every`` rounds; ``resume_from`` (a
+    checkpoint directory) resumes an aborted run bit-identically.
+    ``runner`` injects a prebuilt, reset runner (the Session's); its
+    config and data arena win over ``engine_cfg`` and ``data_arena`` (a
+    :class:`DataArena`; built from the clients when None)."""
+    cfg = _resolve_cfg(engine_cfg if runner is None else runner.cfg, mesh)
     if runner is None:
         runner = CohortRunner(clients, cfg,
                               tree_leaves(global_params)[0].device,
@@ -486,7 +869,20 @@ def run_fedavg_engine(
         log.staleness.setdefault(c.tier, [])
         log.eps_trajectory.setdefault(c.tier, [])
 
-    for rnd in range(1, rounds + 1):
+    start_rnd = 1
+    if resume_from is not None:
+        from repro_torch.engine import resilience as _rez
+        global_params, t_virtual, rnd0 = _rez.restore_fedavg(
+            resume_from, runner, clients, log, injector, global_params, rng)
+        start_rnd = rnd0 + 1
+        if checkpoint is not None:
+            checkpoint.mark(rnd0)
+
+    # pipelined across rounds: round r+1 trains from round r's merged
+    # globals, a device result its dispatch writes reference, so up to
+    # pipeline_depth rounds stay in flight between evals
+    inflight = deque()
+    for rnd in range(start_rnd, rounds + 1):
         seeds = rng.integers(0, SEED_HIGH, size=len(clients))
         plans = []
         for c, s in zip(clients, seeds):
@@ -519,9 +915,14 @@ def run_fedavg_engine(
         chunks = [plans[i:i + cfg.max_cohort]
                   for i in range(0, len(plans), cfg.max_cohort)]
         stacked_chunks, screen_handles = [], []
-        for ch in chunks:
-            stacked_chunks.append(runner.run_cohort(ch))
+        for ci, ch in enumerate(chunks):
+            stacked_chunks.append(
+                runner.submit_cohort(runner.stage_cohort(ch)))
             screen_handles.append(runner.take_screen_handle())
+            if ci + 1 < len(chunks):
+                # the store stages the next chunk's hot slots while this
+                # chunk's step runs (same-round plans only)
+                runner.prefetch_plans(chunks[ci + 1])
         log.cohort_sizes.extend(len(ch) for ch in chunks)
         if screener is not None:
             i0 = 0
@@ -546,8 +947,7 @@ def run_fedavg_engine(
                 for ch, st in zip(chunks, stacked_chunks):
                     merged = runner.merge_cohort(
                         merged, st,
-                        _coeffs_f32(coeffs[off:off + len(ch)], runner.device),
-                        1.0)
+                        _coeffs_f32(runner, coeffs[off:off + len(ch)]), 1.0)
                     off += len(ch)
                 global_params = merged
         else:
@@ -576,8 +976,17 @@ def run_fedavg_engine(
             log.server_version.append(rnd)
             eval_all(clients, global_params, accuracy_fn, log)
             runner.eval_boundary(False)
+            inflight.clear()
             if target_acc is not None and acc >= target_acc:
                 break
+        elif runner.pipelined:
+            inflight.append(runner.cohort_done())
+            runner.drain(inflight)
+
+        if checkpoint is not None and rnd < rounds and checkpoint.due(rnd):
+            from repro_torch.engine import resilience as _rez
+            _rez.save_fedavg(checkpoint, runner, clients, log, injector,
+                             global_params, rng, t_virtual, rnd)
 
     finish_log(log, clients, injector, screener)
     log.engine_stats = validate_engine_stats(runner.stats())
@@ -613,9 +1022,12 @@ def run_async_engine(
     injector resolves (duplicates deduped, retried/late uploads re-enter
     the heap, lost updates stay in the cohort with weight 0).
     ``screening`` turns rejected and quarantined deliveries into
-    zero-weight members too."""
-    cfg = _resolve_cfg(engine_cfg if runner is None else runner.cfg, mesh,
-                       checkpoint, resume_from)
+    zero-weight members too.  ``checkpoint`` snapshots the run (server
+    params, arenas, the store, RNG streams, the event heap) every
+    ``checkpoint.every`` merged updates; ``resume_from`` resumes an
+    aborted run bit-identically (FedBuff refuses both: its buffer holds
+    live device trees)."""
+    cfg = _resolve_cfg(engine_cfg if runner is None else runner.cfg, mesh)
     if runner is None:
         runner = CohortRunner(clients, cfg,
                               tree_leaves(global_params)[0].device,
@@ -624,6 +1036,11 @@ def run_async_engine(
         raise ValueError(
             f"run_async_engine requires an asynchronous strategy, got "
             f"{strategy.name!r} — use run_fedavg_engine")
+    if ((checkpoint is not None or resume_from is not None)
+            and isinstance(strategy, FedBuff)):
+        raise ValueError(
+            "checkpoint/resume does not support FedBuff — its cross-cohort "
+            "buffer holds live device trees the snapshot cannot capture")
     injector, screener = _oracles(runner, clients, faults, screening)
     log = RunLog(strategy=strategy.name)
     rng = np.random.default_rng(seed)
@@ -637,14 +1054,28 @@ def run_async_engine(
     heap, pending = [], {}
     server_version = 0
     t_virtual = 0.0
-    seeds = rng.integers(0, SEED_HIGH, size=len(clients))
-    for c, s in zip(clients, seeds):
-        plan = runner.dispatch(c, global_params, s, server_version)
-        pending[c.cid] = plan
-        heap.append((plan.duration, c.cid))
-    heapq.heapify(heap)
+    if resume_from is not None:
+        from repro_torch.engine import resilience as _rez
+        global_params, t_virtual, server_version = _rez.restore_async(
+            resume_from, runner, clients, log, injector, global_params,
+            heap, pending, rng)
+        if checkpoint is not None:
+            checkpoint.mark(sum(log.update_counts.values()))
+    else:
+        # O(1)-per-client dispatches (the batch permutations draw lazily
+        # at staging) and one heapify, pop-order identical to N pushes
+        seeds = rng.integers(0, SEED_HIGH, size=len(clients))
+        for c, s in zip(clients, seeds):
+            plan = runner.dispatch(c, global_params, s, server_version)
+            pending[c.cid] = plan
+            heap.append((plan.duration, c.cid))
+        heapq.heapify(heap)
+        # the store warms the hot set for the first cohorts (a restore
+        # skips this: the snapshot already reflects it)
+        runner.prefetch_upcoming(heap, pending)
 
     done = False
+    inflight = deque()
     while heap and not done:
         events = pop_cohort(heap, cfg.staleness_window, cfg.max_cohort,
                             bucket_pow2=cfg.pow2_cohorts)
@@ -674,7 +1105,7 @@ def run_async_engine(
             if not plans:                   # the whole pop was ghosts/retries
                 continue
         t_virtual = plans[-1].t_complete
-        new_stacked = runner.run_cohort(plans)
+        new_stacked = runner.submit_cohort(runner.stage_cohort(plans))
         screen_handle = runner.take_screen_handle()
         log.cohort_sizes.append(len(plans))
         n_dropped = sum(1 for p in plans if p.dropped)
@@ -705,8 +1136,8 @@ def run_async_engine(
                     n_del += 1
             g_coeff, coeffs = fold_cohort_weights(weights)
             global_params = runner.merge_cohort(
-                global_params, new_stacked,
-                _coeffs_f32(coeffs, runner.device), g_coeff)
+                global_params, new_stacked, _coeffs_f32(runner, coeffs),
+                g_coeff)
             server_version += n_del
         else:
             # member by member, in the cohort's order
@@ -743,6 +1174,7 @@ def run_async_engine(
             log.server_version.append(server_version)
             eval_all(clients, global_params, accuracy_fn, log)
             runner.eval_boundary(False)
+            inflight.clear()
             if target_acc is not None and acc >= target_acc:
                 done = True
         if total_updates >= max_updates or (max_time and t_virtual >= max_time):
@@ -764,6 +1196,17 @@ def run_async_engine(
                 if injector is not None:
                     t_next += injector.redispatch_delay(c.cid, p.t_complete)
                 heapq.heappush(heap, (t_next, c.cid))
+            # the store stages the heap head's members while the submitted
+            # cohort runs
+            runner.prefetch_upcoming(heap, pending)
+            if runner.pipelined:
+                inflight.append(runner.cohort_done())
+                runner.drain(inflight)
+            if checkpoint is not None and checkpoint.due(total_updates):
+                from repro_torch.engine import resilience as _rez
+                _rez.save_async(checkpoint, runner, clients, log, injector,
+                                global_params, rng, heap, pending, t_virtual,
+                                server_version, total_updates)
 
     finish_log(log, clients, injector, screener)
     log.engine_stats = validate_engine_stats(runner.stats())

@@ -15,20 +15,54 @@ from __future__ import annotations
 import torch
 
 
-def tree_paths(tree, prefix=()) -> list:
-    """Leaf paths (tuples of keys) in sorted-key order."""
+def tree_flatten_with_path(tree, prefix=()) -> list:
+    """``[(path, leaf), ...]`` in ``jax.tree_util`` order, the one walker
+    every flat layout here follows (the DP vector, the checkpoint keys):
+    dicts by sorted key, NamedTuples (optimizer states) by field, as the
+    component ``.name`` that ``jax.tree_util`` prints for a field, tuples
+    and lists by index.  ``None`` is an empty subtree, as in JAX."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out.extend(tree_paths(tree[k], prefix + (k,)))
-        return out
-    return [prefix]
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = ((f".{name}", v) for name, v in zip(tree._fields, tree))
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [pl for k, v in items
+            for pl in tree_flatten_with_path(v, prefix + (k,))]
+
+
+def tree_paths(tree) -> list:
+    """Leaf paths (tuples of components) in ``jax.tree_util`` order."""
+    return [p for p, _ in tree_flatten_with_path(tree)]
 
 
 def tree_leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
-    return [tree]
+    """Leaves in ``jax.tree_util`` order."""
+    return [l for _, l in tree_flatten_with_path(tree)]
+
+
+def tree_unflatten_like(template, leaves: list):
+    """Rebuild ``template``'s structure from ``leaves`` given in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            vals = {k: build(t[k]) for k in sorted(t)}
+            return {k: vals[k] for k in t}      # keep the template's order
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*[build(v) for v in t])
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(template)
 
 
 def tree_map(fn, tree, *rest):
@@ -81,19 +115,10 @@ def tree_unflatten_from_vector(vec, template, lead: int = 0):
     tree shaped like ``template`` (an UNstacked tree) with the ``lead``
     stack axes of ``vec`` prepended to every leaf."""
     s = vec.shape[:lead]
-    off = [0]
-
-    def take(l):
+    out, off = [], 0
+    for l in tree_leaves(template):
         n = l.numel()
-        part = vec[..., off[0]:off[0] + n].reshape(s + tuple(l.shape))
-        off[0] += n
-        return part.to(l.dtype)
-
-    # tree_map visits dict items in insertion order; rebuild in sorted
-    # order so offsets follow the flat layout
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return take(t)
-
-    return build(template)
+        out.append(vec[..., off:off + n].reshape(s + tuple(l.shape))
+                   .to(l.dtype))
+        off += n
+    return tree_unflatten_like(template, out)

@@ -102,11 +102,28 @@ RUNS = {
         ("fedavg_trimmed", dict(trim_frac=0.34)), backend="legacy",
         run=dict(rounds=3, eval_every=1), faults=FEDAVG_FAULTS,
         screening=SCREENING),
+    # the engine's other run modes (tests/test_torch_pipeline.py,
+    # tests/test_torch_statestore.py): the host-fed data path, and a
+    # pipelined tiered run whose hot set of 2 (with lookahead 2) evicts
+    # and spills
+    "hostfed_async": _run(("fedasync", dict(alpha=0.4)), engine=dict(
+        staleness_window=1e9, max_cohort=2, device_arena=False)),
+    "hostfed_fedavg": _run(("fedavg", {}), run=dict(rounds=2, eval_every=1),
+                           engine=dict(max_cohort=2, device_arena=False)),
+    "tiered_async": _run(("fedasync", dict(alpha=0.4)), run=dict(
+        max_updates=12, eval_every=4), engine=dict(
+        staleness_window=30.0, max_cohort=2, pipeline_depth=2,
+        store=dict(hot_slots=2, lookahead=2))),
 }
 LOG_FIELDS = ("times", "global_acc", "server_version", "update_counts",
               "influence", "staleness", "eps_trajectory", "local_acc",
               "cohort_sizes", "fault_events")
-COUNTER_PREFIXES = ("fault_", "screen_", "degraded_cohorts", "deadline_drops")
+COUNTER_PREFIXES = ("fault_", "screen_", "degraded_cohorts", "deadline_drops",
+                    "store_")
+# the data-path and scheduler counters (RunLog.engine_stats)
+SCHED_KEYS = ("data_path", "cohorts", "h2d_bytes_total", "pipeline_depth",
+              "blocking_submits", "drain_waits", "host_syncs_at_eval",
+              "host_syncs_between_evals")
 
 
 def testbed_kwargs(sigma):
@@ -140,7 +157,10 @@ def execute(pkg, name, init_leaves=None, dp_path="jnp", device=None):
     strategy = mod("core.aggregation").make_strategy(
         r["strategy"][0], **r["strategy"][1])
     server = mod("core.server")
-    ecfg = mod("engine.engine").EngineConfig(**r["engine"])
+    eng = dict(r["engine"])
+    if "store" in eng:
+        eng["store"] = mod("engine.statestore").StoreConfig(**eng["store"])
+    ecfg = mod("engine.engine").EngineConfig(**eng)
     calls = []
     state_cls = mod("core.screening").ScreeningState
     screen = state_cls.screen
@@ -171,6 +191,7 @@ def log_dict(log, calls):
     out = {f: getattr(log, f) for f in LOG_FIELDS}
     out["counters"] = {k: v for k, v in (log.engine_stats or {}).items()
                        if k.startswith(COUNTER_PREFIXES)}
+    out["sched"] = {k: (log.engine_stats or {}).get(k) for k in SCHED_KEYS}
     out["screen_calls"] = calls
     return json.loads(json.dumps(out))
 

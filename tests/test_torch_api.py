@@ -5,9 +5,9 @@
   ``_SPEC_TYPES`` case of ``tests/test_spec_codec_complete.py`` (an
   instance with every field off its default) decodes and re-encodes to
   an equal dict — except that a spec carrying an engine feature the port
-  does not have yet (a mesh, a bounded store, ``pipeline_depth`` > 1,
-  another client axis, an ``fl_cfg``, the host data path) raises, naming
-  its ROADMAP.md item.
+  does not have yet (a mesh, another client axis, an ``fl_cfg``) raises,
+  naming its ROADMAP.md item.  A bounded store, ``pipeline_depth`` > 1
+  and the host data path decode and run.
 * Runs inside one warm ``Session`` equal fresh-process runs bit for bit
   (params and every RunLog field).
 * A warm 4-point sigma sweep adds 0 to ``step_builds()``; a cold one
@@ -100,11 +100,8 @@ def test_default_engine_config_still_round_trips(name):
 
 @pytest.mark.parametrize("field,value,item", [
     ("mesh", {"__mesh__": {"data": 8, "model": 1}}, 14),
-    ("store", {"__type__": "StoreConfig", "hot_slots": 4, "lookahead": 2}, 11),
-    ("pipeline_depth", 2, 9),
     ("client_axis", "vmap", 14),
-    ("fl_cfg", "__fl__", 14),
-    ("device_arena", False, 16)])
+    ("fl_cfg", "__fl__", 14)])
 def test_unported_engine_features_raise_at_decode(field, value, item):
     d = _ref_json(ref_spec.ExperimentSpec())
     if value == "__fl__":
@@ -112,6 +109,30 @@ def test_unported_engine_features_raise_at_decode(field, value, item):
     d["engine"][field] = value
     with pytest.raises(ValueError, match=rf"ROADMAP\.md queue 1 item {item}"):
         decode(d)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("store", {"__type__": "StoreConfig", "hot_slots": 2, "lookahead": 2}),
+    ("pipeline_depth", 2),
+    ("device_arena", False)])
+def test_ported_engine_features_decode_and_run(field, value):
+    """The reference's JSON of a tiered, a pipelined and a host-fed spec
+    decodes, re-encodes equal, and runs on the tiny testbed."""
+    d = _ref_json(ref_spec.ExperimentSpec(
+        testbed=ref_spec._SPEC_TYPES["TestbedConfig"](),
+        run=ref_spec.RunBudget(max_updates=2, eval_every=2)))
+    d["engine"][field] = value
+    d["engine"]["max_cohort"] = 2
+    spec = decode(d)
+    assert encode(spec) == d
+    spec = dataclasses.replace(spec, testbed=_tiny())
+    _, log = Session(device="cpu").run(spec)
+    st = log.engine_stats
+    assert sum(log.update_counts.values()) == 2
+    assert st["pipeline_depth"] == spec.engine.pipeline_depth
+    assert st["data_path"] == ("arena" if spec.engine.device_arena
+                               else "host")
+    assert (st["store_fetches"] > 0) == (field == "store")
 
 
 def test_use_kernel_migrates_to_dp_path():

@@ -177,14 +177,47 @@ def test_each_runner_builds_one_step():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(pipeline_depth=2), dict(store=StoreConfig(hot_slots=4)),
-    dict(client_axis="vmap"), dict(device_arena=False),
-    dict(fl_cfg=FLStepConfig(num_clients=4)), dict(mesh=object())],
-    ids=["pipeline_depth", "store", "client_axis", "device_arena", "fl_cfg",
+    dict(client_axis="vmap"), dict(client_axis="map"),
+    dict(client_axis="fl_step"), dict(fl_cfg=FLStepConfig(num_clients=4)),
+    dict(mesh=object())],
+    ids=["client_axis", "client_axis_map", "client_axis_fl_step", "fl_cfg",
          "mesh"])
 def test_unported_engine_features_raise_naming_the_roadmap(bad):
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item \d+"):
+    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 14"):
         EngineConfig(**bad)
+
+
+@pytest.mark.parametrize("good", [
+    dict(pipeline_depth=2), dict(store=StoreConfig(hot_slots=4)),
+    dict(device_arena=False)],
+    ids=["pipeline_depth", "store", "device_arena"])
+def test_ported_engine_features_build(good):
+    """The scheduler, the tiered store and the host-fed path are ported:
+    their configs build and their runners take them."""
+    cfg = EngineConfig(**good)
+    clients, _, _, _ = build_testbed(_cfg(0.0), device="cpu")
+    from repro_torch.engine.engine import CohortRunner
+    runner = CohortRunner(clients, cfg, "cpu")
+    assert runner.pipelined == (cfg.pipeline_depth > 1)
+    assert runner.use_arena == cfg.device_arena
+    assert (runner.store is not None) == (cfg.store.hot_slots is not None)
+
+
+@pytest.mark.parametrize("axis", ["vmap", "unknown_axis"])
+def test_client_axis_validated_like_reference(axis):
+    """An unknown executor gets the reference's message; a known one the
+    port lacks names ROADMAP.md item 14."""
+    from repro.engine import EngineConfig as RefEngineConfig
+    with pytest.raises(ValueError) as port_err:
+        EngineConfig(client_axis=axis)
+    if axis == "unknown_axis":
+        with pytest.raises(ValueError) as ref_err:
+            RefEngineConfig(client_axis=axis)
+        assert str(port_err.value) == str(ref_err.value)
+        assert "client_axis must be one of" in str(port_err.value)
+    else:
+        RefEngineConfig(client_axis=axis)
+        assert "ROADMAP.md queue 1 item 14" in str(port_err.value)
 
 
 def test_unfused_merge_equals_fused(ref_runs):
@@ -208,9 +241,9 @@ def test_unfused_merge_equals_fused(ref_runs):
 
 
 def test_strategies_and_testbed_features_of_later_slices_raise(tmp_path):
-    """The strategies, the legacy loop and the testbed features of this
-    slice build; what is still unported — checkpoint/resume, a mesh in the
-    spec codec or the frontends — raises, naming its ROADMAP.md item."""
+    """The strategies, the legacy loop, the testbed features and
+    checkpoint/resume build; what is still unported — a mesh in the spec
+    codec or the frontends — raises, naming its ROADMAP.md item."""
     from repro_torch.api import ExperimentSpec, RunBudget, Session
     from repro_torch.api.spec import decode
     from repro_torch.core.aggregation import STRATEGY_NAMES, make_strategy
@@ -231,13 +264,15 @@ def test_strategies_and_testbed_features_of_later_slices_raise(tmp_path):
                                 engine=engine, device="cpu")
         assert sum(log.update_counts.values()) == 3 and log.fault_events
     roadmap = r"ROADMAP\.md queue 1 item"
-    with pytest.raises(ValueError, match=roadmap + " 12"):
-        Session(device="cpu").run(
-            ExperimentSpec(testbed=_cfg(0.0), run=RunBudget(max_updates=1)),
-            checkpoint_every=1, checkpoint_dir=str(tmp_path))
-    with pytest.raises(ValueError, match=roadmap + " 12"):
-        Session(device="cpu").run(ExperimentSpec(testbed=_cfg(0.0)),
-                                  resume_from=str(tmp_path))
+    spec = ExperimentSpec(testbed=_cfg(0.0),
+                          run=RunBudget(max_updates=2, eval_every=2))
+    _, log_ck = Session(device="cpu").run(
+        spec, checkpoint_every=1, checkpoint_dir=str(tmp_path))
+    from repro_torch.checkpoint import latest_step
+    assert latest_step(str(tmp_path)) == 1
+    _, log_res = Session(device="cpu").run(spec, resume_from=str(tmp_path))
+    assert log_res.update_counts == log_ck.update_counts
+    assert log_res.times == log_ck.times
     with pytest.raises(ValueError, match=roadmap + " 14"):
         decode({"__mesh__": {"data": 8, "model": 1}})
     with pytest.raises(ValueError, match=roadmap + " 14"):

@@ -337,3 +337,92 @@ def test_reduced_hybrid_on_card_matches_cpu_route(cuda):
     for a, b in zip(gpu_seq, cpu_seq):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
         assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# the engine's run modes on the card: pipelined, host-fed, tiered, resumed
+# ---------------------------------------------------------------------------
+
+def _mode_run(dev, engine=None, **kw):
+    """The tiny testbed through the engine on ``dev``: FedAsync, 12
+    updates, K = 2 cohorts."""
+    from repro_torch.core.aggregation import FedAsync
+    from repro_torch.core.testbed import TestbedConfig, build_testbed
+    from repro_torch.data.synthetic_ser import SERDataConfig
+    from repro_torch.engine.engine import EngineConfig, run_async_engine
+    from repro_torch.models.ser_cnn import SERConfig
+    dims = dict(time_frames=12, n_mels=12)
+    cfg = TestbedConfig(
+        batch_size=16, sigma=0.5, dp_path="pallas", seed=3,
+        data=SERDataConfig(n_total=360, **dims),
+        model=SERConfig(channels1=8, channels2=16, fc_dim=32, **dims))
+    clients, params, acc_fn, pooled = build_testbed(cfg, device=dev)
+    ecfg = EngineConfig(staleness_window=30.0, max_cohort=2,
+                        **(engine or {}))
+    return run_async_engine(clients, params, acc_fn, pooled,
+                            FedAsync(alpha=0.4), max_updates=12,
+                            eval_every=4, seed=cfg.seed, engine_cfg=ecfg,
+                            **kw)
+
+
+def _bitwise(a, b):
+    from repro_torch.pytree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+_LOG = ("times", "global_acc", "update_counts", "staleness",
+        "eps_trajectory", "influence", "cohort_sizes", "local_acc")
+
+
+@pytest.mark.parametrize("mode", [
+    dict(pipeline_depth=2), dict(device_arena=False),
+    dict(pipeline_depth=2, device_arena=False),
+    dict(pipeline_depth=2, store={"hot_slots": 2, "lookahead": 2}),
+    dict(store={"hot_slots": 3, "lookahead": 0})], ids=str)
+def test_engine_modes_on_card_equal_serial_bitwise(cuda, mode):
+    """Every mode runs the dp_clip kernels and equals the serial
+    all-resident run on the card bit for bit; the pipelined ones make no
+    host sync between evals."""
+    from repro_torch.engine.statestore import StoreConfig
+    from repro_torch.kernels.dp_clip import dp_clip
+    mode = dict(mode)
+    if "store" in mode:
+        mode["store"] = StoreConfig(**mode["store"])
+    p0, l0 = _mode_run(cuda)
+    n0 = dp_clip.launches()
+    p1, l1 = _mode_run(cuda, mode)
+    assert dp_clip.launches() > n0
+    assert l1.engine_stats["pallas_interpret"]["kernel"] == "triton"
+    assert _bitwise(p0, p1)
+    for f in _LOG:
+        assert getattr(l0, f) == getattr(l1, f), f
+    st = l1.engine_stats
+    if mode.get("pipeline_depth", 1) > 1:
+        assert st["host_syncs_between_evals"] == 0
+        assert st["blocking_submits"] == 0
+    if "store" in mode:
+        assert st["store_fetches"] == (st["store_hot_hits"]
+                                       + st["store_prefetch_hits"]
+                                       + st["store_stall_waits"])
+        assert st["store_evictions"] > 0 and st["store_sync_reads"] > 0
+
+
+@pytest.mark.parametrize("tiered", [False, True], ids=["resident", "tiered"])
+def test_resume_on_card_bit_identical(cuda, tmp_path, tiered):
+    from repro_torch.engine.resilience import CheckpointPolicy, SimulatedCrash
+    from repro_torch.engine.statestore import StoreConfig
+    mode = (dict(pipeline_depth=2, store=StoreConfig(hot_slots=2,
+                                                     lookahead=2))
+            if tiered else {})
+    p0, l0 = _mode_run(cuda, mode)
+    with pytest.raises(SimulatedCrash):
+        _mode_run(cuda, mode, checkpoint=CheckpointPolicy(
+            str(tmp_path), every=4, crash_after_saves=2))
+    p1, l1 = _mode_run(cuda, mode, resume_from=str(tmp_path))
+    assert _bitwise(p0, p1)
+    for f in _LOG:
+        assert getattr(l0, f) == getattr(l1, f), f
+    drop = ("drain_waits",)
+    assert ({k: v for k, v in l0.engine_stats.items() if k not in drop}
+            == {k: v for k, v in l1.engine_stats.items() if k not in drop})

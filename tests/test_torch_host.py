@@ -170,6 +170,38 @@ def test_flat_leaf_layout_matches_reference():
     assert torch.equal(t_pytree.tree_flatten_to_vector(st, lead=1), stacked)
 
 
+def test_tree_paths_match_jax_paths():
+    """One walker owns the leaf order: ``tree_paths``/``tree_leaves`` give
+    jax.tree_util's paths and order over dicts, NamedTuple optimizer
+    states, tuples, lists and None, keyed as the reference's checkpoint
+    keys them."""
+    import jax
+    from repro.checkpoint.checkpoint import _path_key as r_key
+    from repro.optim.optimizers import AdamState as RAdam
+    from repro_torch.checkpoint.checkpoint import _path_key as t_key
+    from repro_torch.optim.optimizers import AdamState as TAdam
+
+    rng = np.random.default_rng(0)
+    arrays = [rng.standard_normal((i + 1, 2)).astype(np.float32)
+              for i in range(7)]
+
+    def tree(adam, leaf):
+        a = [leaf(x) for x in arrays]
+        return {"z/w": a[0], "opt": adam(a[1], {"b": a[2], "a": a[3]},
+                                         {"b": a[4], "a": a[5]}),
+                "seq": [a[6], None], "pair": (a[0], a[1])}
+
+    t_tree = tree(TAdam, torch.from_numpy)
+    r_paths = jax.tree_util.tree_flatten_with_path(tree(RAdam, np.asarray))[0]
+    assert [t_key(p) for p in t_pytree.tree_paths(t_tree)] == [
+        r_key(p) for p, _ in r_paths]
+    for t, (_, r) in zip(t_pytree.tree_leaves(t_tree), r_paths, strict=True):
+        np.testing.assert_array_equal(t.numpy(), r)
+    back = t_pytree.tree_unflatten_like(t_tree, t_pytree.tree_leaves(t_tree))
+    assert isinstance(back["opt"], TAdam) and back["seq"][1] is None
+    assert t_pytree.tree_paths(back) == t_pytree.tree_paths(t_tree)
+
+
 def test_full_width_param_count():
     """The paper's default CNN has D = 317,124 parameters in both."""
     assert t_cnn.param_count(t_cnn.init(0, t_cnn.SERConfig())) == 317124

@@ -42,7 +42,9 @@ def test_port_has_the_slice_modules():
               "repro_torch.core.faults", "repro_torch.core.screening",
               "repro_torch.core.server", "repro_torch.core.fl_step",
               "repro_torch.engine.statestore", "repro_torch.api.spec",
-              "repro_torch.api.session", "repro_torch.analysis.guard"):
+              "repro_torch.api.session", "repro_torch.analysis.guard",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+              "repro_torch.engine.resilience"):
         assert m in mods
 
 

@@ -319,7 +319,8 @@ def test_one_fused_cohort_step_matches_reference(monkeypatch):
         arena_p, arena_o, arena_d, slots, slots,
         torch.from_numpy(batch_idx).long(),
         [torch.Generator().manual_seed(s) for s in seeds],
-        np.ones(k, np.int32), torch.tensor([std]), torch.ones(k))
+        np.ones(k, np.int32), torch.tensor([std]), torch.ones(k),
+        torch.ones(k, dtype=torch.int32))
 
     # -- reference: the same step's math, the same z injected
     d = tree_size(arena_p) // (k + 1)
