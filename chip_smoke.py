@@ -56,13 +56,16 @@ package ``repro``) and fails with a non-zero exit on the first problem:
    idle share, the fused step's stages);
 11. [kernels-zoo] the CUDA C++ kernels ``ssd_intra_chunk`` and
    ``flash_decode`` against their plain versions, at zamba2-1.2b's shapes,
-   the awkward ones of ``tests/test_kernels.py`` and the split-S cases
+   the awkward ones of ``tests/test_kernels.py``, the split-S cases
    (pos = 0 at full width, a window across chunks, GQA 56/8 at Dh 128,
-   GQA 2 at Dh 256 with softcap), f32 and bf16; each instantiation's
-   registers, shared memory and spills from nvcc's log;
+   GQA 2 at Dh 256 with softcap) and every zoo model's decode shape
+   (gemma2-2b past its 4096 window, phi-3-vision at Dh 96, GQA 3,
+   Whisper's cross-attention over 1500 frames), f32 and bf16; each
+   instantiation's registers, shared memory and spills from nvcc's log;
 12. [times-zoo] their times, plain and library times and bounds at
    zamba2-1.2b's shapes, ``flash_decode`` at pos = S - 1 and S / 2 with
-   its split plan;
+   its split plan, and at gemma2-2b's local layer and phi-3-vision's
+   Dh = 96;
 13. [serve] zamba2-1.2b at full width (38 layers, d_model 2048, bf16,
     random weights from a seed): one prefill of 8 prompts of 2048 tokens,
     then 64 greedy decode steps; 38 ``ssd_intra_chunk`` and 6 x 64
@@ -72,7 +75,19 @@ package ``repro``) and fails with a non-zero exit on the first problem:
 15. [serve-rerun] the full-width serve again: bit-identical logits and
     tokens;
 16. [serve-breakdown] one profiled prefill and decode step: top device
-    kernels and the device idle share.
+    kernels and the device idle share;
+17. [serve-zoo] every other architecture of the zoo (gemma2-2b,
+    llama3.2-3b, smollm-360m, olmoe-1b-7b, qwen2-moe-a2.7b, xlstm-350m,
+    phi-3-vision-4.2b, whisper-large-v3, deepseek-coder-33b last) at
+    full width and depth in bf16, random weights from a seed: one
+    prefill and greedy decode steps, the card freed between models;
+    prompt tokens/s, ms per step, peak memory, and ``flash_decode``
+    launches = attention applications x steps (Whisper 2 per decoder
+    layer, xLSTM 0);
+18. [serve-zoo-small] each family's reduced config on the card against
+    the CPU plain route, same weights;
+19. [serve-zoo-rerun] gemma2-2b at full width again: bit-identical
+    logits and tokens.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1486,6 +1501,27 @@ FLASH_CASES = [FLASH_FULL + (0, 0.0, (2048, 2112)),
                (8, 2112, 32, 32, 64, 300, 0.0, (1000, 1100)),
                (2, 1024, 56, 8, 128, 0, 0.0, (512, 1024)),
                (2, 512, 8, 4, 256, 0, 50.0, (256, 512))]
+# the zoo's decode shapes, in bf16 and f32 with q unscaled (so the softcap
+# cases run in bf16 too): gemma2-2b's local and global layers past its
+# 4096 window with softcap 50, phi-3-vision at Dh 96, GQA 3 (llama3.2-3b
+# 24/8, smollm-360m 15/5, rounded up to 4 heads a block), deepseek's
+# 56/8, the MoE models' 16/16, Whisper's self-attention and its
+# cross-attention over 1500 frames at pos 1499 (23 chunks and a 28-key
+# tail); then Dh 96 at every heads-per-block count, a window, softcap and
+# pos = 0
+ZOO_FLASH_CASES = [(4, 4640, 8, 4, 256, 4096, 50.0, (4200, 4640)),
+                   (4, 4640, 8, 4, 256, 0, 50.0, (4200, 4640)),
+                   (8, 2064, 32, 32, 96, 0, 0.0, (1800, 2064)),
+                   (8, 2064, 24, 8, 128, 0, 0.0, (1800, 2064)),
+                   (8, 2064, 15, 5, 64, 0, 0.0, (1800, 2064)),
+                   (1, 520, 56, 8, 128, 0, 0.0, (500, 520)),
+                   (8, 2064, 16, 16, 128, 0, 0.0, (1800, 2064)),
+                   (8, 464, 20, 20, 64, 0, 0.0, (400, 464)),
+                   (8, 1500, 20, 20, 64, 0, 0.0, (1499, 1500)),
+                   (2, 300, 8, 1, 96, 50, 0.0, (0, 300)),
+                   (3, 131, 6, 2, 96, 0, 0.0, (0, 131)),
+                   (2, 256, 8, 4, 96, 0, 50.0, (100, 256)),
+                   (2, 70, 4, 4, 96, 0, 0.0, (0, 1))]
 
 
 def _ssd_inputs(shape, dtype, dev, seed=0):
@@ -1563,6 +1599,14 @@ def phase_kernels_zoo(dev):
         f"{build.build_dir().relative_to(ROOT)}: {t_build:.1f} s")
     for line in _ptxas_summary(build.build_log()):
         log(f"[kernels-zoo]   {line}")
+    lib = build.library()
+    for bf16 in (1, 0):
+        for dh in flash_attn.HEAD_DIMS:
+            smem = {rb: lib.flash_decode_smem_bytes(bf16, dh, rb)
+                    for rb in flash_attn.HEADS_PER_BLOCK}
+            log(f"[kernels-zoo]   flash_decode_split_kernel<"
+                f"{'bf16' if bf16 else 'f32'},{dh},rb> dynamic shared "
+                f"memory by rb (bytes): {smem}")
     errs = {"ssd_intra_chunk": 0.0, "flash_decode": 0.0}
     for shape in SSD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1604,6 +1648,26 @@ def phase_kernels_zoo(dev):
             errs["flash_decode"] = max(errs["flash_decode"], err)
             log(f"[kernels-zoo] flash_decode {case[:7]} {str(dtype)[6:]}: "
                 f"max |err| {err:.3e}")
+    for case in ZOO_FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, pos = _flash_inputs(case[:6] + (0.0, case[7]), dtype,
+                                         dev)
+            kw = dict(window=case[5], softcap=case[6])
+            got = flash_attn.flash_decode(q, k, v, pos, **kw)
+            torch.cuda.synchronize()
+            want = fref.flash_decode_ref(q, k, v, pos, **kw)
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            err = float((got.float() - want.float()).abs().max())
+            require(torch.allclose(got.float(), want.float(), rtol=tol,
+                                   atol=tol),
+                    f"flash_decode disagrees at zoo case {case} {dtype}: "
+                    f"{err}")
+            require(torch.equal(got, flash_attn.flash_decode(q, k, v, pos,
+                                                             **kw)),
+                    f"flash_decode rerun differs at zoo case {case} {dtype}")
+            errs["flash_decode"] = max(errs["flash_decode"], err)
+            log(f"[kernels-zoo] flash_decode zoo {case[:7]} "
+                f"{str(dtype)[6:]}: max |err| {err:.3e}")
     return errs
 
 
@@ -1664,25 +1728,85 @@ def phase_times_zoo(dev, smi):
             f"{t['library']:.4f} ms; bound {bd[0]:.4f} ms ({bd[1]}: "
             f"{nbytes / 1e6:.1f} MB) = {bd[0] / t['kernel']:.3f} of it; "
             f"kernel faster than the library in {t['kernel wins']} turns")
+    for name, case in ZOO_TIMED.items():
+        _time_zoo_flash(name, case, dev, smi)
     return out
 
 
-def _serve(params, cfg, tokens, max_len, steps):
-    """One prefill, then ``steps`` greedy decode steps.  Returns the
-    logits of every step, the generated tokens and the walls (s)."""
+# flash_decode timed at two zoo shapes, pos = S - 1: gemma2-2b's local
+# layer (its 4096 window admits 4096 of 4640 keys; softcap 50, so no
+# library call computes it) and phi-3-vision's Dh = 96
+ZOO_TIMED = {"gemma2-2b local": (4, 4640, 8, 4, 256, 4096, 50.0),
+             "phi-3-vision-4.2b": (8, 2064, 32, 32, 96, 0, 0.0)}
+
+
+def _time_zoo_flash(name, case, dev, smi):
+    """Kernel, plain and (without softcap) SDPA times of ``flash_decode``
+    at one zoo shape in bf16; the bound is the K and V bytes the mask
+    admits (plus q, out and pos) over the memory rate."""
     import torch
-    from repro_torch.models import hybrid
+    import torch.nn.functional as F
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.flash_attn import flash_attn, ref as fref
+    B, S, H, Hkv, Dh, window, softcap = case
+    q, k, v, _ = _flash_inputs(case[:6] + (0.0, (0, 1)), torch.bfloat16, dev)
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    kw = dict(window=window, softcap=softcap)
+    fns = {"kernel": lambda: flash_attn.flash_decode(q, k, v, pos, **kw),
+           "plain": lambda: fref.flash_decode_ref(q, k, v, pos, **kw)}
+    if not softcap:
+        idx = torch.arange(S, device=dev)[None, :]
+        mask = (idx <= pos[:, None].long())
+        if window:
+            mask &= idx > pos[:, None].long() - window
+        mask = mask[:, None, None, :]
+        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        fns["library"] = lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=H != Hkv)
+    t = _in_turns(fns, rounds=7 if "library" in fns else 2,
+                  pair=("kernel", "library") if "library" in fns else None)
+    keys = B * min(S, window or S)               # keys the mask admits
+    nbytes = 2 * keys * Hkv * Dh * 2 + 2 * q.numel() * 2 + B * 4
+    bd = _bound(nbytes, 4 * keys * H * Dh, BF16_FLOPS)
+    n_split, chunk = flash_attn.split_plan(S, B, H, Hkv, sm_count(dev))
+    lib = (f"library (scaled_dot_product_attention, bool mask) "
+           f"{t['library']:.4f} ms, kernel faster in {t['kernel wins']} "
+           f"turns" if "library" in t else "library none (softcap)")
+    log(f"[times-zoo] {smi}; flash_decode {name} (B={B}, S={S}, H={H}, "
+        f"Hkv={Hkv}, Dh={Dh}, window={window}, softcap={softcap}) bf16 "
+        f"pos=S-1: kernel {t['kernel']:.4f} ms plain {t['plain']:.4f} ms "
+        f"{lib}; bound {bd[0]:.4f} ms ({bd[1]}: {nbytes / 1e6:.1f} MB) = "
+        f"{bd[0] / t['kernel']:.3f} of it; {n_split} splits of {chunk}-key "
+        f"chunks")
+
+
+def _serve(params, cfg, tokens, max_len, steps):
+    """zamba2: one prefill, then ``steps`` greedy decode steps (see
+    :func:`_serve_family`)."""
+    return _serve_family(params, cfg, {"tokens": tokens}, max_len, steps)
+
+
+def _serve_family(params, cfg, batch, max_len, steps):
+    """One prefill of ``batch``, then ``steps`` greedy decode steps,
+    through the entry points of ``cfg``'s family.  Returns the logits of
+    every step, the generated tokens and the walls (s).  A VLM's decode
+    positions are global (after its patch prefix)."""
+    import torch
+    from repro_torch.models.base import get_family
+    fam = get_family(cfg.family)
+    tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
+    offset = cfg.n_patches if cfg.family == "vlm" else 0
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    cache = hybrid.init_cache(cfg, B, max_len, device=dev)
+    cache = fam.init_cache(cfg, B, max_len, device=dev)
     sync()
     t0 = time.perf_counter()
-    lg, cache = hybrid.prefill(params, {"tokens": tokens}, cfg, cache)
+    lg, cache = fam.prefill(params, batch, cfg, cache)
     sync()
     t_prefill = time.perf_counter() - t0
     logits, toks = [lg], []
@@ -1690,8 +1814,8 @@ def _serve(params, cfg, tokens, max_len, steps):
     for t in range(steps):
         tok = lg.argmax(-1).to(torch.int32)[:, None]
         toks.append(tok)
-        pos = torch.full((B,), S + t, dtype=torch.int32, device=dev)
-        lg, cache = hybrid.decode_step(params, cache, tok, pos, cfg)
+        pos = torch.full((B,), offset + S + t, dtype=torch.int32, device=dev)
+        lg, cache = fam.decode_step(params, cache, tok, pos, cfg)
         logits.append(lg)
     sync()
     t_decode = time.perf_counter() - t0
@@ -1863,6 +1987,168 @@ def phase_serve_breakdown(params, cfg, tokens, smi):
                 f"{kname[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# the rest of the architecture zoo: dense, MoE, xLSTM, Whisper and VLM
+# serving at full width, decoding through flash_decode
+# ---------------------------------------------------------------------------
+
+# arch -> (batch, prompt tokens, decode steps); each at full width and
+# full depth in bf16, random weights from seed 0; deepseek-coder-33b
+# (66.7 GB of weights) last.  phi-3-vision's prompt is 576 patches +
+# 1472 tokens, Whisper's 1500 frames + 448 tokens (its native context).
+ZOO_SERVE = {"gemma2-2b": (4, 4608, 32),        # decode crosses the window
+             "llama3.2-3b": (8, 2048, 16),
+             "smollm-360m": (8, 2048, 16),
+             "olmoe-1b-7b": (8, 2048, 16),
+             "qwen2-moe-a2.7b": (8, 2048, 16),
+             "xlstm-350m": (8, 2048, 16),
+             "phi-3-vision-4.2b": (8, 1472, 16),
+             "whisper-large-v3": (8, 448, 16),
+             "deepseek-coder-33b": (1, 512, 8)}
+
+
+def _zoo_batch(cfg, batch, seq_len, seed, dev):
+    """Prompts of the synthetic token pipeline and, for Whisper and the
+    VLM, stub frame / patch embeddings drawn from ``seed`` on ``dev``."""
+    import torch
+    out = {"tokens": _prompts(cfg, batch, seq_len, seed).to(dev)}
+    gen = torch.Generator(dev).manual_seed(seed)
+    stub = {"audio": ("frames", cfg.enc_frames),
+            "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+    if stub:
+        out[stub[0]] = torch.randn((batch, stub[1], cfg.d_model),
+                                   generator=gen, device=dev).to(cfg.pdtype)
+    return out
+
+
+def _attn_per_step(cfg):
+    """flash_decode launches per decode step: one per attention
+    application (Whisper: self and cross in every decoder layer)."""
+    return {"ssm": 0, "audio": 2 * cfg.n_layers}.get(cfg.family,
+                                                     cfg.n_layers)
+
+
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _serve_zoo_one(arch, dev, smi, tag="serve-zoo"):
+    """One zoo architecture at full width: init, prefill and greedy decode
+    with the kernels' counters set to 0 just before; returns (flash_decode
+    launches, logits and tokens on the CPU)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.base import get_family
+    from repro_torch.pytree import tree_leaves
+    batch, seq_len, steps = ZOO_SERVE[arch]
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = get_family(cfg.family).init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(l.numel() for l in tree_leaves(params))
+    inputs = _zoo_batch(cfg, batch, seq_len, 0, dev)
+    ssd_scan.reset_launches()
+    flash_attn.reset_launches()
+    logits, toks, t_pf, t_dec = _serve_family(
+        params, cfg, inputs, seq_len + steps, steps)
+    launches = flash_attn.launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = _attn_per_step(cfg) * steps
+    require(launches == want, f"{arch}: flash_decode launched {launches} "
+            f"times, expected {_attn_per_step(cfg)} x {steps}")
+    require(ssd_scan.launches() == 0, f"{arch}: ssd_intra_chunk launched")
+    require(bool(torch.isfinite(logits).all()), f"{arch}: nonfinite logits")
+    require(tuple(logits.shape) == (steps + 1, batch, cfg.vocab),
+            f"{arch}: logits shape {tuple(logits.shape)}")
+    # the VLM's patches and Whisper's encoder frames are prompt positions
+    stub = {"vlm": (cfg.n_patches, "patches"),
+            "audio": (cfg.enc_frames, "frames")}.get(cfg.family)
+    prompt = batch * (seq_len + (stub[0] if stub else 0))
+    extra = f" + {stub[0]} {stub[1]}" if stub else ""
+    log(f"[{tag}] {smi}; {arch} ({cfg.family}): {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab}, {n_params / 1e9:.4f} B params "
+        f"(bf16), init {t_init:.2f} s; B={batch} prompt {seq_len}{extra}: "
+        f"prefill {t_pf * 1e3:.1f} ms = {batch * seq_len / t_pf:.0f} prompt "
+        f"tokens/s ({prompt / t_pf:.0f} positions/s); decode {steps} steps "
+        f"{t_dec / steps * 1e3:.2f} ms/step = "
+        f"{batch * steps / t_dec:.1f} generated tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; flash_decode launches {launches} "
+        f"(= {_attn_per_step(cfg)} x {steps})")
+    log(f"[{tag}] {arch}: first generated tokens of row 0: "
+        f"{toks[0, :8].tolist()}")
+    out = (launches, logits.cpu(), toks.cpu())
+    del params, inputs, logits, toks
+    _free_card()
+    return out
+
+
+def phase_serve_zoo(dev, smi):
+    """Every zoo architecture beside zamba2 at full width, one at a time,
+    the card freed between them, deepseek last.  Returns the flash_decode
+    launches of all of them and gemma2-2b's logits and tokens."""
+    _free_card()
+    launches, first = 0, None
+    for arch in ZOO_SERVE:
+        n, logits, toks = _serve_zoo_one(arch, dev, smi)
+        launches += n
+        if first is None:
+            first = (arch, logits, toks)
+    return launches, first
+
+
+def phase_serve_zoo_rerun(dev, smi, first):
+    """The first zoo model at full width again, from the same seed:
+    bit-identical logits and tokens."""
+    import torch
+    arch, logits, toks = first
+    _, logits2, toks2 = _serve_zoo_one(arch, dev, smi, "serve-zoo-rerun")
+    require(torch.equal(logits, logits2), f"{arch} rerun: logits differ")
+    require(torch.equal(toks, toks2), f"{arch} rerun: tokens differ")
+    log(f"[serve-zoo-rerun] {arch}: bit-identical logits "
+        f"({tuple(logits.shape)}) and tokens")
+
+
+def phase_serve_zoo_small(dev):
+    """Each family's reduced config (f32) on the card against the CPU
+    plain route with the same weights: prefill + 4 decode logits within
+    1e-3 (the CPU route is held to the JAX package at 1e-4), equal greedy
+    tokens, and one flash_decode launch per attention application."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.models import convert
+    from repro_torch.models.base import get_family
+    for arch in ZOO_SERVE:
+        cfg = get_config(arch).reduced().replace(param_dtype="float32")
+        p_cpu = get_family(cfg.family).init_params(cfg, seed=0, device="cpu")
+        p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), dev)
+        b_cpu = _zoo_batch(cfg, 2, 64, 1, "cpu")
+        n0 = flash_attn.launches()
+        lg_g, tk_g, _, _ = _serve_family(
+            p_gpu, cfg, {k: v.to(dev) for k, v in b_cpu.items()}, 68, 4)
+        n = flash_attn.launches() - n0
+        require(n == _attn_per_step(cfg) * 4,
+                f"reduced {arch} on the card: {n} flash_decode launches")
+        lg_c, tk_c, _, _ = _serve_family(p_cpu, cfg, b_cpu, 68, 4)
+        err = float((lg_g.cpu() - lg_c).abs().max())
+        require(torch.allclose(lg_g.cpu(), lg_c, rtol=1e-3, atol=1e-3),
+                f"reduced {arch}: card vs CPU logits differ by {err}")
+        require(torch.equal(tk_g.cpu(), tk_c), f"reduced {arch}: tokens "
+                "differ")
+        log(f"[serve-zoo-small] reduced {arch} (f32): card vs CPU plain "
+            f"route, prefill + 4 decode logits max |diff| {err:.3e} "
+            f"(tolerance 1e-3), greedy tokens equal, {n} flash_decode "
+            f"launches")
+
+
 def main():
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     sys.path.insert(0, str(ROOT / "src"))
@@ -1896,6 +2182,15 @@ def main():
     phase_serve_small(dev)
     phase_serve_rerun(params, cfg, tokens, logits, toks)
     phase_serve_breakdown(params, cfg, tokens, smi)
+    del params, tokens, logits, toks
+    t0 = time.perf_counter()
+    zoo_launches, first = phase_serve_zoo(dev, smi)
+    launches["flash_decode"] += zoo_launches
+    phase_serve_zoo_small(dev)
+    phase_serve_zoo_rerun(dev, smi, first)
+    log(f"[serve-zoo] the zoo phases took {time.perf_counter() - t0:.1f} s; "
+        f"flash_decode launches: zamba2 {serve_launches['flash_decode']}, "
+        f"zoo {zoo_launches}")
     from repro_torch.kernels.dp_clip import dp_clip
     from repro_torch.kernels.flash_attn import flash_attn
     from repro_torch.kernels.ssd_scan import ssd_scan

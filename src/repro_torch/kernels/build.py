@@ -36,12 +36,14 @@ COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures: name -> argtypes (restype is int, the CUDA error code)
+# C signatures: name -> argtypes (restype is int: the CUDA error code,
+# or for flash_decode_smem_bytes a size in bytes)
 SIGNATURES = {
     "ssd_intra_chunk_f32": [P, P, P, P, P, I, I, I, I, I, I, P],
     "ssd_intra_chunk_bf16": [P, P, P, P, P, I, I, I, I, I, I, P],
     "flash_decode_f32": [P, P, P, P, P, P, *[I] * 9, F, F, P],
     "flash_decode_bf16": [P, P, P, P, P, P, *[I] * 9, F, F, P],
+    "flash_decode_smem_bytes": [I, I, I],
 }
 
 

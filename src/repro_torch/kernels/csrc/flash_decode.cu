@@ -53,6 +53,13 @@
 //   sums the slices.  Then one warp per head updates the online softmax
 //   (running max, denominator, f32), and each warp accumulates p . v for
 //   its share of the tile's keys with lanes owning Dh / 32 dimensions.
+// * Head dims 32, 64, 96, 128 and 256.  Dh = 96 (phi-3-vision) is no power
+//   of two: a key row is 12 (bf16) or 24 (f32) 16-byte chunks, so kG is
+//   the largest power of two that divides the chunk count (4 or 8) and
+//   each lane takes 3 chunks; the tile is 32 (bf16) or 16 (f32) keys of
+//   6 KB, still a divisor of a chunk; in p . v each lane owns 3
+//   dimensions, loaded one value at a time.  The cache is read as it
+//   lies, unpadded.  At power-of-two Dh every count is what it was.
 // * The warps' accumulators are summed in a fixed order into a partial
 //   (m, l, acc[Dh]) in f32, written to a scratch buffer that the wrapper
 //   allocates.  A second, small kernel merges the splits of each (b, h) in
@@ -142,13 +149,18 @@ __device__ __forceinline__ void unpack(uint32_t w, float* out,
   out[1] = f.y;
 }
 
-// N consecutive values of type T (N * sizeof(T) a power of two, the
-// address aligned to it) as floats, with the widest loads that fit
+// N consecutive values of type T as floats.  Where N * sizeof(T) is a
+// power of two (the address aligned to it), with the widest loads that fit;
+// else (Dh = 96: 3 values a lane) one value at a time, which assumes no
+// alignment beyond T's own
 template <typename T, int N>
 __device__ __forceinline__ void load_f32(const T* p, float (&out)[N]) {
   constexpr int kBytes = N * static_cast<int>(sizeof(T));
   constexpr int kPerWord = 4 / static_cast<int>(sizeof(T));
-  if constexpr (kBytes < 4) {
+  if constexpr ((kBytes & (kBytes - 1)) != 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = repro::to_f32(p[i]);
+  } else if constexpr (kBytes < 4) {
     out[0] = repro::to_f32(p[0]);
   } else {
     uint32_t w[kBytes / 4];
@@ -173,19 +185,32 @@ __device__ __forceinline__ void load_f32(const T* p, float (&out)[N]) {
   }
 }
 
+// the largest power of two that is at most n (n >= 1)
+constexpr int pow2_floor(int n) {
+  return n & (n - 1) ? pow2_floor(n & (n - 1)) : n;
+}
+
 // ---- the split kernel ------------------------------------------------------
 
 template <typename T, int DH, int RB>
 struct Cfg {
   static constexpr int kRowBytes = DH * static_cast<int>(sizeof(T));
   static constexpr int kCPR = kRowBytes / 16;  // 16-byte chunks per key row
-  static constexpr int kG = kCPR < 32 ? kCPR : 32;  // lanes per key, scoring
+  // lanes per key in scoring: the largest power of two dividing kCPR, at
+  // most 32 (kCPR itself when Dh is a power of two; 4 in bf16 and 8 in f32
+  // at Dh = 96, each lane then taking 3 chunks), so the shuffle tree holds
+  static constexpr int kLow = kCPR & -kCPR;
+  static constexpr int kG = kLow < 32 ? kLow : 32;
   static constexpr int kCPT = kCPR / kG;            // chunks per lane
   static constexpr int kVals = 16 / static_cast<int>(sizeof(T));
   static constexpr int kKPP = kThreads / kG;  // keys per scoring pass
   static constexpr int kRaw = 4096 / kRowBytes;
-  static constexpr int kTile = kRaw > 64 ? 64 : (kRaw < 16 ? 16 : kRaw);
-  static constexpr int kDPL = DH / 32;  // dims per lane in p . v
+  // ~4 KB of keys, a power of two in [16, 64] (so it divides a 64-key
+  // chunk) and a multiple of kKPP: 32 keys at Dh = 96 in bf16, 16 in f32
+  static constexpr int kPow =
+      pow2_floor(kRaw > 64 ? 64 : (kRaw < 16 ? 16 : kRaw));
+  static constexpr int kTile = kPow > kKPP ? kPow : kKPP;
+  static constexpr int kDPL = DH / 32;  // dims per lane in p . v (3 at 96)
   static constexpr int kTileElems = kTile * DH;
   static constexpr int kCopies = kTile * kCPR / kThreads;  // per tensor
   static constexpr int kKvBytes = kStages * 2 * kTileElems * sizeof(T);
@@ -193,6 +218,8 @@ struct Cfg {
   static constexpr int kStatBytes = (3 * RB * 4 + 7) / 8 * 8;
   static constexpr int kRedBytes = kWarps * RB * DH * 4;  // aliases K/V
   static constexpr int kSmem = kKvBytes + kSsBytes + kStatBytes + kStages * 8;
+  static_assert(DH % 32 == 0 && kRowBytes % 16 == 0, "head dim");
+  static_assert(64 % kTile == 0, "a tile divides a chunk");
   static_assert(kTile % kKPP == 0 && kTile % kWarps == 0, "tile");
   static_assert(kTile * kCPR % kThreads == 0, "copies");
   static_assert(kRedBytes <= kKvBytes, "reduction buffer");
@@ -542,6 +569,9 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
     case 64:
       return launch_dh<T, 64>(q, k, v, pos, part, out, B, H, S, Hkv, rb,
                               n_split, chunk, window, scale, softcap, st);
+    case 96:
+      return launch_dh<T, 96>(q, k, v, pos, part, out, B, H, S, Hkv, rb,
+                              n_split, chunk, window, scale, softcap, st);
     case 128:
       return launch_dh<T, 128>(q, k, v, pos, part, out, B, H, S, Hkv, rb,
                                n_split, chunk, window, scale, softcap,
@@ -555,7 +585,48 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
   }
 }
 
+template <typename T, int DH>
+int smem_dh(int rb) {
+  switch (rb) {
+    case 1:
+      return Cfg<T, DH, 1>::kSmem;
+    case 2:
+      return Cfg<T, DH, 2>::kSmem;
+    case 4:
+      return Cfg<T, DH, 4>::kSmem;
+    case 8:
+      return Cfg<T, DH, 8>::kSmem;
+    default:
+      return -1;
+  }
+}
+
+template <typename T>
+int smem(int dh, int rb) {
+  switch (dh) {
+    case 32:
+      return smem_dh<T, 32>(rb);
+    case 64:
+      return smem_dh<T, 64>(rb);
+    case 96:
+      return smem_dh<T, 96>(rb);
+    case 128:
+      return smem_dh<T, 128>(rb);
+    case 256:
+      return smem_dh<T, 256>(rb);
+    default:
+      return -1;
+  }
+}
+
 }  // namespace
+
+// Dynamic shared memory (bytes) of the split kernel's instantiation for
+// bf16 (or f32), head dim dh and rb query heads per block; -1 if there is
+// none.  ptxas reports only static shared memory, which is 0.
+extern "C" int flash_decode_smem_bytes(int bf16, int dh, int rb) {
+  return bf16 ? smem<__nv_bfloat16>(dh, rb) : smem<float>(dh, rb);
+}
 
 // part: B * H * n_split * (Dh + 2) f32 of scratch; rb: query heads per
 // block (1, 2, 4 or 8); split s takes the chunks of `chunk` keys (a

@@ -22,7 +22,7 @@ from repro_torch.kernels.common import (
 
 ROUTE = "cuda"
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128, 256)      # the kernel's lanes own Dh / 32 dims
+HEAD_DIMS = (32, 64, 96, 128, 256)  # the kernel's lanes own Dh / 32 dims
 HEADS_PER_BLOCK = (1, 2, 4, 8)      # query heads one block serves
 CHUNK_KEYS = 64                     # keys per chunk; chunks go to splits in turn
 BLOCKS_PER_SM = 8                   # split blocks resident per SM (64 registers)

@@ -3,8 +3,8 @@
 Every architecture is an :class:`ArchConfig`; families register a
 :class:`Family` of plain functions here.  The fields, ``reduced()`` and
 the input shapes are the JAX package's; ``pdtype`` is a ``torch.dtype``.
-The JAX package's ``input_specs`` (``ShapeDtypeStruct`` stand-ins for
-its dry-run lowering) has no counterpart here.
+:func:`input_specs` gives ``meta``-device tensors where the JAX package
+gives ``ShapeDtypeStruct`` stand-ins: shapes and dtypes, no storage.
 """
 from __future__ import annotations
 
@@ -128,13 +128,16 @@ def register_family(fam: Family):
 
 def get_family(name: str) -> Family:
     if name not in _FAMILIES:
-        # lazy import of the ported family modules
+        # lazy import of family modules
+        import repro_torch.models.transformer  # noqa: F401
+        import repro_torch.models.moe  # noqa: F401
         import repro_torch.models.hybrid  # noqa: F401
+        import repro_torch.models.xlstm  # noqa: F401
+        import repro_torch.models.whisper  # noqa: F401
+        import repro_torch.models.vlm  # noqa: F401
     if name not in _FAMILIES:
-        raise NotImplementedError(
-            f"model family {name!r} is not ported to repro_torch yet "
-            f"(ported: {', '.join(sorted(_FAMILIES))}; ROADMAP.md queue 1 "
-            "item 17)")
+        raise KeyError(f"unknown model family {name!r} "
+                       f"(families: {', '.join(sorted(_FAMILIES))})")
     return _FAMILIES[name]
 
 
@@ -157,3 +160,36 @@ INPUT_SHAPES = {
     "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524288, 1, "decode"),
 }
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape) -> dict:
+    """``meta`` tensors standing in for every model input of this
+    arch/shape (no storage):
+
+    train:   tokens+labels (B, S)   [+ modality stub embeddings]
+    prefill: tokens (B, S)
+    decode:  token (B, 1) + positions; the KV cache itself is created by
+             ``init_cache`` (also shape-only with ``device="meta"``).
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    i32 = torch.int32
+    out = {}
+    if shape.kind == "train":
+        out["tokens"] = spec((B, S), i32)
+        out["labels"] = spec((B, S), i32)
+    elif shape.kind == "prefill":
+        out["tokens"] = spec((B, S), i32)
+    else:  # decode
+        out["token"] = spec((B, 1), i32)
+        out["pos"] = spec((B,), i32)
+    if cfg.family == "audio":
+        # stub conv/mel frontend: precomputed encoder frame embeddings
+        out["frames"] = spec((B, cfg.enc_frames, cfg.d_model), cfg.pdtype)
+    if cfg.family == "vlm":
+        # stub vision encoder + projector: precomputed patch embeddings
+        out["patches"] = spec((B, cfg.n_patches, cfg.d_model), cfg.pdtype)
+    return out

@@ -17,8 +17,6 @@ application of ``decode_step`` launches ``flash_decode`` once.
 """
 from __future__ import annotations
 
-import itertools
-
 import torch
 
 from repro_torch.device import resolve_device
@@ -36,28 +34,13 @@ def segment_plan(cfg):
     return n_seg, cfg.attn_every, trailing
 
 
-def _stacked_mamba(gen, cfg, lead):
-    """Mamba2 layers stacked on the leading dims ``lead``, drawn layer by
-    layer into preallocated leaves (no second copy of the stack)."""
-    out = None
-    for idx in itertools.product(*map(range, lead)):
-        layer = M.init_mamba2(gen, cfg)
-        if out is None:
-            out = {k: torch.empty(tuple(lead) + tuple(v.shape), dtype=v.dtype,
-                                  device=v.device) for k, v in layer.items()}
-        for k, v in layer.items():
-            out[k][idx] = v
-    return out
-
-
 def init_params(cfg, seed: int, device=None):
     """Random init from ``seed`` with a ``torch.Generator`` on the target
     device: the JAX package's shapes, dtypes and scales (``normal *
     fan_in**-0.5``, zeros, ones), each dict's leaves in sorted-key order
     and stacked layers one at a time."""
-    dev = resolve_device(device)
-    gen = torch.Generator(dev).manual_seed(seed)
-    dtype, D = cfg.pdtype, cfg.d_model
+    gen = L.generator(seed, device)
+    dev, dtype, D = gen.device, cfg.pdtype, cfg.d_model
     n_seg, seg_len, trailing = segment_plan(cfg)
 
     def zeros(*shape):
@@ -66,7 +49,8 @@ def init_params(cfg, seed: int, device=None):
     makers = dict(
         embedding=lambda: L.init_embedding(gen, cfg.vocab, D, dtype),
         mamba_seg=lambda: L.draw_sorted(
-            mix=lambda: _stacked_mamba(gen, cfg, (n_seg, seg_len))
+            mix=lambda: L.stack_layers(lambda: M.init_mamba2(gen, cfg),
+                                       (n_seg, seg_len))
             if n_seg else None,
             ln=lambda: zeros(n_seg, seg_len, D) if n_seg else None),
         # ONE shared attention+MLP block (zamba2 weight sharing)
@@ -76,7 +60,8 @@ def init_params(cfg, seed: int, device=None):
             ln_attn=lambda: zeros(D),
             ln_mlp=lambda: zeros(D)),
         mamba_tail=lambda: L.draw_sorted(
-            mix=lambda: _stacked_mamba(gen, cfg, (trailing,))
+            mix=lambda: L.stack_layers(lambda: M.init_mamba2(gen, cfg),
+                                       (trailing,))
             if trailing else None,
             ln=lambda: zeros(trailing, D) if trailing else None),
         ln_final=lambda: zeros(D),
@@ -84,11 +69,6 @@ def init_params(cfg, seed: int, device=None):
     if not cfg.tie_embeddings:
         makers["lm_head"] = lambda: L.init_embedding(gen, cfg.vocab, D, dtype)
     return L.draw_sorted(**makers)
-
-
-def _layer(tree, *idx):
-    """One layer's params out of stacked leaves (views, no copies)."""
-    return {k: v[idx] for k, v in tree.items()}
 
 
 def _mamba_layer(x, mix, ln, cfg):
@@ -112,11 +92,11 @@ def _mamba_layers(params, cfg):
     n_seg, seg_len, trailing = segment_plan(cfg)
     for si in range(n_seg):
         for li in range(seg_len):
-            yield si, li, _layer(params["mamba_seg"]["mix"], si, li), \
-                params["mamba_seg"]["ln"][si, li]
+            yield (si, li, L.layer_slice(params["mamba_seg"]["mix"], si, li),
+                   params["mamba_seg"]["ln"][si, li])
     for ti in range(trailing):
-        yield None, ti, _layer(params["mamba_tail"]["mix"], ti), \
-            params["mamba_tail"]["ln"][ti]
+        yield (None, ti, L.layer_slice(params["mamba_tail"]["mix"], ti),
+               params["mamba_tail"]["ln"][ti])
 
 
 def forward_hidden(params, batch, cfg):
@@ -141,10 +121,12 @@ def logits_fn(params, batch, cfg):
     return L.unembed(h, _head(params))
 
 
-def loss(params, batch, cfg):
-    raise NotImplementedError(
-        "the hybrid family's training loss waits for the zoo's training "
-        "slice (ROADMAP.md queue 1 item 17)")
+def loss(params, batch, cfg, *, loss_chunk: int = 512):
+    """Mean next-token CE with sequence-chunked logits (its value; the
+    gradient is the production round's, ROADMAP.md queue 1 item 14)."""
+    h = forward_hidden(params, batch, cfg)
+    return L.chunked_lm_loss(h, batch["labels"], _head(params),
+                             loss_chunk=loss_chunk)
 
 
 # ---------------------------------------------------------------------------

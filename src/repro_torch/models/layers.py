@@ -1,7 +1,6 @@
-"""Shared model building blocks (port of the subset of
-``repro/models/layers.py`` that the hybrid family's serving path runs):
+"""Shared model building blocks (port of ``repro/models/layers.py``):
 norms, RoPE, GQA attention (sliding window + logit softcap), the one-token
-decode attention, gated MLPs and embeddings.
+decode attention, gated MLPs, embeddings and the cross-entropy losses.
 
 Conventions (the JAX package's, kept at the public surface)
 -----------------------------------------------------------
@@ -12,27 +11,50 @@ Conventions (the JAX package's, kept at the public surface)
   accumulate in f32, and every matrix product rounds its output to the
   operands' dtype, as the JAX package's einsums do.
 * Initializers draw from an explicit ``torch.Generator`` on the target
-  device, each dict's leaves in sorted-key order (:func:`draw_sorted`).
+  device, each dict's leaves in sorted-key order (:func:`draw_sorted`),
+  stacked layers one at a time (:func:`stack_layers`).  On the ``meta``
+  device (shapes only) there is no generator and nothing is drawn.
   The JAX package's ``shard()`` and mesh context have no counterpart:
   there is no mesh on one card.
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.pytree import tree_map
 
 # ---------------------------------------------------------------------------
 # initializers
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, shape, dtype, fan_in=None):
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device, which
+    has none: initializers then make shapes and dtypes only."""
+
+    device = torch.device("meta")
+
+
+def generator(seed: int, device=None):
+    """The init generator of an entry point: ``seed`` on the resolved
+    device (the card unless the caller passes another)."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return MetaGenerator()
+    return torch.Generator(dev).manual_seed(seed)
+
+
+def dense_init(gen, shape, dtype, fan_in=None):
     """``normal * fan_in**-0.5`` drawn in f32 on ``gen``'s device."""
     fan_in = fan_in or shape[0]
     scale = (1.0 / fan_in) ** 0.5
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device,
+    g = gen if isinstance(gen, torch.Generator) else None
+    return (torch.randn(tuple(shape), generator=g, device=gen.device,
                         dtype=torch.float32) * scale).to(dtype)
 
 
@@ -41,6 +63,36 @@ def draw_sorted(**makers):
     (the order ``jax.tree_util`` flattens a dict in), so a seed fixes
     every leaf whatever order the caller lists them in."""
     return {k: makers[k]() for k in sorted(makers)}
+
+
+def stack_layers(make, lead):
+    """``make()``'s (nested) param dict stacked on the leading dims
+    ``lead``: the layers are drawn one at a time, in index order, into
+    preallocated leaves, so no second copy of the stack (and no f32 copy
+    of a bf16 one) is ever held.  The JAX package's vmapped init of
+    stacked leaves."""
+    out = None
+    for idx in itertools.product(*map(range, lead)):
+        layer = make()
+        if out is None:
+            out = tree_map(lambda v: torch.empty(
+                tuple(lead) + tuple(v.shape), dtype=v.dtype,
+                device=v.device), layer)
+        _copy_into(out, layer, idx)
+    return out
+
+
+def _copy_into(out, layer, idx):
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _copy_into(out[k], v, idx)
+        else:
+            out[k][idx] = v
+
+
+def layer_slice(tree, *idx):
+    """One layer's params out of stacked leaves (views, no copies)."""
+    return tree_map(lambda v: v[idx], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -53,6 +105,14 @@ def rms_norm(x, scale, eps=1e-6):
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, unbiased=False, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale + bias).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -110,10 +170,11 @@ def _softcap(x, cap: float):
     return torch.tanh(x / cap) * cap if cap > 0 else x
 
 
-def _qkv(x, p, cfg, positions):
-    q = apply_rope(_proj(x, p["wq"]), positions, cfg.rope_theta)
-    k = apply_rope(_proj(x, p["wk"]), positions, cfg.rope_theta)
-    v = _proj(x, p["wv"])
+def _qkv(x, p, cfg, positions, rope=True):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -126,6 +187,7 @@ def attention(
     window: int = 0,
     causal: bool = True,
     q_chunk: int = 1024,
+    rope: bool = True,
     kv_override=None,          # (k, v, kv_positions) for cross-attention
 ):
     """Exact attention, q-chunked for memory (a loop over query chunks).
@@ -133,17 +195,19 @@ def attention(
     x: (B, S, D) -> (B, S, D).  ``window`` > 0 masks keys older than
     ``window`` positions (sliding-window attention).  Plain PyTorch
     (matrix products and an f32 softmax), as the JAX package leaves it
-    to XLA outside any Pallas kernel.  RoPE is always applied (the JAX
-    package's ``rope=False`` serves families the port does not run yet).
+    to XLA outside any Pallas kernel.  ``rope=False`` (Whisper) applies
+    no rotary embedding; with ``kv_override`` only q is rotated.
     """
     B, S, D = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     if kv_override is None:
-        q, k, v = _qkv(x, p, cfg, positions)
+        q, k, v = _qkv(x, p, cfg, positions, rope=rope)
         kv_pos = positions
     else:
-        q = apply_rope(_proj(x, p["wq"]), positions, cfg.rope_theta)
+        q = _proj(x, p["wq"])
+        if rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
         k, v, kv_pos = kv_override
 
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -240,3 +304,28 @@ def embed(tokens, emb):
 def unembed(x, emb_or_head, softcap: float = 0.0):
     logits = torch.matmul(x, emb_or_head.t()).float()
     return _softcap(logits, softcap)
+
+
+def cross_entropy_loss(logits, labels, vocab: int):
+    """Mean next-token CE.  logits (B,S,V) f32, labels (B,S)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def chunked_lm_loss(h, labels, W, softcap: float = 0.0,
+                    loss_chunk: int = 512):
+    """Mean next-token CE with sequence-chunked logits, as every family of
+    the JAX package writes it: ``max(1, S // loss_chunk)`` chunks of equal
+    length (S must divide into them), each chunk's mean CE, then the mean
+    of those.  The (B, S, V) logits are never held whole."""
+    B, S, _ = h.shape
+    n_chunks = max(1, S // loss_chunk)
+    size = S // n_chunks
+    if size * n_chunks != S:
+        raise ValueError(f"sequence {S} does not split into {n_chunks} "
+                         f"chunks of {size}")
+    losses = [cross_entropy_loss(unembed(h[:, i:i + size], W, softcap),
+                                 labels[:, i:i + size], W.shape[0])
+              for i in range(0, S, size)]
+    return torch.mean(torch.stack(losses))

@@ -1,0 +1,218 @@
+"""Mixture-of-Experts decoder family (port of ``repro/models/moe.py``):
+qwen2-moe / olmoe.
+
+GShard/Switch-style capacity-based top-k routing, as the JAX package
+writes it, decision for decision:
+
+  * tokens are reshaped into GROUPS of ~``group_size``; within a group,
+    each (token, k) takes the next free slot of its expert in the
+    flattened (s, K) order, and a slot at or past the capacity ``cap``
+    drops it (its gate becomes 0);
+  * dispatch and combine are one-hot products (the JAX package's
+    einsums), so routing, capacity and drops are the reference's;
+  * qwen2-moe additionally has ``n_shared_experts`` always-on experts
+    (fused into one dense MLP of width n_shared * d_expert) and top-4 of
+    60 routed experts; olmoe is pure top-8 of 64;
+  * load-balance auxiliary loss (Switch style): E * sum_e f_e * p_e.
+
+The attention, cache and decode attention are the dense family's; the
+expert math is plain PyTorch (no Pallas kernel in the JAX package).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.base import Family, register_family
+
+
+def init_moe_mlp(gen, cfg):
+    dtype = cfg.pdtype
+    D, E, Fd = cfg.d_model, cfg.n_experts, cfg.d_expert or cfg.d_ff
+    Ep = E + cfg.expert_pad      # padded expert count for even sharding
+    makers = dict(
+        router=lambda: L.dense_init(gen, (D, E), torch.float32),
+        w_gate=lambda: L.dense_init(gen, (Ep, D, Fd), dtype, fan_in=D),
+        w_up=lambda: L.dense_init(gen, (Ep, D, Fd), dtype, fan_in=D),
+        w_down=lambda: L.dense_init(gen, (Ep, Fd, D), dtype, fan_in=Fd),
+    )
+    if cfg.n_shared_experts:
+        makers["shared"] = lambda: L.init_mlp(
+            gen, D, cfg.n_shared_experts * Fd, dtype, variant="swiglu")
+    return L.draw_sorted(**makers)
+
+
+def route(xg, router, cfg):
+    """Top-k routing of grouped tokens xg (g, s, D).  Returns (top_p
+    renormalised, top_e, keep, pos, cap, aux): the expert of each (token,
+    k), its slot among the group's tokens routed to that expert (flattened
+    (s, K) order), whether the slot is below the capacity, and the
+    load-balance loss."""
+    g, s, _ = xg.shape
+    E, K = cfg.n_experts, cfg.top_k
+    logits = torch.matmul(xg.float(), router)                 # (g, s, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, K, dim=-1)               # (g, s, K)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balance aux loss (Switch): E * mean_e( frac_tokens_e * mean_prob_e )
+    frac = F.one_hot(top_e[..., 0], E).float().mean(dim=(0, 1))
+    aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
+
+    cap = int(max(4, (s * K / E) * cfg.capacity_factor))
+    # position of each (token, k) among the tokens routed to the same expert
+    flat = F.one_hot(top_e, E).reshape(g, s * K, E)
+    pos_in_e = torch.cumsum(flat, dim=1) - flat
+    pos = (pos_in_e * flat).sum(-1).reshape(g, s, K)
+    keep = pos < cap
+    return top_p, top_e, keep, pos, cap, aux
+
+
+def moe_mlp(x, p, cfg, *, group_size: int = 2048):
+    """x: (B, S, D) -> (B, S, D); returns (out, aux_loss)."""
+    B, S, D = x.shape
+    K, Ep = cfg.top_k, cfg.n_experts + cfg.expert_pad
+    n_tok = B * S
+    g = max(1, n_tok // group_size)
+    s = n_tok // g                                   # tokens per group
+    xg = x.reshape(g, s, D)
+    top_p, top_e, keep, pos, cap, aux = route(xg, p["router"], cfg)
+    gate = top_p * keep.to(top_p.dtype)
+
+    # one-hot factors; a dropped token's slot index is ``cap``, whose
+    # one-hot row is all zeros (padded experts never receive tokens)
+    oh_e = F.one_hot(top_e, Ep).to(x.dtype)                    # (g,s,K,Ep)
+    oh_c = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap] \
+        .to(x.dtype)                                           # (g,s,K,cap)
+    # contract over K without materializing the (g,s,K,E,cap) product
+    disp = torch.matmul(oh_e.transpose(-1, -2), oh_c)          # (g,s,Ep,cap)
+    weighted = oh_e * gate.to(x.dtype)[..., None]
+    comb = torch.matmul(weighted.transpose(-1, -2), oh_c)
+
+    # xe (g, Ep, cap, D): each slot's token
+    xe = torch.matmul(disp.reshape(g, s, Ep * cap).transpose(1, 2), xg)
+    xe = xe.reshape(g, Ep, cap, D).transpose(0, 1)             # (Ep,g,cap,D)
+    xe = xe.reshape(Ep, g * cap, D)
+    h = F.silu(torch.matmul(xe, p["w_gate"])) * torch.matmul(xe, p["w_up"])
+    ye = torch.matmul(h, p["w_down"])                          # (Ep,g*cap,D)
+    ye = ye.reshape(Ep, g, cap, D).transpose(0, 1).reshape(g, Ep * cap, D)
+    out = torch.matmul(comb.reshape(g, s, Ep * cap), ye)       # (g, s, D)
+
+    out = out.reshape(B, S, D)
+    if "shared" in p:
+        out = out + L.mlp(x, p["shared"], "swiglu")
+    return out, aux
+
+
+def init_params(cfg, seed: int, device=None):
+    gen = L.generator(seed, device)
+    dev, dtype, D, n = gen.device, cfg.pdtype, cfg.d_model, cfg.n_layers
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    makers = dict(
+        embedding=lambda: L.init_embedding(gen, cfg.vocab, D, dtype),
+        blocks=lambda: L.draw_sorted(
+            attn=lambda: L.stack_layers(lambda: L.init_attention(gen, cfg),
+                                        (n,)),
+            moe=lambda: L.stack_layers(lambda: init_moe_mlp(gen, cfg), (n,)),
+            ln_attn=lambda: zeros(n, D),
+            ln_mlp=lambda: zeros(n, D)),
+        ln_final=lambda: zeros(D),
+    )
+    if not cfg.tie_embeddings:
+        makers["lm_head"] = lambda: L.init_embedding(gen, cfg.vocab, D, dtype)
+    return L.draw_sorted(**makers)
+
+
+def _moe_block(x, blk, cfg, positions, kv=None):
+    h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
+    x = x + L.attention(h, blk["attn"], cfg, positions, causal=True,
+                        kv_override=kv)
+    h = L.rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
+    out, aux = moe_mlp(h, blk["moe"], cfg)
+    return x + out, aux
+
+
+def trunk(params, x, cfg, positions):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, blk, _ in T.layers(params, cfg):         # windows all 0
+        x, a = _moe_block(x, blk, cfg, positions)
+        aux = aux + a
+    return L.rms_norm(x, params["ln_final"], cfg.norm_eps), aux / cfg.n_layers
+
+
+def forward_hidden(params, batch, cfg):
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = L.embed(tokens, params["embedding"])
+    return trunk(params, x, cfg, positions)
+
+
+def logits_fn(params, batch, cfg):
+    h, _aux = forward_hidden(params, batch, cfg)
+    return L.unembed(h, T._lm_matrix(params))
+
+
+def loss(params, batch, cfg, *, loss_chunk: int = 512):
+    h, aux = forward_hidden(params, batch, cfg)
+    ce = L.chunked_lm_loss(h, batch["labels"], T._lm_matrix(params),
+                           loss_chunk=loss_chunk)
+    return ce + cfg.router_aux_coef * aux
+
+
+# ---------------------------------------------------------------------------
+# decode path (same attention cache as dense; MoE ffn on 1-token groups)
+# ---------------------------------------------------------------------------
+
+init_cache = T.init_cache
+
+
+def prefill(params, batch, cfg, cache):
+    """Fill the cache in place for tokens (B, S); return (last logits,
+    cache)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = L.embed(tokens, params["embedding"])
+    for i, blk, _ in T.layers(params, cfg):
+        h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
+        _, k, v = L._qkv(h, blk["attn"], cfg, positions)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+        x, _ = _moe_block(x, blk, cfg, positions, kv=(k, v, positions))
+    h = L.rms_norm(x, params["ln_final"], cfg.norm_eps)
+    logits = L.unembed(h[:, -1:], T._lm_matrix(params))
+    return logits[:, 0], cache
+
+
+def decode_step(params, cache, token, pos, cfg):
+    """One token per row; the MoE ffn routes the B tokens as one group."""
+    B = token.shape[0]
+    x = L.embed(token, params["embedding"])
+    for i, blk, _ in T.layers(params, cfg):
+        h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
+        x = x + T.decode_attn(h, blk, cfg, cache, i, pos)
+        h2 = L.rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
+        out, _aux = moe_mlp(h2, blk["moe"], cfg, group_size=B)
+        x = x + out
+    h = L.rms_norm(x, params["ln_final"], cfg.norm_eps)
+    logits = L.unembed(h, T._lm_matrix(params))
+    return logits[:, 0], cache
+
+
+register_family(
+    Family(
+        name="moe",
+        init_params=init_params,
+        forward=logits_fn,
+        loss=loss,
+        init_cache=init_cache,
+        prefill=prefill,
+        decode_step=decode_step,
+    )
+)

@@ -269,6 +269,45 @@ def test_flash_decode_kernel_matches_plain_on_card(cuda, case, dtype):
     assert torch.equal(got, again)
 
 
+# (B, S, H, Hkv, Dh, window, softcap, pos range): the zoo's decode shapes
+# (gemma2-2b's local and global layers past its 4096 window, phi-3-vision
+# at Dh 96, GQA 3 of llama3.2-3b and smollm-360m, deepseek's 56/8, the
+# MoE models, Whisper's self- and cross-attention at pos = F - 1), then
+# Dh 96 at every heads-per-block count with a window, softcap and pos 0.
+# q is not scaled here, so the softcap cases run in bf16 as well.
+ZOO_FLASH_CASES = [(4, 4640, 8, 4, 256, 4096, 50.0, (4200, 4640)),
+                   (4, 4640, 8, 4, 256, 0, 50.0, (4200, 4640)),
+                   (8, 2064, 32, 32, 96, 0, 0.0, (1800, 2064)),
+                   (8, 2064, 24, 8, 128, 0, 0.0, (1800, 2064)),
+                   (8, 2064, 15, 5, 64, 0, 0.0, (1800, 2064)),
+                   (1, 520, 56, 8, 128, 0, 0.0, (500, 520)),
+                   (8, 2064, 16, 16, 128, 0, 0.0, (1800, 2064)),
+                   (8, 464, 20, 20, 64, 0, 0.0, (400, 464)),
+                   (8, 1500, 20, 20, 64, 0, 0.0, (1499, 1500)),
+                   (2, 300, 8, 1, 96, 50, 0.0, (0, 300)),
+                   (3, 131, 6, 2, 96, 0, 0.0, (0, 131)),
+                   (2, 256, 8, 4, 96, 0, 50.0, (100, 256)),
+                   (2, 70, 4, 4, 96, 0, 0.0, (0, 1))]
+
+
+@pytest.mark.parametrize(
+    "case,dtype", [(c, d) for c in ZOO_FLASH_CASES
+                   for d in (torch.float32, torch.bfloat16)], ids=str)
+def test_flash_decode_kernel_matches_plain_at_zoo_shapes(cuda, case, dtype):
+    """As above (1e-5 in f32, 2e-2 in bf16), with q unscaled."""
+    from repro_torch.kernels.flash_attn import flash_attn, ops, ref
+    q, k, v, pos = _flash_inputs(case[:6] + (0.0, case[7]), dtype, cuda)
+    kw = dict(window=case[5], softcap=case[6])
+    n0 = flash_attn.launches()
+    got = ops.flash_decode(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    assert flash_attn.launches() == n0 + 1
+    want = ref.flash_decode_ref(q, k, v, pos, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, ops.flash_decode(q, k, v, pos, **kw))
+
+
 def test_cuda_kernels_refuse_wrong_inputs_on_card(cuda):
     from repro_torch.kernels.flash_attn import flash_attn
     from repro_torch.kernels.ssd_scan import ssd_scan

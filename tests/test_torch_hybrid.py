@@ -1,8 +1,9 @@
 """The port's hybrid (zamba2) serving path on the CPU against the JAX
 package: the layers it runs, the Mamba2 block, and the slice as a whole
-(prefill, cache, decode steps, ``logits_fn``) on a reduced zamba2 config
-with the JAX params carried across.  Also the config registry, the token
-pipeline (bit for bit) and the param converter.
+(prefill, cache, decode steps, ``logits_fn``, ``loss``) on a reduced
+zamba2 config with the JAX params carried across.  Also the config and
+family registries of the whole zoo, the token pipeline (bit for bit) and
+the param converter.
 
 Inputs are made with numpy from a seed.  Tolerances: 1e-5 for the single
 layers, 1e-4 for the Mamba2 block and the whole model (f32 sums over the
@@ -12,6 +13,8 @@ and eager execution (checked below), so unlike the DP engine's parity
 tests it runs in this process, with no XLA flag.
 """
 import dataclasses
+import importlib
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as r_configs
 from repro.configs import get_config as r_get_config
 from repro.data import tokens as r_tokens
 from repro.models import base as r_base
@@ -26,6 +30,7 @@ from repro.models import hybrid as r_hybrid
 from repro.models import layers as r_layers
 from repro.models import mamba2 as r_mamba2
 
+from repro_torch import configs as t_configs
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.data import tokens as t_tokens
 from repro_torch.models import base as t_base
@@ -355,21 +360,58 @@ def test_configs_match_jax():
         == {k: dataclasses.asdict(v) for k, v in r_base.INPUT_SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "xlstm-350m", "llama3.2-3b"])
-def test_unported_architectures_raise(arch):
-    assert r_get_config(arch) is not None
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
-        t_get_config(arch)
+@pytest.mark.parametrize("module", sorted(
+    p.stem for p in pathlib.Path(r_configs.__file__).parent.glob("*.py")
+    if p.stem != "__init__"))
+def test_every_config_matches_jax(module):
+    """Each of the JAX package's ten config modules and the port's: the
+    config and its ``reduced()`` (and gemma2's long variant) field for
+    field; the registry resolves every id of the JAX package's."""
+    r_mod = importlib.import_module(f"repro.configs.{module}")
+    t_mod = importlib.import_module(f"repro_torch.configs.{module}")
+    for name in ("CONFIG", "CONFIG_LONG"):
+        if not hasattr(r_mod, name):
+            assert not hasattr(t_mod, name)
+            continue
+        r_cfg, t_cfg = getattr(r_mod, name), getattr(t_mod, name)
+        assert dataclasses.asdict(t_cfg) == dataclasses.asdict(r_cfg)
+        if hasattr(r_cfg, "reduced"):
+            assert dataclasses.asdict(t_cfg.reduced()) == \
+                dataclasses.asdict(r_cfg.reduced())
+    assert t_configs.ARCH_IDS == r_configs.ARCH_IDS
+    assert t_configs.LONG_CONTEXT_ARCHS == r_configs.LONG_CONTEXT_ARCHS
+    for arch in r_configs.ARCH_IDS:
+        for long in (False, True):
+            assert dataclasses.asdict(t_get_config(arch, long)) == \
+                dataclasses.asdict(r_get_config(arch, long))
 
 
 def test_family_registry():
-    fam = t_base.get_family("hybrid")
-    assert fam.prefill is t_hybrid.prefill
-    assert fam.forward is t_hybrid.logits_fn
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
-        t_base.get_family("dense")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fam.loss(None, None, None)
+    """Every family of the JAX package resolves, with the functions of
+    its module; an unknown name raises."""
+    from repro_torch.models import moe, transformer, vlm, whisper, xlstm
+    modules = {"dense": transformer, "moe": moe, "hybrid": t_hybrid,
+               "ssm": xlstm, "audio": whisper, "vlm": vlm}
+    for name, mod in modules.items():
+        fam = t_base.get_family(name)
+        assert fam.name == name == r_base.get_family(name).name
+        assert fam.prefill is mod.prefill
+        assert fam.forward is mod.logits_fn
+        assert fam.loss is mod.loss
+    with pytest.raises(KeyError, match="unknown model family"):
+        t_base.get_family("rnn")
+
+
+def test_hybrid_loss_matches_jax(serve_run):
+    """The hybrid family's chunked CE loss (its value), on the serve run's
+    params and prompt."""
+    r_cfg, rp, toks = serve_run["r_cfg"], serve_run["rp"], serve_run["toks"]
+    _, t_cfg = _cfgs(attn_every=2)
+    batch = {"tokens": toks[:, :S], "labels": toks[:, 1:S + 1]}
+    want = r_hybrid.loss(rp, {k: _r(v) for k, v in batch.items()}, r_cfg)
+    got = t_hybrid.loss(convert.params_from_numpy(_np_tree(rp)),
+                        {k: _t(v) for k, v in batch.items()}, t_cfg)
+    _close(got, want, 1e-4)
 
 
 @pytest.mark.parametrize("cfg_kw", [dict(vocab=32000, seq_len=64, seed=0),

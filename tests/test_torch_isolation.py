@@ -44,7 +44,12 @@ def test_port_has_the_slice_modules():
               "repro_torch.engine.statestore", "repro_torch.api.spec",
               "repro_torch.api.session", "repro_torch.analysis.guard",
               "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
-              "repro_torch.engine.resilience"):
+              "repro_torch.engine.resilience",
+              "repro_torch.models.transformer", "repro_torch.models.moe",
+              "repro_torch.models.xlstm", "repro_torch.models.whisper",
+              "repro_torch.models.vlm", "repro_torch.configs.gemma2_2b",
+              "repro_torch.configs.phi3_vision_4_2b",
+              "repro_torch.configs.ser_cnn"):
         assert m in mods
 
 

@@ -149,6 +149,33 @@ def test_flash_decode_plain_matches_jax_f32(B, S, H, Hkv, Dh, window,
                                atol=1e-5)
 
 
+# (B, S, H, Hkv, Dh, window, pos, ts): the zoo's decode shapes the Pallas
+# tests do not reach: Dh 96 (phi-3-vision), GQA 3 (llama3.2-3b 24/8,
+# smollm-360m 15/5) and Whisper's cross-attention over 1500 frames at
+# pos = 1499 (the Pallas tile must divide S)
+ZOO_FLASH_SHAPES = [(2, 256, 8, 8, 96, 0, None, 128),
+                    (2, 384, 8, 2, 96, 100, None, 128),
+                    (2, 256, 6, 2, 64, 0, None, 128),
+                    (2, 256, 15, 5, 64, 0, None, 128),
+                    (2, 1500, 4, 4, 64, 0, [1499, 1499], 500)]
+
+
+@pytest.mark.parametrize("against", ["pallas_interpret", "jnp_oracle"])
+@pytest.mark.parametrize("B,S,H,Hkv,Dh,window,pos,ts", ZOO_FLASH_SHAPES,
+                         ids=str)
+def test_flash_decode_plain_matches_jax_at_zoo_shapes(B, S, H, Hkv, Dh,
+                                                      window, pos, ts,
+                                                      against):
+    q, k, v, pos = _flash_inputs(B, S, H, Hkv, Dh, seed=13, pos=pos)
+    args = [jnp.asarray(a) for a in (q, k, v, pos)]
+    want = (r_flash(*args, window=window, ts=ts)
+            if against == "pallas_interpret"
+            else r_flash_ref(*args, window=window))
+    got = t_flash_ops.flash_decode(*_t(q, k, v, pos), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_flash_decode_plain_softcap_matches_jax():
     q, k, v, _ = _flash_inputs(2, 128, 4, 4, 64, seed=7)
     q = q * 4
