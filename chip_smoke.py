@@ -87,7 +87,28 @@ package ``repro``) and fails with a non-zero exit on the first problem:
 18. [serve-zoo-small] each family's reduced config on the card against
     the CPU plain route, same weights;
 19. [serve-zoo-rerun] gemma2-2b at full width again: bit-identical
-    logits and tokens.
+    logits and tokens;
+20. [train-zoo] ``launch/train.py spmd`` (the production round,
+    ``core/fl_step.py``) at full width and depth, 3 rounds and a
+    bit-identical rerun each: zamba2-1.2b (bf16 clients, f32 master,
+    FedAdam; G = 2, n_micro = 2, per_micro = 2, seq 256) with
+    ``ssd_intra_chunk`` launched once per Mamba2 layer per microbatch
+    forward, and smollm-360m at the launcher's defaults; per round the
+    params move and stay finite and delta_norm > 0; the wall per round and
+    peak memory, and the device idle share of one profiled rerun round;
+    zamba2's one-microbatch gradient through the kernel's
+    ``autograd.Function`` against the plain route (per-leaf relative L2
+    within 1e-2 on the SSD block in bf16 and on the whole model in f32;
+    in bf16 the kernel route's distance from the f32 gradient within 1.5x
+    the plain route's), and the SSD block's plain backward timed against
+    the kernel forward at the training shape;
+21. [train-zoo-small] each reduced config (f32): one round on the card
+    and on the CPU plain route with the same injected noise, params and
+    delta_norm within 1e-4;
+22. [axes] [main]'s FedAsync with ``dp_path="jnp"`` under each
+    client-axis executor: "map" bit-identical to "unroll", "vmap" within
+    1e-5, "fl_step" with a coherent ``fl_cfg``; bookkeeping equal; member
+    local steps/s of each.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1936,6 +1957,11 @@ def _profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return (wall,) + _device_time(prof)
+
+
+def _device_time(prof):
+    """A finished profile's device kernel time -> (s, top 10 by name)."""
     dev_us, by_name = 0.0, {}
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -1947,7 +1973,7 @@ def _profile(fn):
             dev_us += t
             by_name[e.key] = (t, e.count)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    return wall, dev_us / 1e6, top
+    return dev_us / 1e6, top
 
 
 def phase_serve_breakdown(params, cfg, tokens, smi):
@@ -2149,6 +2175,442 @@ def phase_serve_zoo_small(dev):
             f"launches")
 
 
+# ---------------------------------------------------------------------------
+# training: the production round (launch/train.py spmd) at full width, every
+# zoo family's reduced round card vs CPU, and the engine's executors
+# ---------------------------------------------------------------------------
+
+# (arch, spmd flags): zamba2-1.2b at a sequence of 2 SSM chunks, smollm-360m
+# at the launcher's defaults; 3 rounds each (only the rounds are cut)
+TRAIN_ZOO = {
+    "zamba2-1.2b": ["--data-axis", "2", "--n-micro", "2", "--per-micro", "2",
+                    "--seq", "256"],
+    "smollm-360m": [],
+}
+TRAIN_ROUNDS = 3
+TRAIN_GRAD_RTOL = 1e-2          # relative L2 per leaf or input
+# bf16 whole model: the kernel route's gradient no farther from the f32
+# gradient than this many times the plain route's bf16 gradient is
+TRAIN_BF16_RATIO = 1.5
+
+
+def _spmd_args(arch, flags):
+    from repro_torch.launch import train
+    return train.build_parser().parse_args(
+        ["spmd", "--arch", arch, "--steps", str(TRAIN_ROUNDS), "--sigma",
+         "0.02", "--clip", "10"] + flags)
+
+
+def _train_spmd_once(arch, flags, smi, profile_round=None):
+    """One ``run_spmd`` with the ``ssd_intra_chunk`` counter set to 0 just
+    before it: per round the params move and stay finite, delta_norm > 0,
+    the launches since the last round; the wall per round.  Round
+    ``profile_round`` (one without a loss eval) runs under the profiler:
+    its wall, device kernel time and idle share go to ``state["profile"]``.
+    Returns the final master on the CPU, the launches and the walls."""
+    import torch
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import train
+    from repro_torch.pytree import tree_leaves
+    args = _spmd_args(arch, flags)
+    state = {"prev": None, "launches": [], "walls": [], "norms": []}
+
+    def on_round(i, master, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if i == profile_round:
+            state["prof"].stop()
+            dev_s, top = _device_time(state.pop("prof"))
+            wall_i = now - state["t"]
+            state["profile"] = (wall_i, dev_s, max(0.0, 1 - dev_s / wall_i),
+                                top)
+        state["walls"].append(now - state["t"])
+        state["launches"].append(ssd_scan.launches() - state["n"])
+        leaves = tree_leaves(master)
+        for leaf in leaves:
+            require(bool(torch.isfinite(leaf).all()),
+                    f"[train-zoo] {arch} round {i}: nonfinite params")
+        if state["prev"] is not None:
+            moved = max(float((a - b).abs().max())
+                        for a, b in zip(leaves, state["prev"]))
+            require(moved > 0, f"[train-zoo] {arch} round {i}: no move")
+        dn = float(metrics["delta_norm"])
+        require(dn > 0, f"[train-zoo] {arch} round {i}: delta_norm {dn}")
+        state["norms"].append(dn)
+        state["prev"] = [l.clone() for l in leaves]
+        state["n"] = ssd_scan.launches()
+        if profile_round is not None and i == profile_round - 1:
+            # device activity only: the CPU ops of a round's autograd
+            # would cost the profile more than the round itself
+            state["prof"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA])
+            state["prof"].start()
+        state["t"] = time.perf_counter()
+
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.reset_launches()
+    flash_attn.reset_launches()
+    t0 = time.perf_counter()
+    # the first round's wall also holds the init and one loss evaluation
+    state["prev"] = None
+    state["n"], state["t"] = 0, t0
+    master = train.run_spmd(args, on_round=on_round)
+    torch.cuda.synchronize()
+    total = ssd_scan.launches()
+    require(flash_attn.launches() == 0, f"[train-zoo] {arch}: flash_decode "
+            "launched in training")
+    peak = torch.cuda.max_memory_allocated()
+    out = [l.cpu() for l in tree_leaves(master)]
+    del master, state["prev"]
+    _free_card()
+    return out, total, state, peak, time.perf_counter() - t0, args
+
+
+def _rel_l2(a, b):
+    """||a - b|| / ||b|| in f32 (||a|| where b is 0)."""
+    import torch
+    den = float(torch.linalg.vector_norm(b.float()))
+    num = float(torch.linalg.vector_norm(a.float() - b.float()))
+    return num / den if den else num
+
+
+def _ssd_grad_check(args, dev, smi):
+    """zamba2's gradient through the CUDA route's autograd.Function
+    against the same gradient with the plain ``ssd_intra_chunk_ref`` in
+    the kernel's place (per-leaf relative L2):
+
+    1. the SSD block alone at the training shape, bf16: each input's
+       gradient within TRAIN_GRAD_RTOL;
+    2. the whole model, one microbatch (per_micro x seq tokens), f32 (the
+       f32 kernel ``ssd_intra.cu``): every leaf within TRAIN_GRAD_RTOL;
+    3. the whole model in bf16: the loss values within TRAIN_GRAD_RTOL,
+       and per leaf the kernel route's gradient no farther from the f32
+       gradient than TRAIN_BF16_RATIO times the plain route's bf16
+       gradient is.  bf16 rounding alone moves this randomly initialised
+       38-layer model's gradient by more than half its norm, in the JAX
+       package as in the port (``tests/_torch_bf16_sensitivity.py`` on
+       the CPU), so two bf16 routes cannot agree to 1e-2 whatever the
+       kernel; 1 and 2 hold the kernel's backward and forward at 1e-2."""
+    import torch
+    from repro_torch.core.fl_step import loss_grad
+    from repro_torch.data.tokens import TokenDataConfig, make_batches
+    from repro_torch.kernels.ssd_scan import ops, ref, ssd_scan
+    from repro_torch.launch import train
+    from repro_torch.models import mamba2
+    from repro_torch.models.base import get_family
+    from repro_torch.pytree import tree_leaves, tree_map, tree_paths
+    cfg = train.spmd_config(args)
+    fam = get_family(cfg.family)
+    n0 = ssd_scan.launches()
+    # 1. the block
+    shape = (args.per_micro, args.seq // cfg.ssm_chunk, cfg.ssm_chunk,
+             mamba2.n_heads_ssm(cfg), cfg.ssm_head_dim, cfg.ssm_state)
+    xs = _ssd_inputs(shape, cfg.pdtype, dev)
+    dY = torch.randn(shape[:3] + shape[3:5], device=dev).to(cfg.pdtype)
+    ts = [t.clone().requires_grad_() for t in xs]
+    g_fn = torch.autograd.grad(ops.SSDIntraChunk.apply(*ts), ts, dY)
+    us = [t.clone().requires_grad_() for t in xs]
+    g_ref = torch.autograd.grad(
+        ref.ssd_intra_chunk_ref(*us).to(cfg.pdtype), us, dY)
+    block = {n: _rel_l2(a, b) for n, a, b in zip(("x", "a", "B", "C"),
+                                                  g_fn, g_ref)}
+    for n, r in block.items():
+        require(r <= TRAIN_GRAD_RTOL, f"[train-zoo] SSD block d{n}: "
+                f"relative L2 {r:.3e} > {TRAIN_GRAD_RTOL}")
+    # 2. and 3. the whole model
+    batch = next(make_batches(TokenDataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, seed=args.seed), 1,
+        args.per_micro))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    real = mamba2.ssd_ops.ssd_intra_chunk
+
+    def plain(xr, ar, Br, Cr):
+        return ref.ssd_intra_chunk_ref(xr, ar, Br, Cr).to(xr.dtype)
+
+    def run(params, c, use_plain):
+        def loss(p, b):
+            return fam.loss(p, b, c)
+        mamba2.ssd_ops.ssd_intra_chunk = plain if use_plain else real
+        try:
+            with torch.no_grad():
+                value = float(loss(params, batch))
+            g = [l.float() for l in tree_leaves(loss_grad(loss, params,
+                                                          batch))]
+        finally:
+            mamba2.ssd_ops.ssd_intra_chunk = real
+        return value, g
+
+    p16 = fam.init_params(cfg, seed=args.seed, device=dev)
+    paths = ["/".join(map(str, p)) for p in tree_paths(p16)]
+    p32 = tree_map(lambda l: l.float(), p16)
+    c32 = cfg.replace(param_dtype="float32")
+    _, k32 = run(p32, c32, False)
+    _, r32 = run(p32, c32, True)
+    f32 = [_rel_l2(a, b) for a, b in zip(k32, r32)]
+    del k32, p32
+    v16k, k16 = run(p16, cfg, False)
+    v16r, r16 = run(p16, cfg, True)
+    n_kernel = ssd_scan.launches() - n0
+    bf = [(_rel_l2(a, b), _rel_l2(b, c), _rel_l2(a, c))
+          for a, b, c in zip(k16, r16, r32)]
+    del k16, r16, r32, p16
+    _free_card()
+    for path, r in zip(paths, f32):
+        require(r <= TRAIN_GRAD_RTOL, f"[train-zoo] f32 grad {path}: "
+                f"relative L2 {r:.3e} > {TRAIN_GRAD_RTOL}")
+    require(abs(v16k - v16r) <= TRAIN_GRAD_RTOL * abs(v16r),
+            f"[train-zoo] bf16 loss {v16k} vs {v16r}")
+    for path, (_, plain16, kernel16) in zip(paths, bf):
+        require(kernel16 <= TRAIN_BF16_RATIO * plain16,
+                f"[train-zoo] bf16 grad {path}: kernel route {kernel16:.3e} "
+                f"from the f32 gradient, > {TRAIN_BF16_RATIO} x the plain "
+                f"route's {plain16:.3e}")
+    require(n_kernel == 4 * cfg.n_layers + 1, f"[train-zoo] grad check: "
+            f"{n_kernel} kernel launches, expected 4 x {cfg.n_layers} + 1")
+    worst32 = max(zip(f32, paths))
+    log(f"[train-zoo] {smi}; zamba2-1.2b gradients through the "
+        f"autograd.Function vs through ssd_intra_chunk_ref: SSD block at "
+        f"{shape} {cfg.param_dtype}, relative L2 "
+        f"{ {n: float(f'{r:.3e}') for n, r in block.items()} }; whole "
+        f"model, one microbatch ({args.per_micro} x {args.seq} tokens), "
+        f"f32: worst leaf {worst32[0]:.3e} ({worst32[1]}) of "
+        f"{len(paths)}, tolerance {TRAIN_GRAD_RTOL}; bf16: loss "
+        f"{v16k:.6f} vs {v16r:.6f}")
+    log(f"[train-zoo] bf16 whole-model gradients, per-leaf relative L2 "
+        f"(kernel vs plain | plain bf16 vs f32 | kernel bf16 vs f32; "
+        f"bound: the last <= {TRAIN_BF16_RATIO} x the middle): "
+        + "; ".join(
+            f"{path} {a:.3f} | {b:.3f} | {c:.3f}"
+            for path, (a, b, c) in zip(paths, bf)))
+
+
+def _ssd_backward_times(args, dev, smi):
+    """``ssd_intra_chunk`` at zamba2's training shape (b = per_micro,
+    c = seq / chunk): kernel forward, plain forward and the plain
+    closed-form backward, device ms each."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ref, ssd_scan
+    from repro_torch.launch import train
+    from repro_torch.models import mamba2
+    cfg = train.spmd_config(args)
+    shape = (args.per_micro, args.seq // cfg.ssm_chunk, cfg.ssm_chunk,
+             mamba2.n_heads_ssm(cfg), cfg.ssm_head_dim, cfg.ssm_state)
+    xr, ar, Br, Cr = _ssd_inputs(shape, torch.bfloat16, dev)
+    dY = torch.randn_like(xr)
+    n0 = ssd_scan.launches()
+    t = _in_turns({
+        "forward": lambda: ssd_scan.ssd_intra_chunk(xr, ar, Br, Cr),
+        "plain": lambda: ref.ssd_intra_chunk_ref(xr, ar, Br, Cr),
+        "backward": lambda: ref.ssd_intra_chunk_bwd_ref(xr, ar, Br, Cr, dY)})
+    ssd_scan.ssd_intra_launches = n0       # timing calls are not the path's
+    log(f"[train-zoo] {smi}; ssd_intra_chunk at the training shape {shape} "
+        f"bf16: kernel forward {t['forward']:.4f} ms, plain forward "
+        f"{t['plain']:.4f} ms, plain backward (ssd_intra_chunk_bwd_ref) "
+        f"{t['backward']:.4f} ms = {t['backward'] / t['forward']:.1f} x the "
+        f"kernel forward")
+    return t
+
+
+def phase_train_zoo(dev, smi):
+    """``launch/train.py spmd`` at full width and depth: zamba2-1.2b (bf16,
+    ssd_intra_chunk in every Mamba2 layer's forward) and smollm-360m, 3
+    rounds each, then a bit-identical rerun; zamba2's gradient through
+    the kernel against the plain route.  Returns the ssd_intra_chunk
+    launches of the first runs and the backward times."""
+    import torch
+    from repro_torch.launch import train
+    launches, times = 0, None
+    for arch, flags in TRAIN_ZOO.items():
+        first, total, st, peak, wall, args = _train_spmd_once(arch, flags,
+                                                              smi)
+        cfg = train.spmd_config(args)
+        G, nm = args.data_axis, args.n_micro
+        per_round = (cfg.n_layers * G * args.n_local * nm
+                     if cfg.family == "hybrid" else 0)
+        evals = len(range(0, TRAIN_ROUNDS, args.log_every)) + 1
+        per_eval = cfg.n_layers if cfg.family == "hybrid" else 0
+        want = [per_round] * TRAIN_ROUNDS
+        want[0] += per_eval            # round 0 starts with a loss log
+        require(st["launches"] == want, f"[train-zoo] {arch}: "
+                f"ssd_intra_chunk per round {st['launches']}, expected "
+                f"{want} (38 layers x G x n_local x n_micro, no recompute)")
+        require(total == TRAIN_ROUNDS * per_round + evals * per_eval,
+                f"[train-zoo] {arch}: {total} launches in all")
+        again, _, st2, _, _, _ = _train_spmd_once(arch, flags, smi,
+                                                  profile_round=1)
+        pw, pd, idle, top = st2["profile"]
+        # the same round unprofiled, in the first run (bit-identical work)
+        idle_plain = max(0.0, 1 - pd / st["walls"][1])
+        for a, b in zip(first, again):
+            require(torch.equal(a, b), f"[train-zoo] {arch}: rerun master "
+                    "differs")
+        require(st["norms"] == st2["norms"], f"[train-zoo] {arch}: rerun "
+                "delta norms differ")
+        launches += total
+        tokens = G * args.n_local * nm * args.per_micro * args.seq
+        log(f"[train-zoo] {smi}; {arch}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {sum(a.numel() for a in first) / 1e9:.4f} B "
+            f"params (f32 master, {cfg.param_dtype} clients), G={G} "
+            f"n_micro={nm} per_micro={args.per_micro} seq {args.seq}: wall "
+            f"per round {[round(w, 3) for w in st['walls']]} s (round 0 "
+            f"with init and a loss eval) and rerun "
+            f"{[round(w, 3) for w in st2['walls']]} (round 1 profiled: "
+            f"{pw * 1e3:.1f} ms wall, {pd * 1e3:.1f} ms of device kernels "
+            f"-> device idle share {idle:.3f}, {idle_plain:.3f} against "
+            f"the first run's round 1); {tokens} tokens per "
+            f"round; peak memory {peak / 2**30:.2f} GiB; delta_norm "
+            f"{[round(n, 4) for n in st['norms']]}; ssd_intra_chunk "
+            f"launches per round {st['launches']} ({total} with the loss "
+            f"evals); rerun bit-identical; run wall {wall:.1f} s; the "
+            f"profiled round's top device kernels (ms, launches): "
+            + "; ".join(f"{name[:70]} {t / 1e3:.1f} ({n})"
+                        for name, (t, n) in top[:6]))
+        if arch == "zamba2-1.2b":
+            _ssd_grad_check(args, dev, smi)
+            times = _ssd_backward_times(args, dev, smi)
+        del first, again
+    return launches, times
+
+
+def _small_batch(cfg, b, seq, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, size=(b, seq + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :seq], "labels": toks[:, 1:]}
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (b, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _small_noise(client, step, leaf, shape):
+    import numpy as np
+    return np.random.default_rng([client, step, leaf]).standard_normal(
+        shape).astype(np.float32)
+
+
+def phase_train_zoo_small(dev):
+    """Each reduced config (f32): one round on the card and on the CPU
+    plain route from the same params, batch and injected noise;
+    per-microbatch DP, 2 clients x 2 microbatches, SGD at lr 1 on the
+    server (so the params hold the aggregated delta: Adam's first step
+    would turn ~1e-7 differences into +-lr).  Params and delta_norm within
+    1e-4; zamba2 runs ssd_intra.cu (f32) under autograd."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.core.dp import DPConfig
+    from repro_torch.core.fl_step import (
+        FLStepConfig, make_fl_train_step, make_server_optimizer)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import convert
+    from repro_torch.models.base import get_family
+    from repro_torch.pytree import tree_leaves
+    G, NM, SEQ = 2, 2, 32
+    fl = FLStepConfig(num_clients=G, n_micro=NM, local_lr=0.05,
+                      server_lr=1.0, server_opt="sgd",
+                      compute_dtype="float32",
+                      dp=DPConfig(1.0, 0.5, "per_microbatch"))
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced().replace(param_dtype="float32")
+        fam = get_family(cfg.family)
+        step = make_fl_train_step(lambda p, b: fam.loss(p, b, cfg), fl)
+        p_cpu = fam.init_params(cfg, seed=0, device="cpu")
+        batch = _small_batch(cfg, G * NM, SEQ, 1)
+        out = {}
+        for where in ("cpu", dev):
+            p = convert.params_from_numpy(convert.params_to_numpy(p_cpu),
+                                          where)
+            b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+            n0 = ssd_scan.launches()
+            m, _, met = step(p, make_server_optimizer(fl).init(p), b,
+                             torch.ones(G, device=where) / G, _small_noise)
+            out[str(where)] = ([l.cpu() for l in tree_leaves(m)],
+                               float(met["delta_norm"]),
+                               ssd_scan.launches() - n0)
+        (mc, nc, lc), (mg, ng, lg) = out["cpu"], out[str(dev)]
+        d = max(float((a - b).abs().max()) for a, b in zip(mc, mg))
+        moved = max(float((a.cpu() - b).abs().max()) for a, b in
+                    zip(tree_leaves(p_cpu), mc))
+        want = cfg.n_layers * G * NM if cfg.family == "hybrid" else 0
+        require(d <= 1e-4, f"[train-zoo-small] {arch}: params differ by {d}")
+        require(abs(ng - nc) <= 1e-4 * nc, f"[train-zoo-small] {arch}: "
+                f"delta_norm {ng} vs {nc}")
+        require(moved > 1e-3 and np.isfinite(ng), f"[train-zoo-small] "
+                f"{arch}: the round did not move the params")
+        require(lg == want and lc == 0, f"[train-zoo-small] {arch}: "
+                f"ssd_intra_chunk launches card {lg} CPU {lc}, want {want}")
+        log(f"[train-zoo-small] reduced {arch} (f32): card vs CPU plain "
+            f"route, one round: max |dparam| {d:.3e}, delta_norm {ng:.6f} "
+            f"vs {nc:.6f} (tolerance 1e-4), ssd_intra_chunk launches {lg}")
+
+
+AXES_FL = dict(num_clients=1, n_micro=4, local_lr=0.02)
+
+
+def phase_axes(smi):
+    """[main]'s full-width FedAsync (40 updates) with dp_path="jnp" under
+    each client-axis executor: "map" bit-identical to "unroll", "vmap"
+    within 1e-5 with equal bookkeeping, "fl_step" with a coherent
+    ``fl_cfg`` (per-microbatch, sigma 1) with equal bookkeeping; member
+    local steps/s of each (no claim)."""
+    from repro_torch.core.dp import DPConfig
+    from repro_torch.core.fl_step import FLStepConfig
+    from repro_torch.core.testbed import run_experiment
+    from repro_torch.engine.engine import EngineConfig
+    from repro_torch.kernels.dp_clip import dp_clip
+    import dataclasses
+    cfg = dataclasses.replace(_main_cfg(), dp_path="jnp")
+    s_max = _steps(cfg)
+    fl = FLStepConfig(dp=DPConfig(cfg.clip_norm, cfg.sigma,
+                                  "per_microbatch"), **AXES_FL)
+    runs = {}
+    # warm-up: the corpus and cuDNN's first calls stay out of the walls
+    run_experiment("fedasync", cfg, max_updates=4, eval_every=4,
+                   engine_cfg=EngineConfig(staleness_window=120.0,
+                                           max_cohort=4))
+    dp_clip.reset_launches()
+    for axis in ("unroll", "map", "vmap", "fl_step"):
+        ecfg = EngineConfig(staleness_window=120.0, max_cohort=4,
+                            client_axis=axis,
+                            fl_cfg=fl if axis == "fl_step" else None)
+        t0 = time.perf_counter()
+        p, lg = run_experiment("fedasync", cfg, engine_cfg=ecfg,
+                               **MAIN_ASYNC)
+        runs[axis] = (p, lg, time.perf_counter() - t0)
+        _check_finite(p, f"[axes] {axis}")
+    require(dp_clip.sqnorm_launches == 0, "[axes] dp_clip launched on jnp")
+    base = runs["unroll"][:2]
+    _same_run(base, runs["map"][:2], "[axes] map", stats_drop=())
+    keep = ("times", "server_version", "update_counts", "staleness",
+            "eps_trajectory", "cohort_sizes", "influence", "fault_events")
+    for axis in ("vmap", "fl_step"):
+        for f in keep:
+            require(getattr(base[1], f) == getattr(runs[axis][1], f),
+                    f"[axes] {axis}: RunLog.{f} differs from unroll")
+    d_v = _max_diff(base[0], runs["vmap"][0])
+    require(d_v <= 1e-5, f"[axes] vmap: params differ by {d_v}")
+    d_f = _max_diff(base[0], runs["fl_step"][0])
+    require(d_f > 0, "[axes] fl_step: same params as the simulation")
+    rates = {a: s_max * sum(r[1].cohort_sizes) / r[2] for a, r in runs.items()}
+    log(f"[axes] {smi}; [main]'s fedasync (40 updates, dp_path jnp, "
+        f"cohorts {base[1].cohort_sizes}): map bit-identical to unroll "
+        f"(RunLog, engine stats, params); vmap max |dparam| {d_v:.3e} "
+        f"(tolerance 1e-5), bookkeeping equal; fl_step ({AXES_FL}, "
+        f"per-microbatch sigma {cfg.sigma}) bookkeeping equal, params "
+        f"{d_f:.3e} from the simulation's; acc "
+        f"{ {a: [round(x, 4) for x in r[1].global_acc] for a, r in runs.items()} }")
+    log(f"[axes] {smi}; wall (s) {({a: round(r[2], 3) for a, r in runs.items()})}"
+        f" = member local steps/s "
+        f"{({a: round(v, 2) for a, v in rates.items()})} (each run builds "
+        "its testbed; evals included)")
+
+
 def main():
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     sys.path.insert(0, str(ROOT / "src"))
@@ -2191,6 +2653,19 @@ def main():
     log(f"[serve-zoo] the zoo phases took {time.perf_counter() - t0:.1f} s; "
         f"flash_decode launches: zamba2 {serve_launches['flash_decode']}, "
         f"zoo {zoo_launches}")
+    _free_card()
+    t0 = time.perf_counter()
+    train_launches, _ = phase_train_zoo(dev, smi)
+    t1 = time.perf_counter()
+    launches["ssd_intra_chunk"] += train_launches
+    phase_train_zoo_small(dev)
+    t2 = time.perf_counter()
+    phase_axes(smi)
+    log(f"[train-zoo] phase walls: [train-zoo] {t1 - t0:.1f} s, "
+        f"[train-zoo-small] {t2 - t1:.1f} s, [axes] "
+        f"{time.perf_counter() - t2:.1f} s; ssd_intra_chunk launches: "
+        f"serving {serve_launches['ssd_intra_chunk']}, training "
+        f"{train_launches}")
     from repro_torch.kernels.dp_clip import dp_clip
     from repro_torch.kernels.flash_attn import flash_attn
     from repro_torch.kernels.ssd_scan import ssd_scan

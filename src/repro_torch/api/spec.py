@@ -14,10 +14,9 @@ Specs are frozen value objects that round-trip through plain JSON-able
 dicts (``spec.to_dict()`` / ``ExperimentSpec.from_dict(d)``), over the
 same closed set of tagged types as the reference, so the reference's
 ``ExperimentSpec.to_dict()`` JSON decodes here unchanged and one spec
-runs on both packages.  A spec that carries a feature the port does not
-have yet — a mesh (``__mesh__``), a bounded store, ``pipeline_depth`` > 1,
-another client axis, an ``fl_cfg`` or the host data path — raises at
-decode, naming its ROADMAP.md item.
+runs on both packages.  A spec that carries the one engine feature the
+port does not have yet, a mesh (``__mesh__``), raises at decode, naming
+its ROADMAP.md item.
 
 Validation happens at construction: :class:`StrategySpec` checks its name
 and params against the registry in :mod:`repro_torch.core.aggregation`,

@@ -78,8 +78,9 @@ def run_fedavg(
     datasets (a ``statestore.DataArena``; built for the run when None),
     which a Session uploads once.  ``checkpoint``/``resume_from``
     (cohort engine only) snapshot and resume the run — see
-    :mod:`repro_torch.engine.resilience`; ``mesh`` raises (ROADMAP.md
-    queue 1 item 14)."""
+    :mod:`repro_torch.engine.resilience`; ``engine_cfg`` may pick any
+    client-axis executor (``"fl_step"`` with its ``fl_cfg``); ``mesh``
+    raises (ROADMAP.md queue 1 item 14)."""
     eval_every = _normalize_eval_every(eval_every)
     if engine == "cohort":
         from repro_torch.engine.engine import run_fedavg_engine

@@ -143,8 +143,9 @@ def run_experiment(
     like the reference a shim over the declarative API: the arguments
     become an :class:`repro_torch.api.ExperimentSpec` run by a fresh
     one-run :class:`repro_torch.api.Session`.  ``engine`` is "cohort"
-    (the batched engine) or "legacy" (the per-client loop); ``mesh``
-    raises (ROADMAP.md queue 1 item 14)."""
+    (the batched engine) or "legacy" (the per-client loop); ``engine_cfg``
+    may pick any of the reference's client-axis executors, ``"fl_step"``
+    with its ``fl_cfg``; ``mesh`` raises (ROADMAP.md queue 1 item 14)."""
     from repro_torch.api import ExperimentSpec, Session
     spec = ExperimentSpec.from_legacy(
         strategy_name, cfg, rounds=rounds, max_updates=max_updates,

@@ -17,18 +17,35 @@ Two data paths (``make_cohort_step(arena=...)``):
   the members' params, optimizer states and (K, S_max, B, ...) batches
   itself and the step returns the new stacked optimizer state.
 
-Two executors:
+The reference's four client-axis executors (``client_axis``):
 
-* **step-major fused** (``dp_path="pallas"`` with DP on) — all K members
-  advance one local step together: per-example grads of the K members
-  (``vmap`` over members of ``vmap(grad)`` over examples), ONE
-  ``dp_clip`` call over the stacked (K, B, D) matrix (two Triton launches
-  on the card), batched Adam, then the ``live = step < n_steps`` mask.
-  Like the reference's step-major loop (cohort_step.py:468) every padded
-  step launches, masked ones included.
-* **member-major** (``use_dp=False`` or ``dp_path="jnp"``) — a Python
-  loop over members and their own step counts, one ``dp_mean_gradient``
-  (per-leaf path) or plain mean-loss gradient per step.
+* ``"unroll"`` (default) — a Python loop over members and their own step
+  counts, one ``dp_mean_gradient`` (per-leaf path) or plain mean-loss
+  gradient per step.
+* ``"map"`` — the reference's ``lax.map`` over the member axis.  In
+  PyTorch a map over members is that same Python loop, so ``"map"`` runs
+  the ``"unroll"`` program and is bit-identical to it.
+* ``"vmap"`` — ``torch.func.vmap`` of one member's local round over the
+  member axis, every member padded to S_max steps with the
+  ``live = step < n_steps`` mask (the reference's masked steps).  vmap
+  refuses a generator draw inside the mapped function, so each member's
+  ``z`` is drawn from its own generator before the vmap, once per live
+  step, exactly as ``"unroll"`` draws it.
+* ``"fl_step"`` — the production local round,
+  :func:`repro_torch.core.fl_step.make_local_phase` (per-microbatch DP
+  clipping, one noise draw per leaf per local step from the member's
+  generator, plain ``local_lr`` SGD; the client optimizer state passes
+  through untouched), member by member.  It needs an ``FLStepConfig``
+  (``fl_cfg``), whose ``dp`` carries its noise.
+
+With ``dp_path="pallas"`` and DP on, the **step-major fused** executor
+overrides the member-major ones, as in the reference
+(cohort_step.py:494-499): all K members advance one local step together:
+per-example grads of the K members (``vmap`` over members of
+``vmap(grad)`` over examples), ONE ``dp_clip`` call over the stacked
+(K, B, D) matrix (two Triton launches on the card), batched Adam, then
+the ``live = step < n_steps`` mask.  Like the reference's step-major loop
+(cohort_step.py:468) every padded step launches, masked ones included.
 
 Noise: member k draws its ``z`` (length D, flat leaf order) once per local
 step from its own generator, seeded from its dispatch seed, so the noise
@@ -68,8 +85,7 @@ from repro_torch.pytree import (
 # misses (a warm sigma sweep must not grow it per point)
 _STEP_BUILDS = 0
 
-# the reference's executor set (cohort_step.py:110); the port runs
-# "unroll" and rejects the others by name (EngineConfig)
+# the reference's executor set (cohort_step.py:110)
 CLIENT_AXES = ("unroll", "map", "vmap", "fl_step")
 
 
@@ -140,7 +156,8 @@ def stack_trees(trees):
 
 def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
                      use_dp: bool = True, dp_path: str = "jnp",
-                     add_noise: bool = True, arena: bool = True):
+                     add_noise: bool = True, arena: bool = True,
+                     client_axis: str = "unroll", fl_cfg=None):
     """Build ``(cohort_step, merge_cohort)``.
 
     With ``arena=True``: ``cohort_step(arena_params, arena_opt,
@@ -172,11 +189,25 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
     computes ``g_coeff * g + sum_i coeffs[i] * upload_i`` with
     zero-coefficient members masked out before the reduction, so a
     nonfinite masked payload cannot poison it (0 * NaN = NaN).
+
+    ``client_axis`` picks the executor (module docstring); ``fl_cfg`` (an
+    ``FLStepConfig``) is required by ``"fl_step"`` and ignored by the
+    others.
     """
     global _STEP_BUILDS
     _STEP_BUILDS += 1
     dp_cfg = replace(dp_cfg, noise_multiplier=0.0)
+    validate_client_axis(client_axis)
     validate_dp_path(dp_path)
+    if client_axis == "fl_step" and fl_cfg is None:
+        raise ValueError(
+            "client_axis='fl_step' drives the production local round and "
+            "needs an FLStepConfig (EngineConfig.fl_cfg / fl_cfg=)")
+    if client_axis == "fl_step" and dp_path == "pallas":
+        raise ValueError(
+            "dp_path='pallas' fuses the PER-EXAMPLE clip+noise mechanism "
+            "(paper Eq. 4-6); client_axis='fl_step' runs the per-microbatch "
+            "production mechanism from fl_cfg.dp — use dp_path='jnp' there")
     fused_dp = bool(use_dp and dp_path == "pallas")
 
     def one_step(params, opt_state, batch, gen, noise_stddev):
@@ -192,7 +223,8 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
 
     def run_members(stacked_params, stacked_opt, gens, batches, n_steps,
                     live_steps, noise_stddev):
-        """Member-major executor: member i runs its n_steps[i] steps."""
+        """Member-major executor (``"unroll"`` and ``"map"``): member i
+        runs its n_steps[i] steps."""
         outs_p, outs_o = [], []
         for i in range(len(gens)):
             p, o = unstack_tree(stacked_params, i), unstack_tree(stacked_opt, i)
@@ -233,7 +265,77 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
             o = _tree_where_members(live, o_new, o)
         return p, o
 
-    execute = run_members_fused if fused_dp else run_members
+    def run_members_vmap(stacked_params, stacked_opt, gens, batches,
+                         n_steps, live_steps, noise_stddev):
+        """``torch.func.vmap`` of one member's masked local round; the
+        members' ``z`` are drawn before it (vmap refuses generator draws),
+        one per live step in step order, from each member's generator."""
+        s_max = next(iter(batches.values())).shape[1]
+        noisy = use_dp and add_noise
+        d = tree_size(unstack_tree(stacked_params, 0)) if noisy else 0
+        dev = tree_leaves(stacked_params)[0].device
+        z = torch.zeros((len(gens), s_max, d), dtype=torch.float32,
+                        device=dev)
+        for i, gen in enumerate(gens if noisy else ()):
+            for s in range(int(n_steps[i])):
+                z[i, s] = torch.randn(d, generator=gen, dtype=torch.float32,
+                                      device=dev)
+
+        def member(p, o, member_batches, live_n, member_z):
+            for s in range(s_max):
+                batch = {k: v[s] for k, v in member_batches.items()}
+                if use_dp:
+                    g, _aux = dp_mean_gradient(
+                        loss_fn, p, batch, dp_cfg, dp_path="jnp",
+                        noise_stddev=noise_stddev if noisy else None,
+                        z=member_z[s] if noisy else None)
+                else:
+                    g = grad(lambda q: torch.mean(
+                        vmap(loss_fn, in_dims=(None, 0))(q, batch)))(p)
+                p_new, o_new = opt.update(g, o, p)
+                live = live_n > s
+                p = tree_map(lambda n, q: torch.where(live, n, q), p_new, p)
+                o = tree_map(lambda n, q: torch.where(live, n, q), o_new, o)
+            return p, o
+
+        return vmap(member)(stacked_params, stacked_opt, batches,
+                            live_steps, z)
+
+    if client_axis == "fl_step":
+        from repro_torch.core.fl_step import make_local_phase
+
+        def batch_mean_loss(p, mb):
+            # the engine's loss is per-example; the production local phase
+            # takes a batch-mean loss
+            return torch.mean(vmap(loss_fn, in_dims=(None, 0))(p, mb))
+
+        fl_local = make_local_phase(batch_mean_loss, fl_cfg)
+
+        def to_micro(l):
+            s, b = l.shape[0], l.shape[1]
+            if b % fl_cfg.n_micro:
+                raise ValueError(
+                    f"cohort batch size {b} is not divisible by "
+                    f"fl_cfg.n_micro={fl_cfg.n_micro}")
+            return l.reshape((s, fl_cfg.n_micro, b // fl_cfg.n_micro)
+                             + tuple(l.shape[2:]))
+
+    def run_members_fl(stacked_params, stacked_opt, gens, batches, n_steps,
+                       live_steps, noise_stddev):
+        """The production local round, member by member; the optimizer
+        state passes through untouched."""
+        outs = []
+        for i in range(len(gens)):
+            micro = {k: to_micro(v[i]) for k, v in batches.items()}
+            outs.append(fl_local(unstack_tree(stacked_params, i), micro,
+                                 gens[i], n_steps=int(n_steps[i])))
+        return stack_trees(outs), stacked_opt
+
+    if fused_dp:
+        execute = run_members_fused
+    else:
+        execute = {"vmap": run_members_vmap,
+                   "fl_step": run_members_fl}.get(client_axis, run_members)
 
     def cohort_step_arena(arena_params, arena_opt, arena_data, slots,
                           data_slots, batch_idx, gens, n_steps, noise_stddev,
@@ -305,27 +407,33 @@ def _hashable_loss(loss_fn):
 
 def cached_cohort_step(loss_fn, dp_cfg: DPConfig, opt, use_dp: bool = True,
                        dp_path: str = "jnp", add_noise: bool = True,
-                       arena: bool = True):
+                       arena: bool = True, client_axis: str = "unroll",
+                       fl_cfg=None):
     """Memoized :func:`make_cohort_step`, keyed as the reference keys it
-    (training config, DP path, the static noise on/off, the data path)
-    minus what the port has no counterpart of (shardings, donation,
-    executor choice).
+    (training config, DP path, executor, ``fl_cfg``, the static noise
+    on/off, the data path) minus what the port has no counterpart of
+    (shardings, donation).
     ``dp_cfg.noise_multiplier`` is stripped from the key: the noise scale
-    is a runtime argument, so every sigma of a sweep shares one entry.
-    The cache holds step functions only, never device buffers."""
+    is a runtime argument, so every sigma of a sweep shares one entry
+    (the ``"fl_step"`` executor's noise lives in ``fl_cfg``, which stays
+    in the key).  The cache holds step functions only, never device
+    buffers."""
     dp_cfg = replace(dp_cfg, noise_multiplier=0.0)
-    key = (_hashable_loss(loss_fn), dp_cfg, opt, use_dp, dp_path, add_noise,
-           arena)
+
+    def build():
+        return make_cohort_step(
+            loss_fn, dp_cfg, opt, use_dp=use_dp, dp_path=dp_path,
+            add_noise=add_noise, arena=arena, client_axis=client_axis,
+            fl_cfg=fl_cfg)
+
+    key = (_hashable_loss(loss_fn), dp_cfg, opt, use_dp, dp_path,
+           client_axis, fl_cfg, add_noise, arena)
     try:
         hash(key)
     except TypeError:
-        return make_cohort_step(loss_fn, dp_cfg, opt, use_dp=use_dp,
-                                dp_path=dp_path, add_noise=add_noise,
-                                arena=arena)
+        return build()
     if key not in _STEP_CACHE:
-        _STEP_CACHE[key] = make_cohort_step(
-            loss_fn, dp_cfg, opt, use_dp=use_dp, dp_path=dp_path,
-            add_noise=add_noise, arena=arena)
+        _STEP_CACHE[key] = build()
     return _STEP_CACHE[key]
 
 

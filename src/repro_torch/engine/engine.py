@@ -49,9 +49,12 @@ the order the reference splits its PRNG key — N at startup, then one per
 re-dispatch (async) or one per client per round (FedAvg).  Each seed
 seeds that member's device ``torch.Generator`` for its DP noise.
 
-Not in this slice (rejected by :class:`EngineConfig` with the ROADMAP
-item that brings them): mesh execution, the other client-axis executors
-and the production round.
+Executors (``EngineConfig.client_axis``): ``"unroll"``, ``"map"``,
+``"vmap"`` and ``"fl_step"``, the production round's local phase driven
+from the event loop with ``EngineConfig.fl_cfg``
+(:mod:`repro_torch.engine.cohort_step`).  Not in this slice (rejected by
+:class:`EngineConfig` with the ROADMAP item that brings it): mesh
+execution.
 """
 from __future__ import annotations
 
@@ -84,7 +87,7 @@ from repro_torch.kernels.common import kernel_info
 from repro_torch.pytree import tree_leaves, tree_map
 
 # the ROADMAP.md queue 1 items that bring what the port still rejects
-_ROADMAP_ITEMS = {14: "production round and multi-GPU"}
+_ROADMAP_ITEMS = {14: "multi-GPU"}
 
 
 def not_ported(what: str, item: int) -> ValueError:
@@ -94,8 +97,8 @@ def not_ported(what: str, item: int) -> ValueError:
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """The reference's fields, defaults and validation; the features the
-    port does not have yet raise, naming the ROADMAP.md item."""
+    """The reference's fields, defaults and validation; a mesh, which the
+    port does not have yet, raises, naming the ROADMAP.md item."""
 
     staleness_window: float = 0.0  # virtual seconds of completions per cohort
     max_cohort: int = 2            # cap on popped cohort size
@@ -127,15 +130,8 @@ class EngineConfig:
                     f">= max_cohort={self.max_cohort}: a staged cohort pins "
                     "one hot slot per member, so a smaller hot set "
                     "deadlocks slot acquisition")
-        later = (
-            ("mesh", self.mesh is not None, 14),
-            ("client_axis", self.client_axis != "unroll", 14),
-            ("fl_cfg", self.fl_cfg is not None, 14),
-        )
-        for name, bad, item in later:
-            if bad:
-                raise not_ported(
-                    f"EngineConfig.{name}={getattr(self, name)!r}", item)
+        if self.mesh is not None:
+            raise not_ported(f"EngineConfig.mesh={self.mesh!r}", 14)
         if self.max_cohort < 1:
             raise ValueError(f"max_cohort must be >= 1: {self.max_cohort}")
 
@@ -279,11 +275,29 @@ class CohortRunner:
         self.pipelined = cfg.pipeline_depth > 1
         # the serial driver consumes every cohort before staging the next
         self._submits_block = not self.pipelined
+        if cfg.client_axis == "fl_step" and c0.use_dp:
+            # the host-side accountant (dispatch) charges the clients'
+            # dp_cfg mechanism: eps depends on (q, sigma, steps) — the
+            # sampling rate and step count are the same either way and
+            # eps is clip-norm-independent, so the bound transfers to the
+            # executed per-microbatch mechanism ONLY when the noise
+            # multipliers agree and noise is actually added per step
+            fl_dp = cfg.fl_cfg.dp if cfg.fl_cfg is not None else None
+            if (fl_dp is None or fl_dp.granularity != "per_microbatch"
+                    or fl_dp.noise_multiplier != c0.dp_cfg.noise_multiplier):
+                raise ValueError(
+                    "client_axis='fl_step' with DP clients requires "
+                    "fl_cfg.dp to use granularity='per_microbatch' with the "
+                    "same noise_multiplier as the clients' dp_cfg "
+                    f"(got {fl_dp!r} vs sigma={c0.dp_cfg.noise_multiplier}) "
+                    "— otherwise the reported epsilon does not describe "
+                    "the executed mechanism")
         add_noise = bool(c0.use_dp and c0.dp_cfg.noise_multiplier > 0)
         self.dp_path = c0.dp_path if c0.use_dp else "jnp"
         self.cohort_step, self.merge_cohort = cached_cohort_step(
             c0.loss_fn, c0.dp_cfg, c0.opt, use_dp=c0.use_dp,
-            dp_path=self.dp_path, add_noise=add_noise, arena=self.use_arena)
+            dp_path=self.dp_path, add_noise=add_noise, arena=self.use_arena,
+            client_axis=cfg.client_axis, fl_cfg=cfg.fl_cfg)
         # runtime noise scale sigma*C/B: float64 on the host, rounded once
         # to float32 (reference engine.py:360), then one device element
         self._noise_std = torch.tensor(

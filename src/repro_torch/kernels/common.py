@@ -63,6 +63,18 @@ def check_launchable(name, t) -> None:
         raise ValueError(f"{name} must start at a 16-byte aligned address")
 
 
+def check_no_grad(name: str, *tensors) -> None:
+    """A forward-only kernel's guard: its output is made by the kernel
+    with no ``grad_fn``, so with grad mode on an input that requires a
+    gradient would get a detached result in silence.  Raises instead,
+    naming the kernel."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name} has no backward: an input requires grad; call it "
+            "under torch.no_grad() or on detached tensors")
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

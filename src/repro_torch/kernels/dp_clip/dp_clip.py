@@ -75,7 +75,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import cdiv, sm_count
+from repro_torch.kernels.common import cdiv, check_no_grad, sm_count
 
 # bound to triton.language by _kernels() at first launch; the kernel
 # bodies below resolve ``tl`` through this module's globals when Triton
@@ -259,6 +259,7 @@ def sqnorms(flat: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"flat must be 2-D: {tuple(flat.shape)}")
     r, d = flat.shape
     _check_cuda_f32("flat", flat, (r, d))
+    check_no_grad("dp_clip sqnorms", flat)
     rows, n_splits, width = sqnorm_plan(r, d)
     part = torch.empty((n_splits, r), dtype=torch.float32, device=flat.device)
     out = torch.empty((r,), dtype=torch.float32, device=flat.device)
@@ -294,6 +295,7 @@ def cohort_scale_mean(flat: torch.Tensor, scales: torch.Tensor, *, k: int,
     if has_noise:
         _check_cuda_f32("z", z, (k, d))
         _check_cuda_f32("stddev", stddev, (1,))
+    check_no_grad("dp_clip cohort_scale_mean", flat, scales, z, stddev)
     out = torch.empty((k, d), dtype=torch.float32, device=flat.device)
     *_, mean_kernel = _kernels()
     rows, block_d, warps, _ = mean_tile(k)

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (
-    cdiv, check_launchable, check_tensor, sm_count)
+    cdiv, check_launchable, check_no_grad, check_tensor, sm_count)
 
 ROUTE = "cuda"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -94,6 +94,7 @@ def flash_decode(q, k, v, pos, *, window: int = 0,
     B, H, S, Hkv, Dh = check_inputs(q, k, v, pos)
     for name, t in (("q", q), ("k", k), ("v", v), ("pos", pos)):
         check_launchable(name, t)
+    check_no_grad("flash_decode", q, k, v)
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head dim {Dh} not in {HEAD_DIMS}")
     n_split, chunk = split_plan(S, B, H, Hkv, sm_count(q.device))

@@ -8,6 +8,13 @@ on the H100 and what the design does about it.  The library is built at
 the first launch (:mod:`repro_torch.kernels.build`).  The output is
 allocated here with ``torch.empty``; the kernel runs on PyTorch's current
 stream and allocates nothing.
+
+The kernels are forward only.  Training differentiates them through
+``ops.SSDIntraChunk``, an ``autograd.Function`` whose backward is the
+plain closed form ``ref.ssd_intra_chunk_bwd_ref``: the JAX package never
+differentiates its Pallas kernel (its training path takes the jnp
+version), so there is no TPU backward kernel to port, and a hand-written
+backward kernel is later performance work (ROADMAP.md queue 2).
 """
 from __future__ import annotations
 

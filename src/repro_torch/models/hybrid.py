@@ -122,8 +122,9 @@ def logits_fn(params, batch, cfg):
 
 
 def loss(params, batch, cfg, *, loss_chunk: int = 512):
-    """Mean next-token CE with sequence-chunked logits (its value; the
-    gradient is the production round's, ROADMAP.md queue 1 item 14)."""
+    """Mean next-token CE with sequence-chunked logits; trained through
+    autograd (on the card the Mamba2 layers' ``ssd_intra_chunk`` is an
+    ``autograd.Function``, :mod:`repro_torch.kernels.ssd_scan.ops`)."""
     h = forward_hidden(params, batch, cfg)
     return L.chunked_lm_loss(h, batch["labels"], _head(params),
                              loss_chunk=loss_chunk)

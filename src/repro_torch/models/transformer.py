@@ -16,8 +16,8 @@ Implementation notes
   a tensor: ``flash_decode`` takes the window as an int, and a tensor
   would cost a host sync per layer per step.
 * **Chunked CE loss**: the (B, S, V) logits tensor is never materialized
-  (vocab up to 256 000); only its value is held to the JAX package, the
-  gradient is the production round's (ROADMAP.md queue 1 item 14).
+  (vocab up to 256 000); its value and its gradient (autograd) are held
+  to the JAX package's loss and ``jax.grad``.
 * ``prefill`` fills the preallocated KV cache in place and returns (last
   logits, cache); ``decode_step`` writes one position per row in place
   and launches ``flash_decode`` once per layer on the card.

@@ -67,7 +67,10 @@ def tree_unflatten_like(template, leaves: list):
 
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over trees of identical structure (dicts,
-    tuples and NamedTuples such as optimizer states)."""
+    tuples and NamedTuples such as optimizer states).  ``None`` is an
+    empty subtree, as in JAX."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}

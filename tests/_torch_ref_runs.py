@@ -114,6 +114,14 @@ RUNS = {
         max_updates=12, eval_every=4), engine=dict(
         staleness_window=30.0, max_cohort=2, pipeline_depth=2,
         store=dict(hot_slots=2, lookahead=2))),
+    # the production local round as the engine's executor
+    # (tests/test_torch_engine_axes.py): 2 microbatches, each clipped to
+    # norm 0.1, no noise, K = 2 cohorts
+    "fl_step_clip": _run(("fedasync", dict(alpha=0.4)), engine=dict(
+        staleness_window=1e9, max_cohort=2, client_axis="fl_step",
+        fl_cfg=dict(num_clients=1, n_micro=2, local_lr=0.05, dp=dict(
+            clip_norm=0.1, noise_multiplier=0.0,
+            granularity="per_microbatch")))),
 }
 LOG_FIELDS = ("times", "global_acc", "server_version", "update_counts",
               "influence", "staleness", "eps_trajectory", "local_acc",
@@ -160,6 +168,10 @@ def execute(pkg, name, init_leaves=None, dp_path="jnp", device=None):
     eng = dict(r["engine"])
     if "store" in eng:
         eng["store"] = mod("engine.statestore").StoreConfig(**eng["store"])
+    if "fl_cfg" in eng:
+        fl = dict(eng["fl_cfg"], dp=mod("core.dp").DPConfig(
+            **eng["fl_cfg"]["dp"]))
+        eng["fl_cfg"] = mod("core.fl_step").FLStepConfig(**fl)
     ecfg = mod("engine.engine").EngineConfig(**eng)
     calls = []
     state_cls = mod("core.screening").ScreeningState

@@ -4,10 +4,10 @@
 * The codec reads the reference's ``to_dict()`` JSON unchanged: every
   ``_SPEC_TYPES`` case of ``tests/test_spec_codec_complete.py`` (an
   instance with every field off its default) decodes and re-encodes to
-  an equal dict — except that a spec carrying an engine feature the port
-  does not have yet (a mesh, another client axis, an ``fl_cfg``) raises,
-  naming its ROADMAP.md item.  A bounded store, ``pipeline_depth`` > 1
-  and the host data path decode and run.
+  an equal dict — with its mesh dropped: a spec carrying a mesh, the one
+  engine feature the port does not have yet, raises, naming its
+  ROADMAP.md item.  A bounded store, ``pipeline_depth`` > 1, the host
+  data path, another client axis and an ``fl_cfg`` decode and run.
 * Runs inside one warm ``Session`` equal fresh-process runs bit for bit
   (params and every RunLog field).
 * A warm 4-point sigma sweep adds 0 to ``step_builds()``; a cold one
@@ -51,7 +51,7 @@ def _one_torch_thread():
 LOG_FIELDS = ("strategy", "times", "global_acc", "server_version",
               "update_counts", "influence", "staleness", "eps_trajectory",
               "local_acc", "cohort_sizes", "fault_events", "engine_stats")
-UNPORTED_ENGINE = ("EngineConfig", "ExperimentSpec")   # their cases carry one
+UNPORTED_ENGINE = ("EngineConfig", "ExperimentSpec")   # their cases carry a mesh
 
 
 def _ref_json(obj):
@@ -75,11 +75,12 @@ def test_decodes_reference_json_of_every_spec_type(name):
     if name == "EngineConfig":
         inst = dataclasses.replace(inst, fl_cfg=C._nondefault_instance(
             ref_spec._SPEC_TYPES["FLStepConfig"]))
+    if name == "EngineConfig":
+        inst = dataclasses.replace(inst, mesh=None)
+    elif name == "ExperimentSpec":
+        inst = dataclasses.replace(
+            inst, engine=dataclasses.replace(inst.engine, mesh=None))
     d = _ref_json(inst)
-    if name in UNPORTED_ENGINE:
-        with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 14"):
-            decode(d)
-        return
     got = decode(d)
     assert type(got).__name__ == name
     assert encode(got) == d
@@ -99,13 +100,9 @@ def test_default_engine_config_still_round_trips(name):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("mesh", {"__mesh__": {"data": 8, "model": 1}}, 14),
-    ("client_axis", "vmap", 14),
-    ("fl_cfg", "__fl__", 14)])
+    ("mesh", {"__mesh__": {"data": 8, "model": 1}}, 14)])
 def test_unported_engine_features_raise_at_decode(field, value, item):
     d = _ref_json(ref_spec.ExperimentSpec())
-    if value == "__fl__":
-        value = _ref_json(ref_spec._SPEC_TYPES["FLStepConfig"](num_clients=4))
     d["engine"][field] = value
     with pytest.raises(ValueError, match=rf"ROADMAP\.md queue 1 item {item}"):
         decode(d)
@@ -114,18 +111,30 @@ def test_unported_engine_features_raise_at_decode(field, value, item):
 @pytest.mark.parametrize("field,value", [
     ("store", {"__type__": "StoreConfig", "hot_slots": 2, "lookahead": 2}),
     ("pipeline_depth", 2),
-    ("device_arena", False)])
+    ("device_arena", False),
+    ("client_axis", "vmap"),
+    ("fl_cfg", "__fl__")])
 def test_ported_engine_features_decode_and_run(field, value):
-    """The reference's JSON of a tiered, a pipelined and a host-fed spec
-    decodes, re-encodes equal, and runs on the tiny testbed."""
+    """The reference's JSON of a tiered, a pipelined, a host-fed, a
+    vmapped and a production-round (``client_axis="fl_step"`` with a
+    coherent ``fl_cfg``) spec decodes, re-encodes equal, and runs on the
+    tiny testbed."""
     d = _ref_json(ref_spec.ExperimentSpec(
         testbed=ref_spec._SPEC_TYPES["TestbedConfig"](),
         run=ref_spec.RunBudget(max_updates=2, eval_every=2)))
+    testbed = _tiny()
+    if value == "__fl__":
+        value = _ref_json(ref_spec._SPEC_TYPES["FLStepConfig"](
+            num_clients=1, n_micro=2, dp=ref_spec._SPEC_TYPES["DPConfig"](
+                clip_norm=1.0, noise_multiplier=0.5,
+                granularity="per_microbatch")))
+        d["engine"]["client_axis"] = "fl_step"
+        testbed = dataclasses.replace(testbed, dp_path="jnp")
     d["engine"][field] = value
     d["engine"]["max_cohort"] = 2
     spec = decode(d)
     assert encode(spec) == d
-    spec = dataclasses.replace(spec, testbed=_tiny())
+    spec = dataclasses.replace(spec, testbed=testbed)
     _, log = Session(device="cpu").run(spec)
     st = log.engine_stats
     assert sum(log.update_counts.values()) == 2

@@ -49,7 +49,8 @@ def test_port_has_the_slice_modules():
               "repro_torch.models.xlstm", "repro_torch.models.whisper",
               "repro_torch.models.vlm", "repro_torch.configs.gemma2_2b",
               "repro_torch.configs.phi3_vision_4_2b",
-              "repro_torch.configs.ser_cnn"):
+              "repro_torch.configs.ser_cnn", "repro_torch.launch",
+              "repro_torch.launch.train"):
         assert m in mods
 
 
