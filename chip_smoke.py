@@ -108,7 +108,31 @@ package ``repro``) and fails with a non-zero exit on the first problem:
 22. [axes] [main]'s FedAsync with ``dp_path="jnp"`` under each
     client-axis executor: "map" bit-identical to "unroll", "vmap" within
     1e-5, "fl_step" with a coherent ``fl_cfg``; bookkeeping equal; member
-    local steps/s of each.
+    local steps/s of each;
+23. [mesh-main] (after the run modes' breakdown) [main]'s FedAsync on a
+    ("data", "model") mesh over the ranks of a ``torch.distributed``
+    group: W = 1 over NCCL in this process, bit-identical to [main]; W = 2
+    as two spawned gloo ranks sharing cuda:0 (NCCL refuses two ranks on
+    one card), each training its half of every cohort: bookkeeping equal
+    to [main]'s, params within the run tolerance at sigma 1, within 1e-5
+    of the one-process run at sigma 0 on the member-major executor
+    (dp_path jnp) and within the run tolerance on the step-major one
+    (its batched grads round differently at K / 2; Adam's first step
+    turns that into +-lr at sigma 0), a bit-identical rerun,
+    ``dp_clip`` launched S_max x cohorts times per rank, the partition
+    proof; member steps/s at W = 1, W = 2 and in [main]; each rank's
+    backend and collectives; W = 2 and 4 over NCCL, a card per rank,
+    where the machine has the cards;
+24. [mesh-train] (after [axes]) ``launch/train.py spmd --devices 2
+    --data-axis 2`` as two gloo ranks on cuda:0, the f32 master and
+    FedAdam's state sharded over them: zamba2-1.2b at [train-zoo]'s
+    flags (``ssd_intra_chunk`` 38 x n_micro per round on each rank, +38
+    per loss eval on rank 0; master and delta norms within 1e-5 relative
+    of [train-zoo]'s W = 1 run; round 0 rerun bit-identical in the same
+    ranks' processes, by fingerprints of every shard) and smollm-360m at
+    G = 2 against its W = 1 run; each rank's peak memory, walls and
+    collectives; on a machine with the cards, zamba2-1.2b at W = 2 and
+    smollm-360m at W = 4 over NCCL, a card per rank.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2418,10 +2442,12 @@ def phase_train_zoo(dev, smi):
     ssd_intra_chunk in every Mamba2 layer's forward) and smollm-360m, 3
     rounds each, then a bit-identical rerun; zamba2's gradient through
     the kernel against the plain route.  Returns the ssd_intra_chunk
-    launches of the first runs and the backward times."""
+    launches of the first runs, the backward times and each first run's
+    final master on the CPU and delta norms ([mesh-train]'s W = 1
+    references)."""
     import torch
     from repro_torch.launch import train
-    launches, times = 0, None
+    launches, times, refs = 0, None, {}
     for arch, flags in TRAIN_ZOO.items():
         first, total, st, peak, wall, args = _train_spmd_once(arch, flags,
                                                               smi)
@@ -2470,8 +2496,9 @@ def phase_train_zoo(dev, smi):
         if arch == "zamba2-1.2b":
             _ssd_grad_check(args, dev, smi)
             times = _ssd_backward_times(args, dev, smi)
+        refs[arch] = (first, st["norms"])
         del first, again
-    return launches, times
+    return launches, times, refs
 
 
 def _small_batch(cfg, b, seq, seed):
@@ -2611,6 +2638,491 @@ def phase_axes(smi):
         "its testbed; evals included)")
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: the data axis of the mesh, ranks of a torch.distributed group
+# ---------------------------------------------------------------------------
+
+MESH_RUN_TOL = 1e-2       # run-level params tolerance (the CPU tests')
+# [mesh-main]'s runs on each rank: (tag, sigma, dp_path)
+MESH_MAIN_RUNS = (("sigma1", 1.0, "pallas"), ("rerun", 1.0, "pallas"),
+                  ("sigma0", 0.0, "pallas"), ("sigma0_jnp", 0.0, "jnp"))
+MESH_TIGHT = 1e-5
+MESH_TRAIN_RTOL = 1e-5    # relative L2 per leaf of the f32 master
+# the host bookkeeping a mesh run must equal [main]'s in
+MESH_BOOKKEEPING = ("times", "server_version", "update_counts", "staleness",
+                    "eps_trajectory", "cohort_sizes", "influence",
+                    "fault_events", "dropouts")
+
+
+def _mesh_spawn(fn, world, *args):
+    """Start ``world`` ranks of ``fn(rank, port, *args)`` with ``spawn``
+    and wait for them (a rank that fails fails the phase).  The ranks'
+    CUDA allocator grows expandable segments (two full-width zamba2
+    ranks share one card with this process: fragmentation would cost
+    them ~7 GiB each), and this process first frees its cached blocks."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.collectives import free_port
+    _free_card()
+    env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mp.start_processes(fn, args=(free_port(),) + args, nprocs=world,
+                           start_method="spawn")
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def _rank_setup(rank, world, port, backend, join=True):
+    """A spawned rank: the port on the path, the card bound
+    (``cuda:<rank mod cards>``), the group joined unless ``join`` is
+    false (the launcher joins it itself)."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch import collectives as coll
+    device = coll.rank_device("cuda", rank, torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    if join:
+        coll.init_group(backend, rank, world, port, device)
+    return device
+
+
+def _mesh_main_rank(rank, port, world, backend, out):
+    """One rank of [mesh-main]: [main]'s FedAsync on a (world, 1) mesh at
+    sigma 1, its rerun and a sigma-0 run; one full cohort's partition
+    proof.  Saves what it measured to ``out/rank<r>.pt``."""
+    device = _rank_setup(rank, world, port, backend)
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.testbed import build_testbed, run_experiment
+    from repro_torch.engine import (
+        CohortRunner, EngineConfig, assert_cohort_partitioned)
+    from repro_torch.kernels.dp_clip import dp_clip
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.pytree import tree_leaves
+    try:
+        mesh = make_host_mesh(data=world)
+        res = {"describe": coll.describe(mesh.group, device)}
+        ecfg = EngineConfig(staleness_window=120.0, max_cohort=4, mesh=mesh)
+        for tag, sigma, path in MESH_MAIN_RUNS:
+            cfg = dataclasses.replace(_main_cfg(), sigma=sigma, dp_path=path)
+            dp_clip.reset_launches()
+            coll.reset_stats()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            p, lg = run_experiment("fedasync", cfg, engine_cfg=ecfg,
+                                   **MAIN_ASYNC)
+            torch.cuda.synchronize()
+            res[tag] = {
+                "wall": time.perf_counter() - t0,
+                "params": [l.cpu() for l in tree_leaves(p)],
+                "log": {f: getattr(lg, f) for f in RUNLOG_FIELDS},
+                "cohorts": lg.engine_stats["cohorts"],
+                "launches": (dp_clip.sqnorm_launches,
+                             dp_clip.scale_mean_launches),
+                "info": lg.engine_stats["pallas_interpret"],
+                "collectives": coll.stats(),
+                "peak": torch.cuda.max_memory_allocated()}
+        clients, params, _, _ = build_testbed(_main_cfg())
+        runner = CohortRunner(clients, ecfg, device)
+        plans = [runner.dispatch(c, params, 1000 + c.cid, 0)
+                 for c in clients[:4]]
+        runner.run_cohort(plans)
+        res["partition"] = assert_cohort_partitioned(runner.last_partition,
+                                                     mesh)
+        torch.save(res, out / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_one(cfg, mesh):
+    """One FedAsync run of [main]'s configuration in this process (on
+    ``mesh`` when given): (params, RunLog, wall, dp_clip launches)."""
+    import torch
+    from repro_torch.core.testbed import run_experiment
+    from repro_torch.engine.engine import EngineConfig
+    from repro_torch.kernels.dp_clip import dp_clip
+    dp_clip.reset_launches()
+    t0 = time.perf_counter()
+    p, lg = run_experiment("fedasync", cfg, engine_cfg=EngineConfig(
+        staleness_window=120.0, max_cohort=4, mesh=mesh), **MAIN_ASYNC)
+    torch.cuda.synchronize()
+    return p, lg, time.perf_counter() - t0, (dp_clip.sqnorm_launches,
+                                              dp_clip.scale_mean_launches)
+
+
+def _mesh_log_equal(want, got, what):
+    for f in MESH_BOOKKEEPING:
+        require(getattr(want, f) == got[f], f"{what}: RunLog.{f} differs: "
+                f"{getattr(want, f)} vs {got[f]}")
+
+
+def _mesh_main_check(ranks, world, backend, s_max, log_main, l0, lj):
+    """[mesh-main]'s requirements on the saved results of ``world``
+    ranks: the backend, bookkeeping equal to the one-process runs',
+    ``dp_clip`` at S_max x cohorts per rank and kernel, a bit-identical
+    rerun, every rank's params bit-identical, and a K = 4 cohort split
+    4 / W members per rank."""
+    import torch
+    for r, res in enumerate(ranks):
+        what = f"[mesh-main] W={world} {backend} rank {r}"
+        require(f"backend {backend}" in res["describe"]
+                and ("host memory" in res["describe"]) == (backend == "gloo"),
+                f"{what}: {res['describe']}")
+        for tag in ("sigma1", "rerun"):
+            _mesh_log_equal(log_main, res[tag]["log"], f"{what} {tag}")
+        _mesh_log_equal(l0, res["sigma0"]["log"], f"{what} sigma0")
+        _mesh_log_equal(lj, res["sigma0_jnp"]["log"], f"{what} sigma0 jnp")
+        for tag, _, path in MESH_MAIN_RUNS:
+            got = res[tag]
+            want = s_max * got["cohorts"] if path == "pallas" else 0
+            require(got["launches"] == (want, want), f"{what} {tag}: "
+                    f"dp_clip launches {got['launches']}, expected S_max x "
+                    f"cohorts = {want} each")
+            require(path == "jnp" or got["info"]["kernel"] == "triton",
+                    f"{what}: {got['info']}")
+        for a, b in zip(res["sigma1"]["params"], res["rerun"]["params"]):
+            require(torch.equal(a, b), f"{what}: rerun not bit-identical")
+        for a, b in zip(ranks[0]["sigma1"]["params"], res["sigma1"]["params"]):
+            require(torch.equal(a, b), f"{what}: differs from rank 0")
+        rep = res["partition"]
+        require(len(rep) == 12 and set(rep.values()) == {4 // world},
+                f"{what}: partition report {rep}")
+
+
+def phase_mesh_main(smi, main_runs):
+    """[mesh-main]: [main]'s FedAsync (the paper's SERConfig, D = 317,124,
+    5 clients on T1..T5, B = 128, sigma 1, dp_path="pallas", window 120,
+    max_cohort 4, 40 updates) on a mesh over the ranks of a process group:
+
+    * W = 1 over NCCL, in this process: bookkeeping, engine stats' cohort
+      count and params bit-identical to [main];
+    * W = 2 over gloo, both ranks on cuda:0 (NCCL refuses two ranks on one
+      card): on each rank the bookkeeping equal to [main]'s, the params
+      within the run tolerance of [main]'s (sigma 1); at sigma 0 with
+      clipping on, within 1e-5 of the one-process run on the member-major
+      executor (``dp_path="jnp"``, each member's grads its own program)
+      and within the run tolerance on the step-major one (per-example
+      grads batched over K / 2 members round differently from K, and at
+      sigma 0 Adam's first step turns that rounding into +-lr); a
+      bit-identical rerun, both ranks' params bit-identical, ``dp_clip``
+      launched S_max x cohorts times per kernel on each rank, a full
+      cohort of 4 partitioned 2 per rank (``assert_cohort_partitioned``);
+    * W = 2 and W = 4 over NCCL, one rank per card, where the machine has
+      that many cards: the same requirements (at W = 4 a cohort of 4 holds
+      one member per rank).
+
+    Member local steps/s at W = 1, W = 2 and in [main] (walls of whole
+    runs, corpus and evals included), each rank's backend and
+    collectives.  Returns the dp_clip launches (W = 1 and each gloo
+    rank's sigma-1 run)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.pytree import tree_leaves
+    cfg = _main_cfg()
+    s_max = _steps(cfg)
+    p_main, log_main, t_main = main_runs["fedasync"]
+    rate = {"main": s_max * sum(log_main.cohort_sizes) / t_main}
+
+    # W = 1 over NCCL (a real communicator of one rank)
+    coll.init_group("nccl", 0, 1, coll.free_port(), torch.device("cuda", 0))
+    try:
+        coll.reset_stats()
+        mesh = make_host_mesh(data=1)
+        p1, l1, t1, n1 = _mesh_one(cfg, mesh)
+        desc1, st1 = coll.describe(mesh.group, "cuda:0"), coll.stats()
+    finally:
+        dist.destroy_process_group()
+    _same_run((p_main, log_main), (p1, l1), "[mesh-main] W=1 nccl")
+    require(l1.engine_stats["cohorts"] == log_main.engine_stats["cohorts"],
+            "[mesh-main] W=1: cohort count differs")
+    want = s_max * l1.engine_stats["cohorts"]
+    require(n1 == (want, want), f"[mesh-main] W=1: dp_clip launches {n1}, "
+            f"expected S_max x cohorts = {want} each")
+    require(st1.get("all_gather", {}).get("calls", 0) > 0,
+            "[mesh-main] W=1: no collective ran")
+    launches = [n1[0], n1[1]]
+    rate["W1_nccl"] = s_max * sum(l1.cohort_sizes) / t1
+    log(f"[mesh-main] {smi}; W=1 ({desc1}): bit-identical to [main] "
+        f"(RunLog, params), dp_clip launches {n1} = S_max {s_max} x "
+        f"{l1.engine_stats['cohorts']} cohorts each; collectives {st1}")
+
+    # the one-process sigma-0 runs (clipping on) the mesh's are held to:
+    # the step-major executor, and the member-major one on dp_path jnp
+    p0, l0, _, _ = _mesh_one(dataclasses.replace(cfg, sigma=0.0), None)
+    pj, lj, _, _ = _mesh_one(dataclasses.replace(cfg, sigma=0.0,
+                                                 dp_path="jnp"), None)
+    want_leaves = {"sigma1": [l.cpu() for l in tree_leaves(p_main)],
+                   "sigma0": [l.cpu() for l in tree_leaves(p0)],
+                   "sigma0_jnp": [l.cpu() for l in tree_leaves(pj)]}
+    cards = torch.cuda.device_count()
+    for world, backend in ((2, "gloo"), (2, "nccl"), (4, "nccl")):
+        if backend == "nccl" and cards < world:
+            log(f"[mesh-main] W={world} over NCCL with one rank per card: "
+                f"not run, this machine has {cards} card(s)")
+            continue
+        out = ROOT / "build" / f"mesh_main_{backend}{world}"
+        out.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        _mesh_spawn(_mesh_main_rank, world, world, backend, out)
+        spawn_wall = time.perf_counter() - t0
+        ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+        _mesh_main_check(ranks, world, backend, s_max, log_main, l0, lj)
+        d = {tag: max(float((a - b).abs().max())
+                      for a, b in zip(ranks[0][tag]["params"], want))
+             for tag, want in want_leaves.items()}
+        per_leaf0 = [float((a - b).abs().max()) for a, b in
+                     zip(ranks[0]["sigma0"]["params"], want_leaves["sigma0"])]
+        log(f"[mesh-main] {smi}; W={world} {backend}"
+            f"{' on one card' if backend == 'gloo' else ', a card per rank'}"
+            f", max |dparam| from the one-process run: sigma 1 "
+            f"{d['sigma1']:.3e} (tolerance {MESH_RUN_TOL}); sigma 0 with "
+            f"clipping, member-major executor (dp_path jnp) "
+            f"{d['sigma0_jnp']:.3e} (tolerance {MESH_TIGHT}); sigma 0 with "
+            f"clipping, the step-major executor (dp_path pallas) "
+            f"{d['sigma0']:.3e} (tolerance {MESH_RUN_TOL}: its per-example "
+            f"grads batch K/{world} members per rank against K in one "
+            f"process, and at sigma 0 Adam's first step turns their "
+            f"rounding into +-lr; per leaf "
+            f"{[f'{x:.2e}' for x in per_leaf0]}); rerun bit-identical; ranks "
+            f"bit-identical; partition {ranks[0]['partition']}")
+        require(d["sigma1"] <= MESH_RUN_TOL, f"[mesh-main] W={world} "
+                f"{backend} sigma 1: {d['sigma1']}")
+        require(d["sigma0_jnp"] <= MESH_TIGHT, f"[mesh-main] W={world} "
+                f"{backend} sigma 0 jnp: {d['sigma0_jnp']}")
+        require(d["sigma0"] <= MESH_RUN_TOL, f"[mesh-main] W={world} "
+                f"{backend} sigma 0: {d['sigma0']}")
+        for r, res in enumerate(ranks):
+            got = res["sigma1"]
+            steps = s_max * sum(got["log"]["cohort_sizes"])
+            tag = f"W{world}_{backend}_rank{r}"
+            rate[tag] = steps / got["wall"]
+            rate[tag + "_rerun"] = steps / res["rerun"]["wall"]
+            if backend == "gloo":
+                launches[0] += got["launches"][0]
+                launches[1] += got["launches"][1]
+            log(f"[mesh-main] W={world} rank {r}: {res['describe']}; "
+                f"sigma-1 run {got['wall']:.3f} s, rerun "
+                f"{res['rerun']['wall']:.3f} s, peak "
+                f"{got['peak'] / 2**30:.2f} GiB, collectives "
+                f"{got['collectives']}")
+        log(f"[mesh-main] W={world} {backend}: the ranks took "
+            f"{spawn_wall:.1f} s from spawn to exit")
+    log(f"[mesh-main] {smi}; member local steps/s (whole runs, corpus and "
+        f"evals included; [main] and each rank's first run cold, W=1 and "
+        f"the ranks' reruns warm): "
+        f"{ {k: round(v, 2) for k, v in rate.items()} }")
+    return {"dp_clip_sqnorm": launches[0], "dp_clip_scale_mean": launches[1]}
+
+
+def _fingerprint(tree):
+    """Per leaf, the sum of its f32 words' bit patterns as int64 (on the
+    card): equal fingerprints for bit-identical trees, and a flipped bit
+    changes one."""
+    import torch
+    from repro_torch.pytree import tree_leaves
+    return [int(l.detach().view(torch.int32).sum(dtype=torch.int64))
+            for l in tree_leaves(tree)]
+
+
+def _mesh_train_rank(rank, port, world, backend, arch, flags, out,
+                     rerun_port=None):
+    """One rank of [mesh-train]: ``run_spmd`` on a (world, 1) mesh through
+    ``launch.train.spmd_rank``; saves per-round ssd_intra_chunk launches,
+    walls, delta norms and fingerprints of this rank's master shards,
+    peak memory and collectives, and (rank 0) the whole final master.
+    With ``rerun_port`` the same process then reruns round 0 through a
+    second ``spmd_rank`` (a new group at that port) and saves its
+    fingerprints and delta norm."""
+    _rank_setup(rank, world, port, backend, join=False)
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import train
+    from repro_torch.pytree import tree_leaves
+
+    def run(steps, at_port):
+        args = _spmd_args(arch, flags + ["--devices", str(world)])
+        args.steps = steps
+        st = {"launches": [], "walls": [], "norms": [], "prints": [],
+              "n": 0, "t": time.perf_counter()}
+
+        def on_round(i, master, metrics):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            st["walls"].append(now - st["t"])
+            st["launches"].append(ssd_scan.launches() - st["n"])
+            st["norms"].append(float(metrics["delta_norm"]))
+            st["prints"].append(_fingerprint(master))
+            st["n"], st["t"] = ssd_scan.launches(), time.perf_counter()
+
+        torch.cuda.reset_peak_memory_stats()
+        ssd_scan.reset_launches()
+        coll.reset_stats()
+        t0 = time.perf_counter()
+        whole = train.spmd_rank(args, rank, at_port, backend=backend,
+                                on_round=on_round)
+        torch.cuda.synchronize()
+        res = dict(launches=st["launches"], walls=st["walls"],
+                   norms=st["norms"], prints=st["prints"],
+                   total=ssd_scan.launches(),
+                   wall=time.perf_counter() - t0,
+                   peak=torch.cuda.max_memory_allocated(),
+                   collectives=coll.stats())
+        if rank == 0:
+            res["master"] = [l.cpu() for l in tree_leaves(whole)]
+        return res
+
+    res = run(TRAIN_ROUNDS, port)
+    if rerun_port is not None:
+        again = run(1, rerun_port)
+        res["rerun"] = {k: again[k] for k in ("norms", "prints", "walls",
+                                              "wall")}
+    torch.save(res, out / f"rank{rank}.pt")
+
+
+def _mesh_train_ranks(arch, flags, world, backend, rerun):
+    import torch
+    from repro_torch.launch.collectives import free_port
+    out = ROOT / "build" / "mesh_train"
+    out.mkdir(parents=True, exist_ok=True)
+    _free_card()
+    log(f"[mesh-train] {arch}: this process holds "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card "
+        f"(allocator) before the ranks start")
+    rerun_port = free_port() if rerun else None
+    t0 = time.perf_counter()
+    _mesh_spawn(_mesh_train_rank, world, world, backend, arch, flags, out,
+                rerun_port)
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    for p in out.iterdir():
+        p.unlink()
+    return ranks, time.perf_counter() - t0
+
+
+# (arch, spmd flags, ranks, backend, rerun): zamba2-1.2b at [train-zoo]'s
+# flags and smollm-360m at G = 2 on two gloo ranks sharing the card; on a
+# machine with more cards, zamba2 over NCCL at W = 2 and smollm at
+# [train-zoo]'s flags (G = 4) over NCCL at W = 4
+MESH_TRAIN = (
+    ("zamba2-1.2b", TRAIN_ZOO["zamba2-1.2b"], 2, "gloo", True),
+    ("smollm-360m", ["--data-axis", "2"], 2, "gloo", False),
+    ("zamba2-1.2b", TRAIN_ZOO["zamba2-1.2b"], 2, "nccl", False),
+    ("smollm-360m", TRAIN_ZOO["smollm-360m"], 4, "nccl", False),
+)
+
+
+def phase_mesh_train(smi, refs):
+    """[mesh-train]: ``launch/train.py spmd --devices W --data-axis W`` at
+    full width and depth, 3 rounds, the f32 master and FedAdam's state
+    sharded over the ranks (``MESH_TRAIN``).  Requires ssd_intra_chunk
+    launched on each rank 38 x n_micro per round and client plus 38 per
+    loss eval on rank 0, the ranks' delta norms equal, the master and
+    delta norms within 1e-5 (relative) of the W = 1 run from the same
+    seed at W = 2 (``refs[arch]``: [train-zoo]'s first zamba2 run; smollm
+    at G = 2 run here) and within the run tolerance at W = 4 (a 4-term
+    reduce-scatter sums in another order, which FedAdam's first step can
+    turn into +-lr), and round 0 rerun bit-identical in the same rank
+    processes (zamba2 on gloo: fingerprints of every shard).  Logs
+    each rank's peak memory, walls, collectives and their host time.
+    Returns the ssd_intra_chunk launches of the gloo runs' ranks."""
+    import torch
+    from repro_torch.launch import train
+    launches = 0
+    cards = torch.cuda.device_count()
+    for arch, flags, world, backend, rerun in MESH_TRAIN:
+        if backend == "nccl" and cards < world:
+            log(f"[mesh-train] {arch} --devices {world} over NCCL with one "
+                f"rank per card: not run, this machine has {cards} card(s)")
+            continue
+        if arch in refs and flags == TRAIN_ZOO[arch]:
+            ref, ref_norms = refs[arch]
+        else:
+            ref, _, st, _, _, _ = _train_spmd_once(arch, flags, smi)
+            ref_norms = st["norms"]
+        args = _spmd_args(arch, flags)
+        cfg = train.spmd_config(args)
+        require(args.data_axis == world, f"[mesh-train] {arch}: G != W")
+        ranks, wall = _mesh_train_ranks(arch, flags, world, backend, rerun)
+        hybrid = cfg.family == "hybrid"
+        per_round = (cfg.n_layers * (args.data_axis // world) * args.n_local
+                     * args.n_micro if hybrid else 0)
+        evals = len(range(0, TRAIN_ROUNDS, args.log_every)) + 1
+        for r, res in enumerate(ranks):
+            want = [per_round] * TRAIN_ROUNDS
+            if r == 0 and hybrid:
+                want[0] += cfg.n_layers          # round 0's loss log
+            require(res["launches"] == want, f"[mesh-train] {arch} rank "
+                    f"{r}: ssd_intra_chunk per round {res['launches']}, "
+                    f"expected {want}")
+            total = TRAIN_ROUNDS * per_round + (
+                evals * cfg.n_layers if r == 0 and hybrid else 0)
+            require(res["total"] == total, f"[mesh-train] {arch} rank {r}: "
+                    f"{res['total']} launches in all, expected {total}")
+            require(res["norms"] == ranks[0]["norms"], f"[mesh-train] "
+                    f"{arch}: the ranks' delta norms differ")
+            if backend == "gloo":
+                launches += res["total"]
+        got = ranks[0]["master"]
+        rel = max(_rel_l2(a, b) for a, b in zip(got, ref))
+        rel_n = max(abs(a - b) / abs(b) for a, b in
+                    zip(ranks[0]["norms"], ref_norms))
+        tol = MESH_TRAIN_RTOL if world == 2 else MESH_RUN_TOL
+        require(len(got) == len(ref) and rel <= tol,
+                f"[mesh-train] {arch} W={world}: master {rel:.3e} from W=1")
+        require(rel_n <= tol, f"[mesh-train] {arch} W={world}: delta_norm "
+                f"{rel_n:.3e} from W=1")
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+        note = ""
+        if rerun:
+            # round 0 again in each rank's process: the same bits on every
+            # shard (fingerprints) and the same delta norm
+            for r, res in enumerate(ranks):
+                again = res["rerun"]
+                require(again["prints"][0] == res["prints"][0]
+                        and again["norms"][0] == res["norms"][0],
+                        f"[mesh-train] {arch} rank {r}: round 0 rerun "
+                        "differs")
+            note = (f"; round 0 rerun in the same processes bit-identical "
+                    f"on every rank's shards ({ranks[0]['rerun']['wall']:.1f}"
+                    f" s)")
+        where = "on one card" if backend == "gloo" else "a card per rank"
+        log(f"[mesh-train] {smi}; {arch} --devices {world} --data-axis "
+            f"{world} (G={args.data_axis}, n_micro={args.n_micro}, "
+            f"per_micro={args.per_micro}, seq {args.seq}, "
+            f"{cfg.param_dtype} clients, f32 master sharded over {world} "
+            f"{backend} ranks {where}): master max relative L2 {rel:.3e} "
+            f"and delta_norm {rel_n:.3e} from W=1 (tolerance {tol}; "
+            f"{'bit-identical' if bitwise else 'not bitwise'}); "
+            f"ssd_intra_chunk per round {[r['launches'] for r in ranks]}; "
+            f"spawn to exit {wall:.1f} s{note}")
+        for r, res in enumerate(ranks):
+            coll_s = sum(v["seconds"] for v in res["collectives"].values())
+            log(f"[mesh-train] {arch} W={world} rank {r}: walls per round "
+                f"{[round(w, 3) for w in res['walls']]} s (round 0 with "
+                f"init and a loss eval), run {res['wall']:.1f} s of which "
+                f"{coll_s:.1f} s in collectives (host clock), peak memory "
+                f"{res['peak'] / 2**30:.2f} GiB, collectives "
+                f"{res['collectives']}")
+        del ranks, got, ref
+        _free_card()
+    return launches
+
+
 def main():
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     sys.path.insert(0, str(ROOT / "src"))
@@ -2637,6 +3149,11 @@ def main():
     log(f"[tiered] phase wall {time.perf_counter() - t0:.1f} s; the run "
         f"modes took {time.perf_counter() - t_modes:.1f} s in all")
     phase_breakdown(smi)
+    t0 = time.perf_counter()
+    mesh_launches = phase_mesh_main(smi, main_runs)
+    for name, n in mesh_launches.items():
+        launches[name] += n
+    log(f"[mesh-main] phase wall {time.perf_counter() - t0:.1f} s")
     errs.update(phase_kernels_zoo(dev))
     times.update(phase_times_zoo(dev, smi))
     params, cfg, tokens, logits, toks, serve_launches = phase_serve(dev, smi)
@@ -2655,17 +3172,21 @@ def main():
         f"zoo {zoo_launches}")
     _free_card()
     t0 = time.perf_counter()
-    train_launches, _ = phase_train_zoo(dev, smi)
+    train_launches, _, train_refs = phase_train_zoo(dev, smi)
     t1 = time.perf_counter()
     launches["ssd_intra_chunk"] += train_launches
     phase_train_zoo_small(dev)
     t2 = time.perf_counter()
     phase_axes(smi)
+    t3 = time.perf_counter()
+    mesh_train_launches = phase_mesh_train(smi, train_refs)
+    del train_refs
+    launches["ssd_intra_chunk"] += mesh_train_launches
     log(f"[train-zoo] phase walls: [train-zoo] {t1 - t0:.1f} s, "
-        f"[train-zoo-small] {t2 - t1:.1f} s, [axes] "
-        f"{time.perf_counter() - t2:.1f} s; ssd_intra_chunk launches: "
-        f"serving {serve_launches['ssd_intra_chunk']}, training "
-        f"{train_launches}")
+        f"[train-zoo-small] {t2 - t1:.1f} s, [axes] {t3 - t2:.1f} s, "
+        f"[mesh-train] {time.perf_counter() - t3:.1f} s; ssd_intra_chunk "
+        f"launches: serving {serve_launches['ssd_intra_chunk']}, training "
+        f"{train_launches}, the mesh's ranks {mesh_train_launches}")
     from repro_torch.kernels.dp_clip import dp_clip
     from repro_torch.kernels.flash_attn import flash_attn
     from repro_torch.kernels.ssd_scan import ssd_scan

@@ -110,15 +110,15 @@ class Session:
     One live testbed and one live cohort runner at a time; dataset
     partitions are kept per distinct data config, and the uploaded device
     :class:`~repro_torch.engine.statestore.DataArena` per
-    ``partition_key`` (it is immutable, so a sweep whose axes only touch
-    client-state config hands the same device tensors to every rebuilt
-    runner and legacy run).  The step cache itself is process-global
+    ``(partition_key, mesh)`` (it is immutable, so a sweep whose axes
+    only touch client-state config hands the same device tensors to every
+    rebuilt runner and legacy run).  The step cache itself is process-global
     (:mod:`repro_torch.engine.cohort_step`)."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self._partitions = {}          # partition_key -> (splits, pooled)
-        self._data_arenas = {}         # partition_key -> device data arena
+        self._data_arenas = {}         # (partition_key, mesh) -> DataArena
         self._testbed_cfg: Optional[TestbedConfig] = None
         self._clients = None
         self._params0 = None
@@ -159,12 +159,13 @@ class Session:
         self._runner_key = None
         self.events["testbed_builds"] += 1
 
-    def _data_arena(self, tb: TestbedConfig):
+    def _data_arena(self, tb: TestbedConfig, mesh=None):
         """The device data arena (a ``statestore.DataArena``) of ``tb``'s
-        partitions, uploaded once per ``partition_key`` and shared by
-        every runner and legacy run."""
+        partitions, uploaded once per ``(partition_key, mesh)`` (the
+        reference's key; the port's arena is replicated on every rank of
+        a mesh) and shared by every runner and legacy run."""
         from repro_torch.engine.statestore import DataArena
-        key = partition_key(tb)
+        key = (partition_key(tb), mesh)
         arena = self._data_arenas.get(key)
         if arena is None:
             arena = DataArena.build(self._clients, self.device)
@@ -182,8 +183,8 @@ class Session:
             self.events["runner_reuses"] += 1
         else:
             # the host-fed path reads the clients' numpy splits instead
-            arena = (self._data_arena(tb) if engine_cfg.device_arena
-                     else None)
+            arena = (self._data_arena(tb, engine_cfg.mesh)
+                     if engine_cfg.device_arena else None)
             self._runner = CohortRunner(self._clients, engine_cfg,
                                         self.device, data_arena=arena)
             self._runner_key = key
@@ -231,6 +232,8 @@ class Session:
                 raise ValueError(
                     "checkpoint/resume requires backend='cohort' — the "
                     "legacy reference loop has no snapshot support")
+            if spec.engine.mesh is not None:
+                raise ValueError("mesh execution requires backend='cohort'")
             from repro_torch.core.server import run_async, run_fedavg
             arena = self._data_arena(tb)
             if not strategy.is_async:

@@ -14,9 +14,11 @@ Specs are frozen value objects that round-trip through plain JSON-able
 dicts (``spec.to_dict()`` / ``ExperimentSpec.from_dict(d)``), over the
 same closed set of tagged types as the reference, so the reference's
 ``ExperimentSpec.to_dict()`` JSON decodes here unchanged and one spec
-runs on both packages.  A spec that carries the one engine feature the
-port does not have yet, a mesh (``__mesh__``), raises at decode, naming
-its ROADMAP.md item.
+runs on both packages.  A mesh is recorded as its axis sizes
+(``{"__mesh__": {"data": 2, "model": 1}}``) and decodes to
+:func:`repro_torch.launch.mesh.make_host_mesh` of that shape over the
+CURRENT process group's ranks, as the reference rebuilds it over the
+current process's devices.
 
 Validation happens at construction: :class:`StrategySpec` checks its name
 and params against the registry in :mod:`repro_torch.core.aggregation`,
@@ -36,8 +38,9 @@ from repro_torch.core.fl_step import FLStepConfig
 from repro_torch.core.screening import ScreeningConfig
 from repro_torch.core.testbed import TestbedConfig
 from repro_torch.data.synthetic_ser import SERDataConfig
-from repro_torch.engine.engine import EngineConfig, not_ported
+from repro_torch.engine.engine import EngineConfig
 from repro_torch.engine.statestore import StoreConfig
+from repro_torch.launch.mesh import HostMesh, make_host_mesh
 from repro_torch.models.ser_cnn import SERConfig
 
 
@@ -196,7 +199,9 @@ _SPEC_TYPES = {cls.__name__: cls for cls in (
 
 def encode(obj):
     """Recursively encode a spec object to JSON-able data: dataclasses of
-    the closed spec-type set become ``{"__type__": name, ...}`` dicts."""
+    the closed spec-type set become ``{"__type__": name, ...}`` dicts; a
+    mesh is recorded as its axis sizes (``{"__mesh__": {"data": 8,
+    "model": 1}}``)."""
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
     if isinstance(obj, StrategySpec):
@@ -207,6 +212,8 @@ def encode(obj):
         for f in dataclasses.fields(obj):
             out[f.name] = encode(getattr(obj, f.name))
         return out
+    if isinstance(obj, HostMesh):
+        return {"__mesh__": {str(a): int(s) for a, s in obj.shape.items()}}
     if isinstance(obj, (tuple, list)):
         return [encode(v) for v in obj]
     if hasattr(obj, "item") and getattr(obj, "shape", None) == ():
@@ -218,13 +225,21 @@ def encode(obj):
 def decode(d):
     """Inverse of :func:`encode`; also reads the reference's encoding
     (including its ``use_kernel`` -> ``dp_path`` migration).  A mesh
-    raises: the port has none yet."""
+    decodes to a host mesh over the current process group (every rank of
+    a group must decode it: building one is a collective call)."""
     if isinstance(d, list):
         return [decode(v) for v in d]
     if not isinstance(d, dict):
         return d
     if "__mesh__" in d:
-        raise not_ported(f"a spec mesh {d['__mesh__']!r}", 14)
+        axes = d["__mesh__"]
+        extra = set(axes) - {"data", "model"}
+        if extra:
+            raise ValueError(
+                f"cannot rebuild a mesh with axes {sorted(extra)} — only "
+                "host meshes over (data, model) round-trip")
+        return make_host_mesh(data=int(axes.get("data", 1)),
+                              model=int(axes.get("model", 1)))
     tag = d.get("__type__")
     if tag is None:
         return {k: decode(v) for k, v in d.items()}

@@ -33,9 +33,28 @@ a callable noise source in place of the generator, so the parity tests
 inject the reference's ``jax.random.normal`` draws and hold a DP-on round
 to it draw for draw.
 
-The JAX package's ``client_shardings`` / ``master_shardings`` place the
-round on a mesh; the port runs on one device and takes them only as
-``None`` (the multi-device half is ROADMAP.md queue 1 item 14).
+On a mesh (``client_shardings`` / ``master_shardings``, trees of
+:class:`repro_torch.launch.shardings.NamedSharding` from
+``tree_shardings``, on a :func:`repro_torch.launch.mesh.make_host_mesh`
+mesh over the process group's W ranks) each rank runs G / W of the
+clients, as the reference's stacked client dim is split over the data
+axes:
+
+  * the master and the server optimizer's state are ZeRO-sharded as
+    ``master_shardings`` says (``leaf_spec(role="master")``: one d_model
+    dim split over the data axis, or the leaf replicated): each rank
+    holds its shards (:func:`shard_master`), the round all-gathers the
+    compute-dtype master for its clients, reduce-scatters the weighted
+    delta sum onto the shards (all-reduces the replicated leaves) and
+    updates each shard;
+  * client c's noise comes from its own generator or the injected source
+    on whichever rank it runs, and the client-level noise of the stacked
+    (G, ...) delta is drawn whole and each rank takes its clients' rows,
+    so the draws are the one-process round's;
+  * ``delta_norm`` and ``weight_sum`` are global, equal on every rank.
+
+Without a process group (W = 1) the shardings change nothing.  A mesh
+whose model axis is above 1 raises (ROADMAP.md queue 1 item 19).
 """
 from __future__ import annotations
 
@@ -46,6 +65,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.dp import DPConfig
+from repro_torch.launch import collectives as coll
+from repro_torch.launch.mesh import num_client_groups, require_runnable
+from repro_torch.launch.shardings import data_dim
 from repro_torch.optim.optimizers import SGD, Adam
 from repro_torch.pytree import tree_leaves, tree_map, tree_unflatten_like
 
@@ -184,6 +206,67 @@ def client_noise(key, G: int, device):
     return [torch.Generator(device).manual_seed(int(s)) for s in seeds]
 
 
+def _sharding_leaves(shardings):
+    return [] if shardings is None else tree_leaves(shardings)
+
+
+def master_dims(master_shardings) -> "list | None":
+    """Per master leaf, the dim its sharding splits over the data axis
+    (None: replicated); None without shardings."""
+    if master_shardings is None:
+        return None
+    return [data_dim(s) for s in tree_leaves(master_shardings)]
+
+
+def shard_master(tree, master_shardings):
+    """This rank's shards of a whole master-shaped tree (the params, or
+    any tree shaped like them): no communication."""
+    if master_shardings is None:
+        return tree
+    mesh = tree_leaves(master_shardings)[0].mesh
+    return coll.shard_tree(tree, master_dims(master_shardings), mesh.rank,
+                           num_client_groups(mesh))
+
+
+def gather_master(tree, master_shardings):
+    """Whole leaves from this rank's shards (an all-gather on a mesh with a
+    process group; every rank must call it)."""
+    if master_shardings is None:
+        return tree
+    mesh = tree_leaves(master_shardings)[0].mesh
+    if mesh.group is None:
+        return tree
+    return coll.all_gather_tree(tree, master_dims(master_shardings),
+                                mesh.group)
+
+
+def _round_mesh(fl: FLStepConfig, client_shardings, master_shardings):
+    """The mesh of the shardings (None without), checked runnable, and the
+    client split: every client leaf split on its leading dim, G a
+    multiple of the data-axis product."""
+    shs = (_sharding_leaves(client_shardings)
+           + _sharding_leaves(master_shardings))
+    if not shs:
+        return None
+    mesh = shs[0].mesh
+    if any(s.mesh != mesh for s in shs):
+        raise ValueError("client and master shardings lie on different "
+                         "meshes")
+    require_runnable(mesh)
+    for s in _sharding_leaves(client_shardings):
+        if data_dim(s) != 0:
+            raise ValueError(
+                f"client sharding {s.spec} does not split the leading "
+                "client dim over the data axis")
+    w = num_client_groups(mesh)
+    if fl.num_clients % w:
+        raise ValueError(
+            f"num_clients G={fl.num_clients} is not a multiple of the "
+            f"data-axis product {w}: the clients cannot split over it")
+    master_dims(master_shardings)       # validates the master specs
+    return mesh
+
+
 def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
                        client_shardings=None, master_shardings=None):
     """``loss_fn(params, batch) -> scalar mean loss``, where every tensor
@@ -192,7 +275,8 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
     Returns ``fl_train_step(master, opt_state, batch, weights, key) ->
     (new_master, new_opt_state, metrics)``:
 
-      master:    f32 param tree
+      master:    f32 param tree (on a mesh: this rank's shards, from
+                 :func:`shard_master`; the optimizer state likewise)
       batch:     global batch; leading dim = G * per_client_batch
       weights:   (G,) aggregation weights (uniform p_k = FedAvg Eq. 9;
                  staleness alpha/(1+tau) = FedAsync Eq. 10)
@@ -201,11 +285,15 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
                  client-level delta noise, drawn at step 0 with the
                  stacked (G, ...) shape)
       metrics:   ``{"delta_norm", "weight_sum"}``
+
+    ``client_shardings`` / ``master_shardings``: the round on a mesh
+    (module docstring).
     """
-    if client_shardings is not None or master_shardings is not None:
-        from repro_torch.engine.engine import not_ported
-        raise not_ported("fl_step shardings (a mesh)", 14)
     G = fl.num_clients
+    mesh = _round_mesh(fl, client_shardings, master_shardings)
+    group = mesh.group if mesh is not None else None
+    w = num_client_groups(mesh) if group is not None else 1
+    dims = master_dims(master_shardings)
     server_opt = make_server_optimizer(fl)
     cdtype = getattr(torch, fl.compute_dtype)
     local_phase = make_local_phase(loss_fn, fl)
@@ -214,48 +302,68 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
     def fl_train_step(master, opt_state, batch, weights, key):
         device = tree_leaves(master)[0].device
         master_c = tree_map(lambda m: m.to(cdtype), master)
+        leaf_dims = dims or [None] * len(tree_leaves(master))
+        if group is not None:
+            # the broadcast: the compute-dtype shards all-gathered
+            master_c = coll.all_gather_tree(master_c, leaf_dims, group)
         cbatch = tree_map(
             lambda x: split_batch(x, G, fl.n_local, fl.n_micro), batch)
         sources = client_noise(key, G, device)
+        r = mesh.rank if group is not None else 0
+        mine = range(r * G // w, (r + 1) * G // w)
         deltas = []
-        for g in range(G):
+        for g in mine:
             new = local_phase(master_c, tree_map(lambda x: x[g], cbatch),
                               sources[g])
             deltas.append(tree_map(lambda n, s: n.float() - s.float(),
                                    new, master_c))
             del new
+        del master_c
         if dp.granularity == "client_level":
             # per-client global norms across ALL leaves, then one noise
-            # draw per leaf of the stacked (G, ...) delta
+            # draw per leaf of the stacked (G, ...) delta, this rank's
+            # clients' rows of it
             norms = torch.sqrt(torch.stack([
                 sum(torch.sum(torch.square(l)) for l in tree_leaves(d))
                 for d in deltas]))
             scales = 1.0 / torch.clamp(norms / dp.clip_norm, min=1.0)
-            deltas = [tree_map(lambda l, s=scales[g]: l * s, d)
-                      for g, d in enumerate(deltas)]
+            deltas = [tree_map(lambda l, s=scales[i]: l * s, d)
+                      for i, d in enumerate(deltas)]
             if dp.noise_multiplier > 0:
                 stddev = dp.noise_multiplier * dp.clip_norm
                 zs = [_draw(sources[G], 0, j, (G,) + tuple(l.shape), device)
                       for j, l in enumerate(tree_leaves(deltas[0]))]
                 deltas = [tree_unflatten_like(d, [
                     l + stddev * z[g] for l, z in zip(tree_leaves(d), zs)])
-                    for g, d in enumerate(deltas)]
+                    for g, d in zip(mine, deltas)]
+                del zs
         # weighted aggregation over the clients (paper Eq. 9 / 10-11)
         weights = torch.as_tensor(weights, device=device)
         wsum = torch.sum(weights)
         wn = (weights / wsum).to(torch.float32)
-        agg = tree_map(lambda l: wn[0] * l, deltas[0])
-        for g in range(1, G):
-            agg = tree_map(lambda a, l, w=wn[g]: a + w * l, agg, deltas[g])
+        # in place over the deltas (the same products and sums, one f32
+        # copy of the model fewer)
+        agg = tree_map(lambda l: l.mul_(wn[mine[0]]), deltas[0])
+        for g, d in zip(mine[1:], deltas[1:]):
+            tree_map(lambda a, l, w_=wn[g]: a.add_(w_ * l), agg, d)
         del deltas
+        if group is not None:
+            # the sum over ranks, left on the master's shards
+            agg = coll.reduce_scatter_tree(agg, leaf_dims, group)
         # server update: FedAdam treats -Delta as the gradient
         neg = tree_map(torch.neg, agg)
         new_master, new_opt_state = server_opt.update(neg, opt_state, master)
-        metrics = {
-            "delta_norm": torch.sqrt(sum(
-                torch.sum(torch.square(l)) for l in tree_leaves(agg))),
-            "weight_sum": wsum,
-        }
+        sq = [torch.sum(torch.square(l)) for l in tree_leaves(agg)]
+        if group is not None:
+            # each sharded leaf's sum over its shards; replicated leaves
+            # count once
+            split = [d is not None for d in leaf_dims]
+            part = coll.all_reduce_sum(torch.stack([
+                q if s else torch.zeros_like(q)
+                for q, s in zip(sq, split)]), group)
+            sq = [part[j] if s else q
+                  for j, (q, s) in enumerate(zip(sq, split))]
+        metrics = {"delta_norm": torch.sqrt(sum(sq)), "weight_sum": wsum}
         return new_master, new_opt_state, metrics
 
     return fl_train_step

@@ -79,8 +79,9 @@ def run_fedavg(
     which a Session uploads once.  ``checkpoint``/``resume_from``
     (cohort engine only) snapshot and resume the run — see
     :mod:`repro_torch.engine.resilience`; ``engine_cfg`` may pick any
-    client-axis executor (``"fl_step"`` with its ``fl_cfg``); ``mesh``
-    raises (ROADMAP.md queue 1 item 14)."""
+    client-axis executor (``"fl_step"`` with its ``fl_cfg``); ``mesh`` (a
+    ``launch.mesh`` mesh) partitions the cohort engine's client axis over
+    the mesh's data axis — cohort-engine only."""
     eval_every = _normalize_eval_every(eval_every)
     if engine == "cohort":
         from repro_torch.engine.engine import run_fedavg_engine
@@ -120,7 +121,9 @@ def run_async(
 ) -> tuple:
     """Event-driven asynchronous FL (Eq. 10-11): every client trains
     continuously, pulling the fresh globals as soon as its update merged,
-    so fast tiers complete many rounds while slow tiers finish one."""
+    so fast tiers complete many rounds while slow tiers finish one.
+    ``mesh`` partitions the cohort engine's client axis over the mesh's
+    data axis — cohort-engine only."""
     eval_every = _normalize_eval_every(eval_every)
     if engine == "cohort":
         from repro_torch.engine.engine import run_async_engine

@@ -145,7 +145,10 @@ def run_experiment(
     one-run :class:`repro_torch.api.Session`.  ``engine`` is "cohort"
     (the batched engine) or "legacy" (the per-client loop); ``engine_cfg``
     may pick any of the reference's client-axis executors, ``"fl_step"``
-    with its ``fl_cfg``; ``mesh`` raises (ROADMAP.md queue 1 item 14)."""
+    with its ``fl_cfg``.  ``mesh`` (cohort engine only, a
+    :func:`repro_torch.launch.mesh.make_host_mesh` mesh, every rank of the
+    process group calling this) partitions the cohort client axis over
+    the mesh's data axis."""
     from repro_torch.api import ExperimentSpec, Session
     spec = ExperimentSpec.from_legacy(
         strategy_name, cfg, rounds=rounds, max_updates=max_updates,

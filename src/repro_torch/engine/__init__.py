@@ -10,8 +10,8 @@ host-fed and arena data paths, the pipelined scheduler
 
 Frontends: ``repro_torch.core.server.run_fedavg`` / ``run_async`` take
 ``engine="cohort"`` (this package) or ``engine="legacy"`` (the per-client
-loop).  Not ported yet, each rejected naming its ROADMAP.md item: mesh
-execution, the other client axes and the production round (item 14).
+loop).  ``EngineConfig(mesh=...)`` splits each cohort's members over the
+data axis of a process group's ranks (``mesh_backend``).
 """
 from repro_torch.engine.cohort import (
     LocalRoundPlan,
@@ -37,6 +37,12 @@ from repro_torch.engine.engine import (
     run_async_engine,
     run_fedavg_engine,
 )
+from repro_torch.engine.mesh_backend import (
+    CohortSharding,
+    assert_cohort_partitioned,
+    cohort_mesh,
+    cohort_spec,
+)
 from repro_torch.engine.resilience import CheckpointPolicy, SimulatedCrash
 from repro_torch.engine.statestore import (
     DataArena,
@@ -48,6 +54,7 @@ __all__ = [
     "CLIENT_AXES",
     "CheckpointPolicy",
     "CohortRunner",
+    "CohortSharding",
     "DataArena",
     "EngineConfig",
     "LocalRoundPlan",
@@ -55,7 +62,10 @@ __all__ = [
     "StagedCohort",
     "StoreConfig",
     "TieredStateStore",
+    "assert_cohort_partitioned",
     "cached_cohort_step",
+    "cohort_mesh",
+    "cohort_spec",
     "fedavg_weights",
     "fold_cohort_weights",
     "invalidate_step_cache",

@@ -127,9 +127,10 @@ def padded_cohort_size(k: int, n_data: int = 1, pow2: bool = True) -> int:
     bucket >= K, rounded up to a multiple of the mesh data-axis product
     ``n_data`` so the stacked cohort ALWAYS partitions under GSPMD (which
     silently replicates uneven leading-dim constraints).  Pad members are
-    zero-weight masked — ``n_steps=0`` in the compiled step, coefficient 0
-    in ``merge_cohort`` — so the result is bit-identical to the unpadded
-    cohort while the recompile set collapses to the bucket sizes.
+    masked — ``n_steps=0`` in the cohort step, left out of the merge (the
+    port's engine; the reference gives them coefficient 0) — so the
+    result is bit-identical to the unpadded cohort while the recompile
+    set collapses to the bucket sizes.
 
     ``pow2`` mirrors ``EngineConfig.pow2_cohorts``: with bucketing off the
     pad goes straight to the MINIMAL multiple of ``n_data`` — pad members

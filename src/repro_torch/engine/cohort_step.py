@@ -11,8 +11,8 @@ Two data paths (``make_cohort_step(arena=...)``):
   from the resident data by the (K, S_max, B) int32 plan.  The new
   optimizer state is scattered back into its slots in place (the runner
   owns the arena; the reference copies it, being pure).  Slots may
-  repeat only if they carry identical rows (the reference's pad
-  members); the port's runner never pads.
+  repeat only if they carry identical rows (a mesh's pad members, which
+  all gather the pad row).
 * **host-fed** (``EngineConfig(device_arena=False)``) — the runner stacks
   the members' params, optimizer states and (K, S_max, B, ...) batches
   itself and the step returns the new stacked optimizer state.
@@ -59,6 +59,20 @@ The step returns ``(upload, arena_opt, screen)``: each member's upload is
 through), and ``_screen_members`` computes each member's finite verdict
 and update-delta norm, which the engine compares with the screening
 thresholds on the host — so faults and screening never change the step.
+
+On a mesh (``sharding``, an
+:class:`~repro_torch.engine.mesh_backend.CohortSharding`) each rank
+trains its K / W members of the cohort (``sharding.rows``), with the
+same executor on its own rows (the step-major one launches ``dp_clip``
+on its (K / W, B, D) rows), then every rank all-gathers the trained
+params and optimizer state in member order; the corruption, the screen
+outputs, the arena write-back and the merge then run on the whole
+cohort on every rank, as in one process.  The client-state arena stays
+replicated on every rank (the reference's arena replicates too whenever
+its row count does not divide the mesh).  The last cohort's rows of this
+rank are kept as ``cohort_step.partition`` (a tree of
+:class:`~repro_torch.engine.mesh_backend.Shard`) for
+:func:`~repro_torch.engine.mesh_backend.assert_cohort_partitioned`.
 
 Built steps are cached by their training config (:func:`cached_cohort_step`,
 the reference's ``_STEP_CACHE``): sigma is stripped from the key (the
@@ -157,7 +171,8 @@ def stack_trees(trees):
 def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
                      use_dp: bool = True, dp_path: str = "jnp",
                      add_noise: bool = True, arena: bool = True,
-                     client_axis: str = "unroll", fl_cfg=None):
+                     client_axis: str = "unroll", fl_cfg=None,
+                     sharding=None):
     """Build ``(cohort_step, merge_cohort)``.
 
     With ``arena=True``: ``cohort_step(arena_params, arena_opt,
@@ -192,7 +207,8 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
 
     ``client_axis`` picks the executor (module docstring); ``fl_cfg`` (an
     ``FLStepConfig``) is required by ``"fl_step"`` and ignored by the
-    others.
+    others.  ``sharding`` (a ``CohortSharding``) splits the members over
+    the mesh's ranks (module docstring).
     """
     global _STEP_BUILDS
     _STEP_BUILDS += 1
@@ -337,6 +353,27 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         execute = {"vmap": run_members_vmap,
                    "fl_step": run_members_fl}.get(client_axis, run_members)
 
+    def execute_rows(stacked_params, stacked_opt, gens, batches, n_steps,
+                     live_steps, noise_stddev):
+        """The executor over this rank's members, then every rank's
+        trained members gathered in member order (without a mesh: the
+        executor over the whole cohort)."""
+        if sharding is None:
+            return execute(stacked_params, stacked_opt, gens, batches,
+                           n_steps, live_steps, noise_stddev)
+        k = len(gens)
+        lo, hi = sharding.rows(k)
+        rows = slice(lo, hi)
+        new_params, new_opt = execute(
+            tree_map(lambda l: l[rows], stacked_params),
+            tree_map(lambda l: l[rows], stacked_opt), gens[rows],
+            {kk: v[rows] for kk, v in batches.items()}, n_steps[rows],
+            live_steps[rows], noise_stddev)
+        step.partition = sharding.record(new_params, k, lo)
+        if not sharding.partitions(k):
+            return new_params, new_opt
+        return sharding.gather((new_params, new_opt))
+
     def cohort_step_arena(arena_params, arena_opt, arena_data, slots,
                           data_slots, batch_idx, gens, n_steps, noise_stddev,
                           corrupt_scale, live_steps):
@@ -346,9 +383,9 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         # plan crossed host->device
         batches = {k: l[data_slots[:, None, None], batch_idx]
                    for k, l in arena_data.items()}
-        new_params, new_opt = execute(stacked_params, stacked_opt, gens,
-                                      batches, n_steps, live_steps,
-                                      noise_stddev)
+        new_params, new_opt = execute_rows(stacked_params, stacked_opt, gens,
+                                           batches, n_steps, live_steps,
+                                           noise_stddev)
         # write-back: the honest post-training state; corruption below
         # touches only the returned upload payload
         put_rows_(arena_opt, slots, new_opt)
@@ -358,14 +395,15 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
 
     def cohort_step_host(stacked_params, stacked_opt, batches, gens, n_steps,
                          noise_stddev, corrupt_scale, live_steps):
-        new_params, new_opt = execute(stacked_params, stacked_opt, gens,
-                                      batches, n_steps, live_steps,
-                                      noise_stddev)
+        new_params, new_opt = execute_rows(stacked_params, stacked_opt, gens,
+                                           batches, n_steps, live_steps,
+                                           noise_stddev)
         upload = _corrupt_members(stacked_params, new_params, corrupt_scale)
         screen = _screen_members(stacked_params, upload)
         return upload, new_opt, screen
 
-    cohort_step = cohort_step_arena if arena else cohort_step_host
+    step = cohort_step_arena if arena else cohort_step_host
+    step.partition = None
 
     def merge_cohort(global_params, stacked_uploads, coeffs, g_coeff):
         coeffs = coeffs.to(torch.float32)
@@ -380,7 +418,7 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
 
         return tree_map(leaf, global_params, stacked_uploads)
 
-    return cohort_step, merge_cohort
+    return step, merge_cohort
 
 
 # ---------------------------------------------------------------------------
@@ -408,11 +446,11 @@ def _hashable_loss(loss_fn):
 def cached_cohort_step(loss_fn, dp_cfg: DPConfig, opt, use_dp: bool = True,
                        dp_path: str = "jnp", add_noise: bool = True,
                        arena: bool = True, client_axis: str = "unroll",
-                       fl_cfg=None):
+                       fl_cfg=None, sharding=None):
     """Memoized :func:`make_cohort_step`, keyed as the reference keys it
     (training config, DP path, executor, ``fl_cfg``, the static noise
-    on/off, the data path) minus what the port has no counterpart of
-    (shardings, donation).
+    on/off, the data path, the ``CohortSharding`` and so its mesh) minus
+    what the port has no counterpart of (donation).
     ``dp_cfg.noise_multiplier`` is stripped from the key: the noise scale
     is a runtime argument, so every sigma of a sweep shares one entry
     (the ``"fl_step"`` executor's noise lives in ``fl_cfg``, which stays
@@ -424,10 +462,10 @@ def cached_cohort_step(loss_fn, dp_cfg: DPConfig, opt, use_dp: bool = True,
         return make_cohort_step(
             loss_fn, dp_cfg, opt, use_dp=use_dp, dp_path=dp_path,
             add_noise=add_noise, arena=arena, client_axis=client_axis,
-            fl_cfg=fl_cfg)
+            fl_cfg=fl_cfg, sharding=sharding)
 
     key = (_hashable_loss(loss_fn), dp_cfg, opt, use_dp, dp_path,
-           client_axis, fl_cfg, add_noise, arena)
+           client_axis, fl_cfg, add_noise, arena, sharding)
     try:
         hash(key)
     except TypeError:
@@ -437,9 +475,12 @@ def cached_cohort_step(loss_fn, dp_cfg: DPConfig, opt, use_dp: bool = True,
     return _STEP_CACHE[key]
 
 
-def invalidate_step_cache() -> int:
-    """Drop every cached step; returns how many entries were dropped.  (The
-    port keeps no compiled graph or other state behind the entries.)"""
-    n = len(_STEP_CACHE)
-    _STEP_CACHE.clear()
-    return n
+def invalidate_step_cache(mesh=None) -> int:
+    """Drop the cached steps (only those sharded over ``mesh`` when it is
+    given); returns how many entries were dropped.  (The port keeps no
+    compiled graph or other state behind the entries.)"""
+    drop = [k for k in _STEP_CACHE
+            if mesh is None or (k[-1] is not None and k[-1].mesh == mesh)]
+    for k in drop:
+        del _STEP_CACHE[k]
+    return len(drop)

@@ -52,9 +52,20 @@ seeds that member's device ``torch.Generator`` for its DP noise.
 Executors (``EngineConfig.client_axis``): ``"unroll"``, ``"map"``,
 ``"vmap"`` and ``"fl_step"``, the production round's local phase driven
 from the event loop with ``EngineConfig.fl_cfg``
-(:mod:`repro_torch.engine.cohort_step`).  Not in this slice (rejected by
-:class:`EngineConfig` with the ROADMAP item that brings it): mesh
-execution.
+(:mod:`repro_torch.engine.cohort_step`).
+
+Mesh execution (``EngineConfig.mesh``, a
+:func:`repro_torch.launch.mesh.make_host_mesh` mesh over the process
+group's ranks): every rank runs this loop, its host bookkeeping
+(scheduler, accountant, RunLog, faults, screen, store decisions) alike
+on every rank, and each cohort's members split over the data axis
+(:mod:`repro_torch.engine.mesh_backend`).  On the arena path cohorts pad
+to a multiple of the data-axis product (``cohort.padded_cohort_size``;
+pad members take zero steps from the pad row and the merge leaves them
+out) and the client-state arena's row count rounds up to one.  Member
+generators are seeded by dispatch seed, so a member's noise does not
+depend on the rank it lands on.  A mesh with a model axis above 1
+raises (ROADMAP.md queue 1 item 19).
 """
 from __future__ import annotations
 
@@ -76,29 +87,24 @@ from repro_torch.core.runlog import (
     RunLog, eval_all, finish_log, validate_engine_stats)
 from repro_torch.core.screening import ScreeningState, zero_screen_stats
 from repro_torch.engine.cohort import (
-    LocalRoundPlan, fedavg_weights, fold_cohort_weights, plan_batches,
-    pop_cohort, steps_per_round)
+    LocalRoundPlan, fedavg_weights, fold_cohort_weights, padded_cohort_size,
+    plan_batches, pop_cohort, steps_per_round)
 from repro_torch.engine.cohort_step import (
     cached_cohort_step, put_rows_, stack_trees, take_rows, unstack_tree,
     validate_client_axis)
 from repro_torch.engine.statestore import (
     DataArena, StoreConfig, TieredStateStore, _tree_nbytes, zero_store_stats)
+from repro_torch.engine.mesh_backend import CohortSharding
 from repro_torch.kernels.common import kernel_info
+from repro_torch.launch.mesh import num_client_groups, require_runnable
 from repro_torch.pytree import tree_leaves, tree_map
-
-# the ROADMAP.md queue 1 items that bring what the port still rejects
-_ROADMAP_ITEMS = {14: "multi-GPU"}
-
-
-def not_ported(what: str, item: int) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP.md queue 1 item "
-                      f"{item}, '{_ROADMAP_ITEMS[item]}')")
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """The reference's fields, defaults and validation; a mesh, which the
-    port does not have yet, raises, naming the ROADMAP.md item."""
+    """The reference's fields, defaults and validation.  ``mesh`` is a
+    :class:`repro_torch.launch.mesh.HostMesh`; the runner refuses one it
+    cannot run (a model axis above 1, or fewer ranks than the group)."""
 
     staleness_window: float = 0.0  # virtual seconds of completions per cohort
     max_cohort: int = 2            # cap on popped cohort size
@@ -130,15 +136,12 @@ class EngineConfig:
                     f">= max_cohort={self.max_cohort}: a staged cohort pins "
                     "one hot slot per member, so a smaller hot set "
                     "deadlocks slot acquisition")
-        if self.mesh is not None:
-            raise not_ported(f"EngineConfig.mesh={self.mesh!r}", 14)
         if self.max_cohort < 1:
             raise ValueError(f"max_cohort must be >= 1: {self.max_cohort}")
 
 
 def _resolve_cfg(engine_cfg, mesh) -> EngineConfig:
-    """Fold a frontend-supplied mesh into the config (raises, naming item
-    14)."""
+    """Fold a frontend-supplied mesh into the config."""
     cfg = engine_cfg or EngineConfig()
     if mesh is not None and cfg.mesh is None:
         cfg = replace(cfg, mesh=mesh)
@@ -294,10 +297,24 @@ class CohortRunner:
                     "the executed mechanism")
         add_noise = bool(c0.use_dp and c0.dp_cfg.noise_multiplier > 0)
         self.dp_path = c0.dp_path if c0.use_dp else "jnp"
+        # the mesh: members split over the data axis of the process group
+        # (no group, W = 1: the one-process step); arena cohorts pad to a
+        # multiple of the data-axis product (reference engine.py:368-374)
+        self.mesh = cfg.mesh
+        self.sharding = None
+        self._n_data = 1
+        if self.mesh is not None:
+            require_runnable(self.mesh)
+            if self.mesh.group is not None:
+                self.sharding = CohortSharding(self.mesh)
+            if self.use_arena:
+                self._n_data = num_client_groups(self.mesh)
+        self.last_partition = None
         self.cohort_step, self.merge_cohort = cached_cohort_step(
             c0.loss_fn, c0.dp_cfg, c0.opt, use_dp=c0.use_dp,
             dp_path=self.dp_path, add_noise=add_noise, arena=self.use_arena,
-            client_axis=cfg.client_axis, fl_cfg=cfg.fl_cfg)
+            client_axis=cfg.client_axis, fl_cfg=cfg.fl_cfg,
+            sharding=self.sharding)
         # runtime noise scale sigma*C/B: float64 on the host, rounded once
         # to float32 (reference engine.py:360), then one device element
         self._noise_std = torch.tensor(
@@ -407,13 +424,18 @@ class CohortRunner:
         self._arena_data = data_arena.leaves
         self._data_slot_of = data_arena.slot_of_cid
         hot = self.cfg.store.hot_slots if self.tiered else n
-        # plus the reference's pad row, which the port never gathers (it
-        # does not pad cohorts): one row keeps both arenas' shapes, and so
-        # the snapshot arrays and the store's byte counts, the reference's
-        self.arena_slots = hot + 1
+        # plus the pad row, gathered by a mesh's pad members, and rounded
+        # up to a multiple of the data-axis product (reference
+        # engine.py:500-504): both arenas' shapes, and so the snapshot
+        # arrays and the store's byte counts, are the reference's
+        self.pad_slot = hot
+        slots = hot + 1
+        if self._n_data > 1:
+            slots = -(-slots // self._n_data) * self._n_data
+        self.arena_slots = slots
         self._data_slots_identical = (
-            not self.tiered and np.array_equal(self._data_slot_of,
-                                               np.arange(n)))
+            not self.tiered and data_arena.pad_slot == self.pad_slot
+            and np.array_equal(self._data_slot_of, np.arange(n)))
 
     def _ensure_state_arenas(self, params):
         if self._arena_params is not None:
@@ -664,20 +686,28 @@ class CohortRunner:
         else:
             member_slots = cids
         self._flush_writes()
-        slots = np.array(member_slots, np.int32)
+        # on a mesh the cohort pads to a multiple of the data-axis product
+        # with zero-step members on the pad rows
+        k_pad = (padded_cohort_size(k, self._n_data, self.cfg.pow2_cohorts)
+                 if self._n_data > 1 else k)
+        slots = np.full((k_pad,), self.pad_slot, np.int32)
+        slots[:k] = member_slots
         dslots = None
         if not self._data_slots_identical:
-            dslots = self._data_slot_of[cids].astype(np.int32)
+            dslots = np.full((k_pad,), self.data_arena.pad_slot, np.int32)
+            dslots[:k] = self._data_slot_of[cids]
         if self.s_max == 0:  # degenerate: no client has a full batch
             slots_d = self._h2d(slots)[0].long()
             return StagedCohort(plans=plans, k=k, degenerate=True,
                                 slots=slots_d, data_slots=slots_d)
         batch_size = self.clients[0].batch_size
-        batch_idx = np.zeros((k, self.s_max, batch_size), np.int32)
+        batch_idx = np.zeros((k_pad, self.s_max, batch_size), np.int32)
         for i, p in enumerate(plans):
             batch_idx[i] = self._pad_idx(p.batch_idx, batch_size)
-        n_steps = np.array([p.n_steps for p in plans], np.int32)
-        scales = np.array([p.corrupt_scale for p in plans], np.float32)
+        n_steps = np.zeros((k_pad,), np.int32)
+        n_steps[:k] = [p.n_steps for p in plans]
+        scales = np.ones((k_pad,), np.float32)  # pad members stay clean
+        scales[:k] = [p.corrupt_scale for p in plans]
         self.cohorts_run += 1
         self.h2d_bytes_total += (batch_idx.nbytes + slots.nbytes
                                  + n_steps.nbytes + scales.nbytes
@@ -748,6 +778,10 @@ class CohortRunner:
             return take_rows(self._arena_params, staged.slots)
         gens = [torch.Generator(self.device).manual_seed(p.key)
                 for p in plans]
+        if staged.n_steps is not None and len(staged.n_steps) > len(plans):
+            # a mesh's pad members (zero steps: they draw nothing)
+            gens += [torch.Generator(self.device).manual_seed(0)
+                     for _ in range(len(staged.n_steps) - len(plans))]
         if not staged.arena:
             upload, new_opt, screen = self.cohort_step(
                 staged.stacked_params, staged.stacked_opt, staged.batches,
@@ -766,6 +800,7 @@ class CohortRunner:
                 # members trained too), so eviction must spill it
                 self.store.note_trained([p.cid for p in plans])
         self._last_screen = screen
+        self.last_partition = self.cohort_step.partition
         if self._submits_block:
             self._serial_done = self.cohort_done()
         return upload
@@ -804,6 +839,15 @@ def _coeffs_f32(runner, coeffs):
     """Merge coefficients rounded to the merge dtype (float32) on the host
     (reference engine.py:905), then one staged upload."""
     return runner._h2d(np.asarray(coeffs, dtype=np.float32))[0]
+
+
+def _members(stacked, k: int):
+    """The cohort's ``k`` real members of a (on a mesh, padded) stack.  The
+    reference merges the padded stack with zero coefficients; the port
+    drops the pad rows instead, so the merge is the one-process merge bit
+    for bit (a product over K_pad rows may round differently on the card,
+    pad zeros or not)."""
+    return tree_map(lambda l: l[:k], stacked)
 
 
 def _fused_ok(strategy, clients, plans, cfg: EngineConfig) -> bool:
@@ -960,7 +1004,7 @@ def run_fedavg_engine(
                 off = 0
                 for ch, st in zip(chunks, stacked_chunks):
                     merged = runner.merge_cohort(
-                        merged, st,
+                        merged, _members(st, len(ch)),
                         _coeffs_f32(runner, coeffs[off:off + len(ch)]), 1.0)
                     off += len(ch)
                 global_params = merged
@@ -1150,8 +1194,8 @@ def run_async_engine(
                     n_del += 1
             g_coeff, coeffs = fold_cohort_weights(weights)
             global_params = runner.merge_cohort(
-                global_params, new_stacked, _coeffs_f32(runner, coeffs),
-                g_coeff)
+                global_params, _members(new_stacked, len(plans)),
+                _coeffs_f32(runner, coeffs), g_coeff)
             server_version += n_del
         else:
             # member by member, in the cohort's order

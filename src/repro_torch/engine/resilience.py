@@ -38,10 +38,17 @@ the host; like the reference it counts no host sync.
 
 Storage is the durable flat-npz store of :mod:`repro_torch.checkpoint`
 (atomic publish, ``keep_last`` retention, escaped tree-path keys).
+
+On a mesh every rank builds the snapshot (the state is the same on
+every rank), rank 0 writes it, and all ranks wait at a barrier before
+going on, so each rank restores from the same file.  A resume at another
+data-axis size works: the arenas' rows beyond the pad row, which the
+mesh's rounding adds, carry nothing, and are cut or added on restore.
 """
 from __future__ import annotations
 
 import heapq
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -99,9 +106,17 @@ class CheckpointPolicy:
         so the first snapshot after it lands on the next multiple)."""
         self._next = (int(step) // self.every + 1) * self.every
 
-    def _publish(self, step: int, tree: dict, meta: dict) -> str:
-        path = _ckpt.save(self.directory, step, tree, meta,
-                          keep_last=self.keep_last)
+    def _publish(self, step: int, tree: dict, meta: dict,
+                 group=None) -> str:
+        """Write the snapshot (on a mesh, ``group``: rank 0 writes and
+        every rank waits for it)."""
+        if group is None or torch.distributed.get_rank(group) == 0:
+            path = _ckpt.save(self.directory, step, tree, meta,
+                              keep_last=self.keep_last)
+        if group is not None:
+            from repro_torch.launch.collectives import barrier
+            barrier(group)
+            path = os.path.join(self.directory, f"step_{int(step):08d}.npz")
         self.mark(step)
         self.saves += 1
         if (self.crash_after_saves is not None
@@ -246,6 +261,21 @@ def _snapshot_common(runner, clients, log, injector, global_params, rng,
     return flat, meta
 
 
+def _fit_rows(tree, rows: int):
+    """Arena leaves cut or extended (repeating the last row) to ``rows``:
+    a snapshot from a mesh of another data-axis size rounds the arena to
+    another multiple; rows past the pad row are never gathered."""
+    from repro_torch.pytree import tree_map
+
+    def fit(l):
+        n = l.shape[0]
+        if n >= rows:
+            return l[:rows].contiguous()
+        return torch.cat([l, l[-1:].expand((rows - n,) + tuple(l.shape[1:]))])
+
+    return tree_map(fit, tree)
+
+
 def _restore_common(flat, meta, runner, clients, log, injector,
                     global_params, rng):
     """Inverse of :func:`_snapshot_common`; returns the globals and sets
@@ -285,9 +315,11 @@ def _restore_common(flat, meta, runner, clients, log, injector,
     rng.bit_generator.state = meta["dispatch_rng"]
     if meta["has_arena"]:
         runner._ensure_state_arenas(globals_)
-        runner._arena_params = _get_tree(
-            flat, "arena_params", runner._arena_params)
-        runner._arena_opt = _get_tree(flat, "arena_opt", runner._arena_opt)
+        rows = runner.arena_slots
+        runner._arena_params = _fit_rows(_get_tree(
+            flat, "arena_params", runner._arena_params), rows)
+        runner._arena_opt = _fit_rows(
+            _get_tree(flat, "arena_opt", runner._arena_opt), rows)
     if runner.store is not None:
         ss = meta["store_state"]
         runner.store.load_state_meta(ss)
@@ -358,6 +390,10 @@ def _restore_pending(flat, meta, clients, globals_) -> dict:
 # loop-facing entry points
 # ---------------------------------------------------------------------------
 
+def _group(runner):
+    return runner.mesh.group if runner.mesh is not None else None
+
+
 def save_async(policy: CheckpointPolicy, runner, clients, log, injector,
                global_params, rng, heap, pending, t_virtual: float,
                server_version: int, total_updates: int) -> str:
@@ -368,7 +404,7 @@ def save_async(policy: CheckpointPolicy, runner, clients, log, injector,
     meta.update(kind="async", t_virtual=float(t_virtual),
                 engine_version=int(server_version),
                 heap=[[float(t), int(cid)] for t, cid in heap])
-    return policy._publish(int(total_updates), flat, meta)
+    return policy._publish(int(total_updates), flat, meta, _group(runner))
 
 
 def restore_async(directory: str, runner, clients, log, injector,
@@ -396,7 +432,7 @@ def save_fedavg(policy: CheckpointPolicy, runner, clients, log, injector,
     flat, meta = _snapshot_common(
         runner, clients, log, injector, global_params, rng, pending={})
     meta.update(kind="fedavg", t_virtual=float(t_virtual), round=int(rnd))
-    return policy._publish(int(rnd), flat, meta)
+    return policy._publish(int(rnd), flat, meta, _group(runner))
 
 
 def restore_fedavg(directory: str, runner, clients, log, injector,

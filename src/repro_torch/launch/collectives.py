@@ -1,0 +1,313 @@
+"""Collectives over the mesh's data axis, and the process group they run
+in (the port's counterpart of what GSPMD inserts into the JAX package's
+programs).
+
+The backend is the caller's choice, made by one stated rule
+(:func:`choose_backend`) and printed by the launchers:
+
+* ``nccl`` when each rank owns a card;
+* ``gloo`` on the CPU;
+* ``gloo`` for several ranks sharing one card (NCCL refuses two ranks
+  on one GPU).  The CUDA tensors of such ranks go through host memory:
+  every collective here copies its CUDA buffer to the host, runs gloo's
+  CPU algorithm and copies the result back, for every collective alike
+  (gloo's own CUDA variants, where a build has them, stage through
+  pinned host memory too).  The copies are written out below and
+  counted per collective (``host_staged``).
+
+Nothing here picks a backend or a device behind the caller's back, and a
+collective that fails raises.
+
+Every function takes the data axis's process group (``mesh.group``).
+Trees are moved in buckets: consecutive leaves of one dtype are packed
+into one flat buffer of at most :data:`BUCKET_BYTES`, one collective per
+bucket.  :func:`stats` counts each collective's calls, the bytes of
+this rank's input buffers, how many went through host memory, and the
+host seconds spent in them (the whole call where it is host-staged or
+on the CPU; an NCCL call returns before the card has finished).
+"""
+from __future__ import annotations
+
+import socket
+import time
+import warnings
+from datetime import timedelta
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.pytree import tree_leaves, tree_unflatten_like
+
+BUCKET_BYTES = 256 << 20
+
+_LEDGER: dict = {}
+
+
+def stats() -> dict:
+    """``{collective: {"calls", "bytes", "host_staged", "seconds"}}``
+    since the last :func:`reset_stats` (bytes: this rank's input
+    buffers)."""
+    return {k: dict(v) for k, v in _LEDGER.items()}
+
+
+def reset_stats():
+    _LEDGER.clear()
+
+
+def _note(name: str, nbytes: int, staged: bool, t0: float):
+    e = _LEDGER.setdefault(name, {"calls": 0, "bytes": 0, "host_staged": 0,
+                                  "seconds": 0.0})
+    e["calls"] += 1
+    e["bytes"] += int(nbytes)
+    e["host_staged"] += int(staged)
+    e["seconds"] += time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# the process group
+# ---------------------------------------------------------------------------
+
+def choose_backend(device_type: str, world: int, cards: int = 0) -> str:
+    """The backend rule: ``nccl`` when each of the ``world`` ranks owns a
+    card (``device_type == "cuda"`` and ``world <= cards``), else
+    ``gloo`` (the CPU, or several ranks on one card)."""
+    if device_type == "cuda" and world <= cards:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(device_type: str, rank: int, cards: int = 0) -> torch.device:
+    """Rank ``rank``'s device: ``cuda:<rank mod cards>`` on the card(s),
+    else the CPU."""
+    if device_type == "cuda":
+        if cards < 1:
+            raise RuntimeError("no CUDA device for a cuda rank")
+        return torch.device("cuda", rank % cards)
+    return torch.device("cpu")
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for the group's rendezvous."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def init_group(backend: str, rank: int, world: int, port: int,
+               device=None, timeout_s: float = 600.0):
+    """Join the process group at ``tcp://localhost:<port>``; NCCL ranks
+    bind their card first."""
+    if backend == "nccl":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=world, timeout=timedelta(seconds=timeout_s))
+
+
+def describe(group, device) -> str:
+    """One line naming the group's backend and how CUDA tensors move."""
+    backend = dist.get_backend(group)
+    dev = torch.device(device)
+    note = ""
+    if backend == "gloo" and dev.type == "cuda":
+        note = (" (CUDA tensors staged through host memory for every "
+                "collective)")
+    return (f"backend {backend}, world {dist.get_world_size(group)}, rank "
+            f"{dist.get_rank(group)} on {dev}{note}")
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _host(x: torch.Tensor, staged: bool) -> torch.Tensor:
+    return x.cpu() if staged else x
+
+
+def _back(y: torch.Tensor, like: torch.Tensor, staged: bool) -> torch.Tensor:
+    return y.to(like.device) if staged else y
+
+
+def _call(fn_new: str, fn_old: str):
+    fn = getattr(dist, fn_new, None)
+    return fn if fn is not None else getattr(dist, fn_old)
+
+
+# ---------------------------------------------------------------------------
+# tensor collectives
+# ---------------------------------------------------------------------------
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` stacked on dim 0 in rank order: (W * n, ...)."""
+    t0 = time.perf_counter()
+    staged = _staged(x, group)
+    w = dist.get_world_size(group)
+    src = _host(x.contiguous(), staged)
+    out = torch.empty((w * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=src.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        _call("all_gather_single", "all_gather_into_tensor")(
+            out, src, group=group)
+    out = _back(out, x, staged)
+    _note("all_gather", x.numel() * x.element_size(), staged, t0)
+    return out
+
+
+def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ranks of ``x`` (W * n, ...), this rank's n rows."""
+    t0 = time.perf_counter()
+    staged = _staged(x, group)
+    w = dist.get_world_size(group)
+    if x.shape[0] % w:
+        raise ValueError(f"reduce_scatter of {tuple(x.shape)} over {w} ranks")
+    src = _host(x.contiguous(), staged)
+    out = torch.empty((x.shape[0] // w,) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=src.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        _call("reduce_scatter_single", "reduce_scatter_tensor")(
+            out, src, group=group)
+    out = _back(out, x, staged)
+    _note("reduce_scatter", x.numel() * x.element_size(), staged, t0)
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ranks of ``x`` (a new tensor)."""
+    t0 = time.perf_counter()
+    staged = _staged(x, group)
+    buf = x.detach().cpu() if staged else x.detach().clone()
+    dist.all_reduce(buf, group=group)
+    buf = _back(buf, x, staged)
+    _note("all_reduce", x.numel() * x.element_size(), staged, t0)
+    return buf
+
+
+def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank (a new tensor)."""
+    t0 = time.perf_counter()
+    staged = _staged(x, group)
+    buf = x.detach().cpu() if staged else x.detach().clone()
+    dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+    buf = _back(buf, x, staged)
+    _note("broadcast", x.numel() * x.element_size(), staged, t0)
+    return buf
+
+
+def barrier(group):
+    t0 = time.perf_counter()
+    dist.barrier(group=group)
+    _note("barrier", 0, False, t0)
+
+
+# ---------------------------------------------------------------------------
+# trees, in buckets
+# ---------------------------------------------------------------------------
+
+def _buckets(items, width):
+    """Group ``(index, tensor)`` items into runs of one dtype of at most
+    :data:`BUCKET_BYTES` (per row of ``width(t)`` elements)."""
+    out, cur, cur_bytes = [], [], 0
+    for i, t in items:
+        nbytes = width(t) * t.element_size()
+        if cur and (t.dtype != cur[0][1].dtype
+                    or cur_bytes + nbytes > BUCKET_BYTES):
+            out.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append((i, t))
+        cur_bytes += nbytes
+    if cur:
+        out.append(cur)
+    return out
+
+
+def gather_members(tree, group):
+    """Every rank's stacked (k, ...) members, stacked in rank order:
+    each leaf becomes (W * k, ...), rank r's rows at ``r*k .. r*k+k-1``."""
+    leaves = tree_leaves(tree)
+    out = [None] * len(leaves)
+    for bucket in _buckets(enumerate(leaves),
+                           lambda t: t[0].numel() if t.dim() else 1):
+        k = bucket[0][1].shape[0]
+        flat = torch.cat([t.reshape(k, -1) for _, t in bucket], dim=1)
+        full = all_gather_rows(flat, group)
+        off = 0
+        for i, t in bucket:
+            n = t[0].numel()
+            out[i] = full[:, off:off + n].reshape(
+                (full.shape[0],) + tuple(t.shape[1:]))
+            off += n
+    return tree_unflatten_like(tree, out)
+
+
+def _rows(t: torch.Tensor, dim: int, w: int) -> torch.Tensor:
+    """``t`` split in ``w`` equal chunks along ``dim``: (w, chunk numel)."""
+    return t.movedim(dim, 0).reshape(w, -1)
+
+
+def all_gather_tree(tree, dims, group):
+    """Whole leaves from this rank's shards: leaf j, split along
+    ``dims[j]`` (None: replicated, returned as is), is all-gathered and
+    its W chunks joined along that dim in rank order."""
+    w = dist.get_world_size(group)
+    leaves = tree_leaves(tree)
+    out = list(leaves)
+    split = [(j, t) for j, t in enumerate(leaves) if dims[j] is not None]
+    for bucket in _buckets(split, lambda t: t.numel()):
+        flat = torch.cat([t.movedim(dims[j], 0).reshape(1, -1)
+                          for j, t in bucket], dim=1)
+        full = all_gather_rows(flat, group)          # (W, N)
+        off = 0
+        for j, t in bucket:
+            n, d = t.numel(), dims[j]
+            moved = t.movedim(d, 0)
+            whole = full[:, off:off + n].reshape(
+                (w * moved.shape[0],) + tuple(moved.shape[1:]))
+            out[j] = whole.movedim(0, d).contiguous()
+            off += n
+    return tree_unflatten_like(tree, out)
+
+
+def reduce_scatter_tree(tree, dims, group):
+    """The sum over ranks of whole leaves, each left as this rank's shard:
+    leaf j is reduce-scattered along ``dims[j]``, or all-reduced whole
+    where that is None (a replicated leaf)."""
+    w = dist.get_world_size(group)
+    leaves = tree_leaves(tree)
+    out = [None] * len(leaves)
+    split = [(j, t) for j, t in enumerate(leaves) if dims[j] is not None]
+    for bucket in _buckets(split, lambda t: t.numel() // w):
+        flat = torch.cat([_rows(t, dims[j], w) for j, t in bucket], dim=1)
+        mine = reduce_scatter_rows(flat, group)      # (1, N)
+        off = 0
+        for j, t in bucket:
+            d = dims[j]
+            moved = t.movedim(d, 0)
+            chunk = (moved.shape[0] // w,) + tuple(moved.shape[1:])
+            n = int(torch.Size(chunk).numel())
+            out[j] = mine[0, off:off + n].reshape(chunk).movedim(
+                0, d).contiguous()
+            off += n
+    repl = [(j, t) for j, t in enumerate(leaves) if dims[j] is None]
+    for bucket in _buckets(repl, lambda t: t.numel()):
+        flat = torch.cat([t.reshape(-1) for _, t in bucket])
+        total = all_reduce_sum(flat, group)
+        off = 0
+        for j, t in bucket:
+            out[j] = total[off:off + t.numel()].reshape(t.shape)
+            off += t.numel()
+    return tree_unflatten_like(tree, out)
+
+
+def shard_tree(tree, dims, rank: int, w: int):
+    """This rank's shards of whole leaves (no communication): leaf j's
+    chunk ``rank`` of ``w`` along ``dims[j]``, or the whole leaf."""
+    out = []
+    for t, d in zip(tree_leaves(tree), dims):
+        if d is None:
+            out.append(t)
+        else:
+            c = t.shape[d] // w
+            out.append(t.narrow(d, rank * c, c).contiguous())
+    return tree_unflatten_like(tree, out)

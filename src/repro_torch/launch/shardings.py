@@ -1,0 +1,184 @@
+"""Parameter / activation sharding rules, by dimension-size matching (port
+of ``repro/launch/shardings.py``).
+
+The rules are the reference's, pure shape logic.  Each leaf's spec is a
+tuple with one entry per dim, equal to the entries of the reference's
+``PartitionSpec``: ``None`` (replicated), ``"model"``, ``"data"``, or a
+tuple of data axes.  Derived from the leaf's SHAPE against the
+architecture config:
+
+  * the last dim (searching right-to-left) whose size matches a
+    "model-parallel candidate" (experts, vocab, d_ff, d_expert, d_inner,
+    heads, kv-heads, head_dim) AND divides evenly by the model-axis size
+    is sharded over ``model``;
+  * for the f32 master params / server-optimizer state (role="master"),
+    the first remaining dim matching d_model that divides by the data-axis
+    product is sharded over the data axes (ZeRO-style);
+  * for G-stacked per-client tensors (role="client"), the LEADING client
+    dim is sharded over the data axes and d_model dims stay unsharded.
+
+Executing a spec is the callers' job (:func:`data_dim` reads one):
+on the data axis a leaf is split along one dim into W equal shards or
+replicated.  A ``"model"`` entry is a no-op on a model axis of 1 (the
+rule names ``"model"`` wherever a candidate divides by 1) and refused at
+run time on a larger one, as is :func:`cache_shardings` (the serving
+caches of the model axis): ROADMAP.md queue 1 item 19.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from repro_torch.launch.mesh import data_axes as _data_axes
+from repro_torch.launch.mesh import not_ported
+from repro_torch.pytree import tree_map
+
+# global sharding options (the reference's hillclimb knobs)
+#   attn_shard: "even"         — only evenly-divisible dims are sharded
+#               "heads_padded" — head-count dims are sharded FIRST, with
+#                                padding when uneven (e.g. 56 -> 64)
+_OPTS = {"attn_shard": "even"}
+
+
+def set_sharding_options(**kw):
+    _OPTS.update(kw)
+
+
+def _model_candidates(cfg) -> list:
+    cand = []
+    if getattr(cfg, "n_experts", 0):
+        cand.append(cfg.n_experts + getattr(cfg, "expert_pad", 0))
+        cand.append(cfg.n_experts)
+    if _OPTS["attn_shard"] == "heads_padded":
+        cand += [cfg.n_heads, cfg.n_kv_heads]
+    cand.append(cfg.vocab)
+    if cfg.d_ff:
+        cand += [cfg.d_ff, 2 * cfg.d_ff]
+    if getattr(cfg, "d_expert", 0):
+        cand.append(cfg.d_expert)
+    # ssm / xlstm inner dims
+    if getattr(cfg, "ssm_state", 0) or cfg.family in ("ssm", "hybrid"):
+        di = 2 * cfg.d_model
+        cand += [di, 2 * di]  # d_inner, mlstm up-proj
+        if cfg.family == "hybrid":
+            from repro_torch.models.mamba2 import conv_channels
+            from repro_torch.models.mamba2 import d_inner as dih
+            cand.append(conv_channels(cfg))
+            cand.append(2 * dih(cfg) + 2 * cfg.ssm_state
+                        + (dih(cfg) // cfg.ssm_head_dim))
+    if cfg.family == "ssm":
+        from repro_torch.models.xlstm import slstm_ff
+        cand.append(slstm_ff(cfg))
+    cand += [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim]
+    # dedupe preserving priority order
+    seen, out = set(), []
+    for c in cand:
+        if c and c not in seen:
+            seen.add(c)
+            out.append(c)
+    return out
+
+
+def leaf_spec(shape, cfg, mesh, role: str = "master",
+              skip_leading: int = 0) -> tuple:
+    """The spec of one leaf of the given shape: a tuple, one entry per dim."""
+    model_size = mesh.shape["model"]
+    daxes = _data_axes(mesh)
+    data_size = int(np.prod([mesh.shape[a] for a in daxes]))
+    cand = _model_candidates(cfg)
+
+    spec = [None] * len(shape)
+    if role == "client_all_axes" and len(shape) > 0:
+        # pure-DP placement: the client dim spans data AND model axes;
+        # tensor dims stay replicated
+        spec[0] = tuple(daxes) + ("model",)
+        return tuple(spec)
+    if role == "client" and len(shape) > 0:
+        spec[0] = daxes if len(daxes) > 1 else daxes[0]
+        skip_leading = max(skip_leading, 1)
+
+    model_dim = None
+    if _OPTS["attn_shard"] == "heads_padded":
+        # candidate-priority search; head-count dims shard with padding
+        # when uneven
+        uneven_ok = {cfg.n_heads, cfg.n_kv_heads}
+        for c in cand:
+            for i in range(len(shape) - 1, skip_leading - 1, -1):
+                if spec[i] is not None or shape[i] != c:
+                    continue
+                if shape[i] % model_size == 0 or (c in uneven_ok
+                                                  and shape[i] > 1):
+                    model_dim = i
+                    break
+            if model_dim is not None:
+                break
+    else:
+        # baseline: right-to-left, first evenly-divisible candidate match
+        for i in range(len(shape) - 1, skip_leading - 1, -1):
+            if spec[i] is None and shape[i] % model_size == 0:
+                for c in cand:
+                    if shape[i] == c:
+                        model_dim = i
+                        break
+                if model_dim is not None:
+                    break
+    if model_dim is not None:
+        spec[model_dim] = "model"
+
+    # ZeRO data dim for master-role tensors
+    if role == "master":
+        for i in range(skip_leading, len(shape)):
+            if (spec[i] is None and shape[i] == cfg.d_model
+                    and shape[i] % data_size == 0):
+                spec[i] = daxes if len(daxes) > 1 else daxes[0]
+                break
+    return tuple(spec)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's spec on a mesh (the port's ``jax.sharding.NamedSharding``)."""
+
+    mesh: object
+    spec: tuple
+
+
+def tree_shardings(tree, cfg, mesh, role: str = "master",
+                   skip_leading: int = 0):
+    """A :class:`NamedSharding` per leaf of ``tree`` (tensors, ``meta``
+    tensors or anything with a ``.shape``)."""
+    return tree_map(
+        lambda l: NamedSharding(mesh, leaf_spec(
+            tuple(l.shape), cfg, mesh, role, skip_leading)), tree)
+
+
+def batch_spec(mesh, extra_dims: int = 1) -> tuple:
+    """Global-batch tensors: batch dim over all data axes."""
+    daxes = _data_axes(mesh)
+    return (daxes if len(daxes) > 1 else daxes[0],) + (None,) * extra_dims
+
+
+def cache_shardings(cache_tree, cfg, mesh, batch_size: int):
+    """The serving caches' shardings put a head/state/channel dim on the
+    model axis, which the port does not have."""
+    raise not_ported("cache_shardings (serving on a mesh)")
+
+
+def data_dim(sharding) -> "int | None":
+    """The dim a :class:`NamedSharding` splits over the data axes (None:
+    replicated on the data axis).  Raises where the spec needs the model
+    axis to be above 1."""
+    mesh, spec = sharding.mesh, sharding.spec
+    daxes = set(_data_axes(mesh))
+    found = None
+    for i, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if "model" in names and mesh.shape["model"] > 1:
+            raise not_ported(f"the spec {spec} on {mesh!r}")
+        if any(n in daxes for n in names if n is not None):
+            if found is not None:
+                raise ValueError(f"spec {spec} splits two dims over the "
+                                 "data axes")
+            found = i
+    return found

@@ -6,24 +6,43 @@ Simulation mode (the paper's experiment):
         --strategy fedasync --alpha 0.4 --sigma 1.0 --rounds 40 \\
         --ckpt-dir results/ckpt_sim
 
-SPMD mode: the production round (``core/fl_step.py``) on one device,
-``--data-axis`` clients run one after another on the card:
+SPMD mode: the production round (``core/fl_step.py``).  With
+``--devices 1`` (the default) the ``--data-axis`` clients run one after
+another on one device:
     PYTHONPATH=src python -m repro_torch.launch.train spmd \\
         --arch smollm-360m --data-axis 4 --steps 100 \\
         --reduce d_model=256,n_layers=4,vocab=2048
 
-The flags and output lines are the JAX launcher's.  ``--devices`` (the
-JAX package's host-device mesh) defaults to 1 here and anything else
-raises: the multi-device round is ROADMAP.md queue 1 item 14.  The master
-params are kept in f32 (``make_fl_train_step``'s master) and the clients
-compute in the config's param dtype; the JAX launcher passes its init
-params, in the param dtype, as the master.  ``--device`` is the port's
-own flag.
+With ``--devices N --data-axis N`` the round runs on a ("data", "model")
+mesh of N ranks (``launch/mesh.py``), one client group per rank, the f32
+master and FedAdam's state ZeRO-sharded over the ranks
+(``launch/shardings.py``'s ``role="master"`` rule):
+    PYTHONPATH=src python -m repro_torch.launch.train spmd \\
+        --arch smollm-360m --devices 2 --data-axis 2 --steps 100
+
+The launcher starts the N ranks itself (``torch.multiprocessing`` with
+the ``spawn`` start method, a rendezvous on a free localhost port), or,
+run under ``torchrun --nproc-per-node N`` on one host, joins the group
+``torchrun`` describes (``RANK``, ``WORLD_SIZE``, ``MASTER_PORT``).  The
+backend follows ``collectives.choose_backend``, printed by rank 0: NCCL
+with one card per rank, gloo on the CPU and for several ranks sharing a
+card (``spmd_rank(backend=...)`` names one outright).  ``--devices``
+above ``--data-axis``
+is a model axis (tensor parallelism), which raises: ROADMAP.md queue 1
+item 19.
+
+The flags and output lines are the JAX launcher's, printed by rank 0
+(plus one line naming the mesh and the backend); rank 0 writes the
+checkpoint in the reference's flat-npz format.  The master params are
+kept in f32 (``make_fl_train_step``'s master) and the clients compute in
+the config's param dtype; the JAX launcher passes its init params, in
+the param dtype, as the master.  ``--device`` is the port's own flag.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -85,24 +104,84 @@ def spmd_config(args):
 def run_spmd(args, on_round=None):
     """``args.steps`` rounds of the production round over the synthetic
     token pipeline.  ``on_round(i, master, metrics)``, if given, is
-    called after each round.  Returns the final master params."""
+    called after each round (``master``: this rank's shards on a mesh).
+
+    ``--devices 1`` runs in this process and returns the final master
+    params.  ``--devices N`` joins the process group when run under
+    ``torchrun`` (returning this rank's whole final master), and
+    otherwise spawns the N ranks and returns None once they have ended
+    (``on_round`` is then not passed to them)."""
+    if args.devices > 1 and args.devices != args.data_axis:
+        from repro_torch.launch.mesh import not_ported
+        raise not_ported(
+            f"spmd --devices {args.devices} over --data-axis "
+            f"{args.data_axis} (a model axis of "
+            f"{args.devices}/{args.data_axis})")
+    if args.devices == 1:
+        return _run_spmd(args, None, args.device, on_round)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if int(os.environ["WORLD_SIZE"]) != args.devices:
+            raise ValueError(
+                f"torchrun started {os.environ['WORLD_SIZE']} ranks for "
+                f"--devices {args.devices}")
+        return spmd_rank(args, int(os.environ["RANK"]),
+                         int(os.environ["MASTER_PORT"]), on_round=on_round)
+    import torch.multiprocessing as mp
+    from repro_torch.launch.collectives import free_port
+    mp.start_processes(_spawned_rank, args=(args, free_port()),
+                       nprocs=args.devices, start_method="spawn")
+    return None
+
+
+def _spawned_rank(rank, args, port):
+    spmd_rank(args, rank, port)
+
+
+def spmd_rank(args, rank: int, port: int, backend=None, on_round=None):
+    """Rank ``rank`` of ``args.devices``: join the group at
+    ``tcp://localhost:<port>`` (the backend by ``choose_backend`` unless
+    given), run the round on the mesh, leave the group.  Returns the
+    whole final master."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.mesh import make_host_mesh
+    world = args.devices
+    dev_type = torch.device(args.device or "cuda").type
+    cards = torch.cuda.device_count() if dev_type == "cuda" else 0
+    backend = backend or coll.choose_backend(dev_type, world, cards)
+    device = coll.rank_device(dev_type, rank, cards)
+    coll.init_group(backend, rank, world, port, device)
+    try:
+        mesh = make_host_mesh(data=args.data_axis,
+                              model=world // args.data_axis)
+        if rank == 0:
+            print(f"[train:spmd] mesh {mesh.shape} over {world} ranks: "
+                  f"{coll.describe(mesh.group, device)}", flush=True)
+        return _run_spmd(args, mesh, device, on_round)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_spmd(args, mesh, device, on_round):
     import torch
 
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core.dp import DPConfig
     from repro_torch.core.fl_step import (
-        FLStepConfig, make_fl_train_step, make_server_optimizer)
+        FLStepConfig, gather_master, make_fl_train_step,
+        make_server_optimizer, shard_master)
     from repro_torch.data.tokens import TokenDataConfig, make_batches
     from repro_torch.device import resolve_device
-    from repro_torch.engine.engine import not_ported
+    from repro_torch.launch.shardings import tree_shardings
     from repro_torch.models.base import get_family
     from repro_torch.pytree import tree_map
 
-    if args.devices != 1:
-        raise not_ported(f"spmd over --devices {args.devices}", 14)
-    dev = resolve_device(args.device)
+    dev = resolve_device(device)
     cfg = spmd_config(args)
     fam = get_family(cfg.family)
+    lead = mesh is None or mesh.rank == 0
 
     G = args.data_axis
     fl = FLStepConfig(
@@ -114,11 +193,19 @@ def run_spmd(args, on_round=None):
     )
     master = tree_map(lambda l: l.float(),
                       fam.init_params(cfg, seed=args.seed, device=dev))
+    client_sh = master_sh = None
+    if mesh is not None:
+        stacked = tree_map(lambda l: torch.empty(
+            (G,) + tuple(l.shape), dtype=l.dtype, device="meta"), master)
+        client_sh = tree_shardings(stacked, cfg, mesh, role="client")
+        master_sh = tree_shardings(master, cfg, mesh, role="master")
+        master = shard_master(master, master_sh)
 
     def loss_fn(p, b):
         return fam.loss(p, b, cfg)
 
-    step = make_fl_train_step(loss_fn, fl)
+    step = make_fl_train_step(loss_fn, fl, client_shardings=client_sh,
+                              master_shardings=master_sh)
     opt_state = make_server_optimizer(fl).init(master)
     B = G * args.n_local * args.n_micro * args.per_micro
     data = make_batches(
@@ -127,24 +214,35 @@ def run_spmd(args, on_round=None):
     weights = torch.ones((G,), device=dev) / G
 
     @torch.no_grad()
-    def eval_loss(p, b):
-        return float(loss_fn(tree_map(lambda l: l.to(cfg.pdtype), p), b))
+    def eval_loss(whole, b):
+        return float(loss_fn(tree_map(lambda l: l.to(cfg.pdtype), whole), b))
+
+    def whole_master(dtype=None):
+        cast = master if dtype is None else tree_map(
+            lambda l: l.to(dtype), master)
+        return gather_master(cast, master_sh)
 
     for i, batch in enumerate(data):
         tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         if i % args.log_every == 0:
-            print(f"[train:spmd] round {i:5d} "
-                  f"loss {eval_loss(master, tb):.4f}", flush=True)
+            whole = whole_master(cfg.pdtype)     # every rank gathers
+            if lead:
+                print(f"[train:spmd] round {i:5d} "
+                      f"loss {eval_loss(whole, tb):.4f}", flush=True)
+            del whole
         master, opt_state, metrics = step(master, opt_state, tb, weights, i)
         if on_round is not None:
             on_round(i, master, metrics)
-    final = eval_loss(master, tb)
-    print(f"[train:spmd] final loss {final:.4f}")
-    if args.ckpt_dir:
-        ckpt.save(args.ckpt_dir, args.steps, master,
-                  meta={"arch": args.arch, "loss": final})
-        print(f"[train:spmd] checkpoint -> {args.ckpt_dir}")
-    return master
+    del opt_state
+    final_master = whole_master()
+    final = eval_loss(final_master, tb) if lead else None
+    if lead:
+        print(f"[train:spmd] final loss {final:.4f}")
+        if args.ckpt_dir:
+            ckpt.save(args.ckpt_dir, args.steps, final_master,
+                      meta={"arch": args.arch, "loss": final})
+            print(f"[train:spmd] checkpoint -> {args.ckpt_dir}")
+    return final_master
 
 
 def build_parser():
@@ -169,9 +267,10 @@ def build_parser():
     sim.add_argument("--device", default=None,
                      help="torch device (default: the card)")
 
-    spmd = sub.add_parser("spmd", help="the production round, one device")
+    spmd = sub.add_parser("spmd", help="the production round")
     spmd.add_argument("--arch", default="smollm-360m")
-    spmd.add_argument("--devices", type=int, default=1)
+    spmd.add_argument("--devices", type=int, default=1,
+                      help="ranks of the mesh (1: this process)")
     spmd.add_argument("--data-axis", type=int, default=4)
     spmd.add_argument("--steps", type=int, default=100)
     spmd.add_argument("--seq", type=int, default=128)
@@ -188,7 +287,7 @@ def build_parser():
     spmd.add_argument("--reduce", default="",
                       help="comma list of cfg overrides, e.g. d_model=256")
     spmd.add_argument("--device", default=None,
-                      help="torch device (default: the card)")
+                      help="torch device type (default: the card)")
     return ap
 
 

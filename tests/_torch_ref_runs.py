@@ -58,6 +58,9 @@ RUNS = {
                    run=dict(rounds=2, eval_every=1)),
     "async_noisy": _run(("fedasync", dict(alpha=0.4)), sigma=1.0,
                         engine=dict(staleness_window=1e9, max_cohort=2)),
+    # FedAvg at sigma = 1 (the port's mesh runs, tests/test_torch_mesh.py)
+    "fedavg_noisy": _run(("fedavg", {}), sigma=1.0, engine=dict(max_cohort=2),
+                         run=dict(rounds=2, eval_every=1)),
     # the legacy loop and the member-by-member strategies
     # (tests/test_torch_strategies.py)
     "legacy_async": _run(("fedasync", dict(alpha=0.4)), backend="legacy"),
@@ -138,11 +141,15 @@ def testbed_kwargs(sigma):
     return dict(COMMON, use_dp=True, sigma=sigma, dp_path="jnp")
 
 
-def execute(pkg, name, init_leaves=None, dp_path="jnp", device=None):
+def execute(pkg, name, init_leaves=None, dp_path="jnp", device=None,
+            engine=None, **run_kw):
     """Run entry ``name`` through package ``pkg`` ("repro" or
     "repro_torch") and its server frontends.  ``init_leaves`` (the
-    reference's initial leaves) replace the port's initial params.
-    Returns ``(params0, final_params, RunLog, screen_calls)``."""
+    reference's initial leaves) replace the port's initial params;
+    ``engine`` updates the entry's EngineConfig kwargs (a ``mesh``, an
+    executor) and ``run_kw`` goes to the loop (``checkpoint``,
+    ``resume_from``).  Returns ``(params0, final_params, RunLog,
+    screen_calls)``."""
     import importlib
     mod = lambda m: importlib.import_module(f"{pkg}.{m}")  # noqa: E731
     r = RUNS[name]
@@ -165,7 +172,7 @@ def execute(pkg, name, init_leaves=None, dp_path="jnp", device=None):
     strategy = mod("core.aggregation").make_strategy(
         r["strategy"][0], **r["strategy"][1])
     server = mod("core.server")
-    eng = dict(r["engine"])
+    eng = dict(r["engine"], **(engine or {}))
     if "store" in eng:
         eng["store"] = mod("engine.statestore").StoreConfig(**eng["store"])
     if "fl_cfg" in eng:
@@ -184,7 +191,7 @@ def execute(pkg, name, init_leaves=None, dp_path="jnp", device=None):
     state_cls.screen = recorded
     try:
         common = dict(seed=cfg.seed, engine=r["backend"], faults=faults,
-                      screening=screening, **r["run"])
+                      screening=screening, **r["run"], **run_kw)
         if r["backend"] == "cohort":
             common["engine_cfg"] = ecfg
         if strategy.is_async:

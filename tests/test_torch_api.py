@@ -75,8 +75,6 @@ def test_decodes_reference_json_of_every_spec_type(name):
     if name == "EngineConfig":
         inst = dataclasses.replace(inst, fl_cfg=C._nondefault_instance(
             ref_spec._SPEC_TYPES["FLStepConfig"]))
-    if name == "EngineConfig":
-        inst = dataclasses.replace(inst, mesh=None)
     elif name == "ExperimentSpec":
         inst = dataclasses.replace(
             inst, engine=dataclasses.replace(inst.engine, mesh=None))
@@ -88,24 +86,40 @@ def test_decodes_reference_json_of_every_spec_type(name):
 
 @pytest.mark.parametrize("name", UNPORTED_ENGINE)
 def test_default_engine_config_still_round_trips(name):
+    """The spec round trip keeps the mesh: the reference's JSON of a
+    spec whose engine carries its host mesh decodes to the port's host
+    mesh of the same axes and encodes back to the same JSON."""
+    from repro_torch.launch.mesh import HostMesh
     inst = C._nondefault_instance(ref_spec._SPEC_TYPES[name])
-    engine_cfg = ref_spec._SPEC_TYPES["EngineConfig"]()
+    engine_cfg = C._nondefault_instance(ref_spec._SPEC_TYPES["EngineConfig"])
     inst = (engine_cfg if name == "EngineConfig"
             else dataclasses.replace(inst, engine=engine_cfg))
     d = _ref_json(inst)
+    assert (d if name == "EngineConfig" else d["engine"])["mesh"] == {
+        "__mesh__": {"data": 1, "model": 1}}
     got = decode(d)
+    mesh = got.mesh if name == "EngineConfig" else got.engine.mesh
+    assert isinstance(mesh, HostMesh)
     assert encode(got) == d
     if name == "ExperimentSpec":
         assert ExperimentSpec.from_dict(d) == got
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("mesh", {"__mesh__": {"data": 8, "model": 1}}, 14)])
+    ("mesh", {"__mesh__": {"data": 1, "model": 2}}, 19)])
 def test_unported_engine_features_raise_at_decode(field, value, item):
+    """A spec mesh decodes (clamped to the process group, as the
+    reference clamps it to its devices); one whose model axis is above 1
+    raises when the run starts, naming its ROADMAP.md item."""
+    from repro_torch.launch.mesh import HostMesh
     d = _ref_json(ref_spec.ExperimentSpec())
     d["engine"][field] = value
+    spec = decode(d)
+    assert spec.engine.mesh.shape == {"data": 1, "model": 1}
+    spec = dataclasses.replace(spec, engine=dataclasses.replace(
+        spec.engine, mesh=HostMesh(1, 2, world=1)))
     with pytest.raises(ValueError, match=rf"ROADMAP\.md queue 1 item {item}"):
-        decode(d)
+        Session(device="cpu").run(spec)
 
 
 @pytest.mark.parametrize("field,value", [

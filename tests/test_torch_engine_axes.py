@@ -334,13 +334,25 @@ def test_client_axis_validated_in_one_place():
 
 
 def test_only_the_mesh_still_names_item_14():
+    """Every executor and a mesh are accepted; what is left refused is
+    a model axis above 1 (item 19), in the config and the loop's
+    ``mesh=``.  A mesh over no process group (W = 1) runs every executor
+    bit for bit as without one."""
+    from repro_torch.launch.mesh import HostMesh, make_host_mesh
     for axis in ("map", "vmap", "fl_step"):
         assert EngineConfig(client_axis=axis).client_axis == axis
     assert dataclasses.replace(
         EngineConfig(), fl_cfg=FLStepConfig(num_clients=4)).fl_cfg
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 14"):
-        EngineConfig(mesh=object())
+    assert EngineConfig(mesh=make_host_mesh()).mesh == make_host_mesh()
     clients, params, acc_fn, pooled = build_testbed(_cfg(0.0), device="cpu")
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 14"):
+    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 19"):
         run_async_engine(clients, params, acc_fn, pooled, FedAsync(),
-                         max_updates=1, mesh=object())
+                         max_updates=1, mesh=HostMesh(1, 2, world=1))
+    cfg = _cfg(1.0)
+    for axis in ("unroll", "vmap"):
+        p_n, log_n = _run("fedasync", cfg, client_axis=axis, **WINDOWED)
+        p_m, log_m = _run("fedasync", cfg, client_axis=axis,
+                          mesh=make_host_mesh(), **WINDOWED)
+        for a, b in zip(tree_leaves(p_n), tree_leaves(p_m)):
+            assert torch.equal(a, b)
+        _same_log(log_n, log_m)

@@ -177,10 +177,18 @@ def test_each_runner_builds_one_step():
     assert cohort_step.invalidate_step_cache() == 1
 
 
-@pytest.mark.parametrize("bad", [dict(mesh=object())], ids=["mesh"])
+@pytest.mark.parametrize("bad", [dict(mesh_model=2)], ids=["mesh"])
 def test_unported_engine_features_raise_naming_the_roadmap(bad):
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 14"):
-        EngineConfig(**bad)
+    """``EngineConfig`` takes a mesh; the runner refuses a model axis
+    above 1, naming its ROADMAP.md item."""
+    from repro_torch.engine.engine import CohortRunner
+    from repro_torch.launch.mesh import HostMesh
+    mesh = HostMesh(1, bad["mesh_model"], world=1)
+    cfg = EngineConfig(mesh=mesh)
+    assert cfg.mesh is mesh
+    clients, _, _, _ = build_testbed(_cfg(0.0), device="cpu")
+    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 19"):
+        CohortRunner(clients, cfg, "cpu")
 
 
 _FL = FLStepConfig(num_clients=1, n_micro=2, dp=DPConfig(
@@ -260,8 +268,10 @@ def test_unfused_merge_equals_fused(ref_runs):
 
 def test_strategies_and_testbed_features_of_later_slices_raise(tmp_path):
     """The strategies, the legacy loop, the testbed features and
-    checkpoint/resume build; what is still unported — a mesh in the spec
-    codec or the frontends — raises, naming its ROADMAP.md item."""
+    checkpoint/resume build; a spec mesh decodes to the port's host mesh,
+    a mesh in the frontends runs (on one process with no group, W = 1,
+    bit for bit the no-mesh run), and a model axis above 1 raises, naming
+    its ROADMAP.md item."""
     from repro_torch.api import ExperimentSpec, RunBudget, Session
     from repro_torch.api.spec import decode
     from repro_torch.core.aggregation import STRATEGY_NAMES, make_strategy
@@ -291,7 +301,15 @@ def test_strategies_and_testbed_features_of_later_slices_raise(tmp_path):
     _, log_res = Session(device="cpu").run(spec, resume_from=str(tmp_path))
     assert log_res.update_counts == log_ck.update_counts
     assert log_res.times == log_ck.times
-    with pytest.raises(ValueError, match=roadmap + " 14"):
-        decode({"__mesh__": {"data": 8, "model": 1}})
-    with pytest.raises(ValueError, match=roadmap + " 14"):
-        run_experiment("fedasync", _cfg(0.0), mesh=object(), device="cpu")
+    from repro_torch.launch.mesh import HostMesh, make_host_mesh
+    mesh = decode({"__mesh__": {"data": 8, "model": 1}})
+    assert mesh == make_host_mesh() and mesh.shape == {"data": 1, "model": 1}
+    kw = dict(max_updates=2, eval_every=2, device="cpu")
+    p_m, log_m = run_experiment("fedasync", _cfg(0.0), mesh=mesh, **kw)
+    p_n, log_n = run_experiment("fedasync", _cfg(0.0), **kw)
+    assert log_m.times == log_n.times
+    for a, b in zip(tree_leaves(p_m), tree_leaves(p_n)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match=roadmap + " 19"):
+        run_experiment("fedasync", _cfg(0.0), mesh=HostMesh(1, 2, world=1),
+                       **kw)

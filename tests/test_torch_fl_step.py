@@ -272,9 +272,39 @@ def test_bf16_round_matches_reference(arch):
 
 
 def test_shardings_are_the_distributed_half():
-    fl = FLStepConfig(num_clients=2)
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 14"):
-        make_fl_train_step(lambda p, b: 0.0, fl, client_shardings=object())
+    """Shardings on a mesh over no process group (W = 1) change nothing:
+    the round is bit for bit the unsharded one; on a mesh with a model
+    axis above 1 they raise, naming ROADMAP.md queue 1 item 19."""
+    from repro_torch.launch.mesh import HostMesh, make_host_mesh
+    from repro_torch.launch.shardings import tree_shardings
+    fl = FLStepConfig(num_clients=2, n_micro=1, local_lr=0.1, dp=DPConfig(
+        clip_norm=0.5, noise_multiplier=1.0, granularity="per_microbatch"),
+        compute_dtype="float32")
+
+    class Cfg:
+        family, d_model, d_ff, vocab = "dense", 4, 0, 7
+        n_heads = n_kv_heads = head_dim = 0
+
+    def loss(p, b):
+        return torch.mean((b["x"] @ p["w"]) ** 2)
+
+    params = {"w": torch.linspace(-1.0, 1.0, 8).reshape(4, 2)}
+    batch = {"x": torch.linspace(0.0, 1.0, 16).reshape(4, 4)}
+    out = []
+    for mesh in (None, make_host_mesh()):
+        sh = (None if mesh is None
+              else tree_shardings(params, Cfg, mesh, role="master"))
+        step = make_fl_train_step(loss, fl, client_shardings=sh and {
+            "w": type(sh["w"])(mesh, ("data", None, None))},
+            master_shardings=sh)
+        out.append(step(params, make_server_optimizer(fl).init(params),
+                        batch, torch.ones(2) / 2, 3))
+    assert torch.equal(out[0][0]["w"], out[1][0]["w"])
+    assert torch.equal(out[0][2]["delta_norm"], out[1][2]["delta_norm"])
+    model2 = HostMesh(1, 2, world=1)
+    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 19"):
+        make_fl_train_step(loss, fl, master_shardings=tree_shardings(
+            params, Cfg, model2, role="master"))
 
 
 def test_round_draws_from_per_client_generators_reproducibly():

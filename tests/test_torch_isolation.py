@@ -50,17 +50,22 @@ def test_port_has_the_slice_modules():
               "repro_torch.models.vlm", "repro_torch.configs.gemma2_2b",
               "repro_torch.configs.phi3_vision_4_2b",
               "repro_torch.configs.ser_cnn", "repro_torch.launch",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.launch.mesh",
+              "repro_torch.launch.shardings",
+              "repro_torch.launch.collectives",
+              "repro_torch.launch.dryrun",
+              "repro_torch.engine.mesh_backend"):
         assert m in mods
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [PORT.parents[1] / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [PORT.parents[1] / "chip_smoke.py"]
+    + sorted((PORT.parents[1] / "examples").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(PORT)) if PORT in p.parents else p.name)
 def test_no_reference_or_jax_imports(path):
     """Static scan: no ``import jax``/``repro`` and no ``from repro...``
     anywhere in the port (module level or inside functions), nor in the
-    scripts that drive it on the card."""
+    scripts that drive it on the card, nor in its examples."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):

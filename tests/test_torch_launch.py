@@ -76,8 +76,12 @@ def test_spmd_on_round_sees_every_round():
 
 
 def test_spmd_more_devices_is_the_distributed_half():
-    args = train.build_parser().parse_args(SPMD + ["--devices", "2"])
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 14"):
+    """``--devices`` above ``--data-axis`` is a model axis: it raises,
+    naming ROADMAP.md queue 1 item 19, before any rank starts
+    (``tests/test_torch_spmd.py`` runs ``--devices 2 --data-axis 2``)."""
+    args = train.build_parser().parse_args(
+        SPMD + ["--devices", "2", "--data-axis", "1"])
+    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 19"):
         train.run_spmd(args)
 
 
