@@ -132,7 +132,18 @@ package ``repro``) and fails with a non-zero exit on the first problem:
     ranks' processes, by fingerprints of every shard) and smollm-360m at
     G = 2 against its W = 1 run; each rank's peak memory, walls and
     collectives; on a machine with the cards, zamba2-1.2b at W = 2 and
-    smollm-360m at W = 4 over NCCL, a card per rank.
+    smollm-360m at W = 4 over NCCL, a card per rank;
+25. [mesh-model] the model axis: ``spmd --devices 2 --data-axis 1``
+    for zamba2-1.2b at [train-zoo]'s flags (one client, its model
+    tensor-parallel over two gloo ranks on cuda:0) with round 0 rerun, and
+    ``--devices 4 --data-axis 2`` for smollm-360m, 2 rounds each against
+    the W = 1 run in this process: per rank ``ssd_intra_chunk`` launched
+    as often as W = 1 per client, at 32 of zamba2's 64 SSM heads, its
+    first launch held against the plain version; equal delta norms, the
+    leaves whole on the model axis bit-identical in each model group, the
+    rerun bit-identical, the master's per-leaf deviation from W = 1; the
+    f32 round of each reduced config on the same mesh shape within 1e-5
+    of W = 1; walls, peak memory and collectives per rank.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1528,6 +1539,10 @@ FLASH_FULL = (8, 2112, 32, 32, 64)         # (B, S, H, Hkv, Dh) of a decode
 SSD_SHAPES = [SSD_FULL, (1, 2, 32, 2, 16, 16), (2, 4, 64, 4, 64, 64),
               (1, 1, 128, 8, 64, 32), (1, 1, 20, 2, 16, 12),
               (2, 3, 36, 3, 24, 40), (1, 2, 64, 2, 128, 160)]
+# zamba2-1.2b training on one rank of a model axis of 2 ([mesh-model]):
+# per_micro 2, seq 256 in chunks of 128, 32 of the 64 SSM heads
+SSD_MODEL_RANK = (2, 2, 128, 32, 64, 64)
+SSD_SHAPES.append(SSD_MODEL_RANK)
 # (B, S, H, Hkv, Dh, window, softcap, pos range): the full-width decode,
 # GQA, windows, softcap, S below one tile, ragged S with Dh 256, pos = 0
 FLASH_CASES = [FLASH_FULL + (0, 0.0, (2048, 2112)),
@@ -3123,6 +3138,309 @@ def phase_mesh_train(smi, refs):
     return launches
 
 
+# [mesh-model]: (arch, spmd flags, --devices, --data-axis, rerun): the
+# model axis of 2, zamba2-1.2b at [train-zoo]'s flags with one client
+# (G = 1, both ranks one model group), smollm-360m at the launcher's
+# defaults on a 2 x 2 mesh; all ranks gloo on the one card
+MESH_MODEL = (
+    ("zamba2-1.2b", TRAIN_ZOO["zamba2-1.2b"], 2, 1, True),
+    ("smollm-360m", [], 4, 2, False),
+)
+MESH_MODEL_ROUNDS = 2
+MESH_MODEL_SMALL = dict(G=2, n_micro=2, seq=32)
+SSD_BF16_RTOL = 5e-2          # [kernels-zoo]'s bf16 tolerance
+
+
+def _mesh_model_flags(flags, world, data):
+    return flags + ["--steps", str(MESH_MODEL_ROUNDS), "--devices",
+                    str(world), "--data-axis", str(data)]
+
+
+def _small_tp_round(arch, dev, mesh=None):
+    """One f32 round of the reduced ``arch`` on the card ([train-zoo-small]'s
+    round: 2 clients x 2 microbatches, the injected noise, SGD at lr 1),
+    on ``mesh`` (None: this process alone).  Returns the whole new master
+    on the CPU, delta_norm and the ssd_intra_chunk launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.dp import DPConfig
+    from repro_torch.core.fl_step import (
+        FLStepConfig, gather_master, make_fl_train_step,
+        make_server_optimizer, shard_master)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.shardings import tree_shardings
+    from repro_torch.models import layers
+    from repro_torch.models.base import get_family
+    from repro_torch.pytree import tree_leaves, tree_map
+    k = MESH_MODEL_SMALL
+    cfg = get_config(arch).reduced().replace(param_dtype="float32")
+    fam = get_family(cfg.family)
+    fl = FLStepConfig(num_clients=k["G"], n_micro=k["n_micro"],
+                      local_lr=0.05, server_lr=1.0, server_opt="sgd",
+                      compute_dtype="float32",
+                      dp=DPConfig(1.0, 0.5, "per_microbatch"))
+    params = fam.init_params(cfg, seed=0, device=dev)
+    client_sh = master_sh = family = None
+    if mesh is not None:
+        stacked = tree_map(lambda l: torch.empty(
+            (k["G"],) + tuple(l.shape), device="meta"), params)
+        client_sh = tree_shardings(stacked, cfg, mesh, role="client")
+        master_sh = tree_shardings(params, cfg, mesh, role="master")
+        family = cfg.family
+        layers.set_mesh_context(mesh, None, "model", cfg=cfg)
+    try:
+        local = shard_master(params, master_sh)
+        step = make_fl_train_step(lambda p, b: fam.loss(p, b, cfg), fl,
+                                  client_shardings=client_sh,
+                                  master_shardings=master_sh, family=family)
+        batch = {key: torch.from_numpy(v).to(dev) for key, v in
+                 _small_batch(cfg, k["G"] * k["n_micro"], k["seq"],
+                              1).items()}
+        n0 = ssd_scan.launches()
+        new, _, met = step(local, make_server_optimizer(fl).init(local),
+                           batch, torch.ones(k["G"], device=dev) / k["G"],
+                           _small_noise)
+        launched = ssd_scan.launches() - n0
+        whole = gather_master(new, master_sh)
+    finally:
+        layers.clear_mesh_context()
+    return ([l.cpu() for l in tree_leaves(whole)], float(met["delta_norm"]),
+            launched)
+
+
+def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
+                     rerun_port, small_port):
+    """One rank of [mesh-model]: ``run_spmd`` on a data x model mesh through
+    ``launch.train.spmd_rank`` (gloo, every rank on cuda:0), recording
+    each ssd_intra_chunk launch's head count and holding the first launch
+    against the plain version on the same inputs; then, with
+    ``rerun_port``, round 0 again in this process; then the f32
+    reduced round of the same family on the same mesh shape.  Saves what
+    it measured to ``out/rank<r>.pt``."""
+    device = _rank_setup(rank, world, port, backend, join=False)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.ssd_scan import ref as sref, ssd_scan
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.pytree import tree_leaves
+
+    launch = ssd_scan.ssd_intra_chunk
+    seen = {"heads": set(), "err": None}
+
+    def counted(xr, ar, Br, Cr):
+        y = launch(xr, ar, Br, Cr)
+        seen["heads"].add(int(xr.shape[3]))
+        if seen["err"] is None:
+            want = sref.ssd_intra_chunk_ref(xr, ar, Br, Cr)
+            top = float(want.abs().max())
+            seen["err"] = (float((y.float() - want).abs().max()), top,
+                           tuple(xr.shape), bool(torch.allclose(
+                               y.float(), want, rtol=SSD_BF16_RTOL,
+                               atol=1e-2 * top)))
+        return y
+
+    ssd_scan.ssd_intra_chunk = counted
+
+    def run(at_port, steps=MESH_MODEL_ROUNDS):
+        args = _spmd_args(arch, _mesh_model_flags(flags, world, data))
+        args.steps = steps
+        st = {"launches": [], "walls": [], "norms": [], "prints": [],
+              "n": 0, "t": time.perf_counter()}
+
+        def on_round(i, master, metrics):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            st["walls"].append(now - st["t"])
+            st["launches"].append(ssd_scan.launches() - st["n"])
+            st["norms"].append(float(metrics["delta_norm"]))
+            st["prints"].append(_fingerprint(master))
+            st["n"], st["t"] = ssd_scan.launches(), time.perf_counter()
+
+        torch.cuda.reset_peak_memory_stats()
+        ssd_scan.reset_launches()
+        coll.reset_stats()
+        t0 = time.perf_counter()
+        whole = train.spmd_rank(args, rank, at_port, backend=backend,
+                                on_round=on_round)
+        torch.cuda.synchronize()
+        res = dict(launches=st["launches"], walls=st["walls"],
+                   norms=st["norms"], prints=st["prints"],
+                   total=ssd_scan.launches(),
+                   wall=time.perf_counter() - t0,
+                   peak=torch.cuda.max_memory_allocated(),
+                   collectives=coll.stats())
+        if rank == 0:
+            res["master"] = [l.cpu() for l in tree_leaves(whole)]
+        return res
+
+    res = run(port)
+    res["heads"], res["kernel_err"] = sorted(seen["heads"]), seen["err"]
+    if rerun_port is not None:
+        again = run(rerun_port, steps=1)
+        res["rerun"] = {k: again[k] for k in ("norms", "prints", "wall")}
+    coll.init_group(backend, rank, world, small_port, device)
+    try:
+        mesh = make_host_mesh(data=data, model=world // data)
+        small, dn, n = _small_tp_round(arch, device, mesh)
+        res["small"] = {"delta_norm": dn, "launches": n,
+                        "master": small if rank == 0 else None}
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, out / f"rank{rank}.pt")
+
+
+def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
+    """[mesh-model]: ``launch/train.py spmd --devices N --data-axis G`` with
+    a model axis of N / G = 2 at full width and depth (``MESH_MODEL``),
+    every rank a gloo process on the one card, 2 rounds; the same run at
+    W = 1 (``--devices 1``) in this process is the reference.  Requires
+    per rank: ssd_intra_chunk launched per round as often as the W = 1
+    run per client, at H / 2 = 32 heads, its first launch within the
+    bf16 tolerance of the plain version on the same inputs; the ranks'
+    delta norms equal; the blocks of the leaves the model axis leaves
+    whole bit-identical across each model group; zamba2's round 0 rerun
+    in the same processes bit-identical; a finite master.  Prints the
+    master's per-leaf relative L2 from W = 1 (a bf16 route: no strict
+    bound) and holds the f32 round of each reduced config on the same
+    mesh shape within 1e-5 of its W = 1 round on the card.  Logs each
+    rank's walls, peak memory and collectives (calls and bytes).
+    ``backend="nccl"`` puts each rank on its own card
+    (``scripts/torch_model_axis_cards.py``).  Returns the ssd_intra_chunk
+    launches of the ranks' main runs."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.launch.collectives import free_port
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.launch.shardings import model_dim, tree_shardings
+    from repro_torch.models.base import get_family
+    from repro_torch.models.mamba2 import n_heads_ssm
+    from repro_torch.pytree import tree_leaves
+    launches = 0
+    out = ROOT / "build" / "mesh_model"
+    out.mkdir(parents=True, exist_ok=True)
+    for arch, flags, world, data, rerun in configs:
+        t_phase = time.perf_counter()
+        ref, _, st, ref_peak, ref_wall, _ = _train_spmd_once(
+            arch, _mesh_model_flags(flags, 1, data), smi)
+        args = _spmd_args(arch, _mesh_model_flags(flags, world, data))
+        cfg = train.spmd_config(args)
+        m = world // data
+        small_ref, small_dn, small_n = _small_tp_round(arch, "cuda")
+        _free_card()
+        t0 = time.perf_counter()
+        _mesh_spawn(_mesh_model_rank, world, world, backend, arch, flags,
+                    data, out, free_port() if rerun else None, free_port())
+        ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+        wall = time.perf_counter() - t0
+        for f in out.iterdir():
+            f.unlink()
+        hybrid = cfg.family == "hybrid"
+        dims = [model_dim(s) for s in tree_leaves(tree_shardings(
+            get_family(cfg.family).init_params(cfg, 0, device="meta"), cfg,
+            HostMesh.abstract(data, m), role="master"))]
+        # W = 1's launches per client (its last round has no loss eval);
+        # a rank runs G / data clients, and every rank evaluates the loss
+        per_client = st["launches"][-1] // args.data_axis
+        require(per_client == (cfg.n_layers * args.n_local * args.n_micro
+                               if hybrid else 0),
+                f"[mesh-model] {arch} W=1: {st['launches']} launches")
+        want = [per_client * (args.data_axis // data)] * MESH_MODEL_ROUNDS
+        evals = cfg.n_layers if hybrid else 0
+        want[0] += evals
+        for r, res in enumerate(ranks):
+            require(res["launches"] == want
+                    and res["total"] == sum(want) + evals,
+                    f"[mesh-model] {arch} rank {r}: ssd_intra_chunk per "
+                    f"round {res['launches']} ({res['total']} in all), "
+                    f"expected {want} (W=1 {st['launches']}, "
+                    f"{per_client} per client)")
+            require(res["norms"] == ranks[0]["norms"], f"[mesh-model] "
+                    f"{arch}: the ranks' delta norms differ")
+            if hybrid:
+                require(res["heads"] == [n_heads_ssm(cfg) // m],
+                        f"[mesh-model] {arch} rank {r}: ssd_intra_chunk "
+                        f"heads {res['heads']}")
+                err, top, shape, ok = res["kernel_err"]
+                require(ok, f"[mesh-model] {arch} rank {r}: ssd_intra_chunk "
+                        f"{shape} max |err| {err} vs plain (max {top})")
+                launches += res["total"]
+            if rerun:
+                require(res["rerun"]["prints"][0] == res["prints"][0]
+                        and res["rerun"]["norms"][0] == res["norms"][0],
+                        f"[mesh-model] {arch} rank {r}: the rerun of round "
+                        "0 differs")
+        for lead in range(0, world, m):
+            for r in range(lead + 1, lead + m):
+                for j, d in enumerate(dims):
+                    if d is None:
+                        require(ranks[r]["prints"][-1][j]
+                                == ranks[lead]["prints"][-1][j],
+                                f"[mesh-model] {arch}: leaf {j} (whole on "
+                                f"the model axis) differs in the model "
+                                f"group of rank {lead}")
+        got = ranks[0]["master"]
+        for leaf in got:
+            require(bool(torch.isfinite(leaf).all()), f"[mesh-model] {arch}: "
+                    "nonfinite master")
+        rels = sorted(_rel_l2(a, b) for a, b in zip(got, ref))
+        rel_n = max(abs(a - b) / abs(b) for a, b in
+                    zip(ranks[0]["norms"], st["norms"]))
+        small = ranks[0]["small"]
+        d_small = max(float((a - b).abs().max())
+                      for a, b in zip(small["master"], small_ref))
+        require(d_small <= MESH_TIGHT and abs(
+            small["delta_norm"] - small_dn) <= MESH_TIGHT * small_dn,
+                f"[mesh-model] reduced {arch} (f32): {d_small:.3e} from W=1")
+        require(small["launches"] == small_n // data,
+                f"[mesh-model] reduced {arch}: ssd_intra_chunk launches "
+                f"{small['launches']} per rank, W=1 {small_n} for "
+                f"{data} data rank(s)")
+        heads = (f"ssd_intra_chunk per rank per round {ranks[0]['launches']}"
+                 f" (W=1 {st['launches']}, {per_client} per client, +"
+                 f"{evals} per loss eval), at {ranks[0]['heads']} of "
+                 f"{n_heads_ssm(cfg)} heads (first launch "
+                 f"{ranks[0]['kernel_err'][2]} max |err| "
+                 f"{ranks[0]['kernel_err'][0]:.3e} of "
+                 f"{ranks[0]['kernel_err'][1]:.3e} vs plain)"
+                 if hybrid else "no ssd_intra_chunk (dense)")
+        note = ("; round 0 rerun in the same processes bit-identical on "
+                f"every rank's blocks ({ranks[0]['rerun']['wall']:.1f} s)"
+                if rerun else "")
+        where = "on one card" if backend == "gloo" else "a card per rank"
+        log(f"[mesh-model] {smi}; {arch} --devices {world} --data-axis "
+            f"{data} (model axis {m}, G={args.data_axis}, n_micro="
+            f"{args.n_micro}, per_micro={args.per_micro}, seq {args.seq}, "
+            f"{cfg.param_dtype} clients, f32 master; {world} {backend} "
+            f"ranks {where}), {MESH_MODEL_ROUNDS} rounds: {heads}; the blocks "
+            f"of the {sum(d is None for d in dims)} leaves whole on the "
+            f"model axis bit-identical across each model group; master "
+            f"relative L2 per leaf from W=1 median {rels[len(rels) // 2]:.3e}"
+            f" max {rels[-1]:.3e} (bf16 clients: bf16 routes of a deep "
+            f"random model differ by 0.22-1.10 per leaf, ROADMAP.md queue "
+            f"3), delta_norm {rel_n:.3e}; W=1 walls "
+            f"{[round(w, 3) for w in st['walls']]} s, peak "
+            f"{ref_peak / 2**30:.2f} GiB; reduced f32 round on the same "
+            f"mesh shape {d_small:.3e} from W=1 (tolerance {MESH_TIGHT}); "
+            f"spawn to exit {wall:.1f} s{note}; phase "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        for r, res in enumerate(ranks):
+            coll_s = sum(v["seconds"] for v in res["collectives"].values())
+            calls = {k: (v["calls"], v["bytes"])
+                     for k, v in res["collectives"].items()}
+            log(f"[mesh-model] {arch} rank {r}: walls per round "
+                f"{[round(w, 3) for w in res['walls']]} s (round 0 with "
+                f"init and a loss eval), run {res['wall']:.1f} s of which "
+                f"{coll_s:.1f} s in collectives (host clock), peak memory "
+                f"{res['peak'] / 2**30:.2f} GiB, collectives (calls, "
+                f"bytes) {calls}")
+        del ranks, got, ref
+        _free_card()
+    return launches
+
+
 def main():
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     sys.path.insert(0, str(ROOT / "src"))
@@ -3182,11 +3500,16 @@ def main():
     mesh_train_launches = phase_mesh_train(smi, train_refs)
     del train_refs
     launches["ssd_intra_chunk"] += mesh_train_launches
+    t4 = time.perf_counter()
+    mesh_model_launches = phase_mesh_model(smi)
+    launches["ssd_intra_chunk"] += mesh_model_launches
     log(f"[train-zoo] phase walls: [train-zoo] {t1 - t0:.1f} s, "
         f"[train-zoo-small] {t2 - t1:.1f} s, [axes] {t3 - t2:.1f} s, "
-        f"[mesh-train] {time.perf_counter() - t3:.1f} s; ssd_intra_chunk "
-        f"launches: serving {serve_launches['ssd_intra_chunk']}, training "
-        f"{train_launches}, the mesh's ranks {mesh_train_launches}")
+        f"[mesh-train] {t4 - t3:.1f} s, [mesh-model] "
+        f"{time.perf_counter() - t4:.1f} s; ssd_intra_chunk launches: "
+        f"serving {serve_launches['ssd_intra_chunk']}, training "
+        f"{train_launches}, the mesh's ranks {mesh_train_launches}, the "
+        f"model axis's ranks {mesh_model_launches}")
     from repro_torch.kernels.dp_clip import dp_clip
     from repro_torch.kernels.flash_attn import flash_attn
     from repro_torch.kernels.ssd_scan import ssd_scan

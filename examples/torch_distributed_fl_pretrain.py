@@ -6,17 +6,24 @@ axis of a process group's ranks.
         --steps 200 --devices 2 --data-axis 2
     PYTHONPATH=src python examples/torch_distributed_fl_pretrain.py \\
         --steps 50 --devices 4 --data-axis 4 --device cpu
+    # a model axis: 2 clients, each model tensor-parallel over 2 ranks
+    PYTHONPATH=src python examples/torch_distributed_fl_pretrain.py \\
+        --steps 50 --devices 4 --data-axis 2 --device cpu
+    # the JAX example's own mesh: 4 clients x a model axis of 2
+    PYTHONPATH=src python examples/torch_distributed_fl_pretrain.py \\
+        --steps 50 --devices 8 --data-axis 4 --device cpu
 
 Starts N ranks (``torch.multiprocessing`` with ``spawn``; gloo on the
 CPU and for several ranks sharing one card, NCCL with a card per rank),
-builds a ("data", "model") mesh, and runs ``fl_train_step`` (per-client
-DP-SGD + weighted aggregation, one client group per rank, the f32 master
-and FedAdam's state ZeRO-sharded over the ranks) on a reduced
+builds a ("data", "model") mesh of ``--data-axis`` x ``--devices /
+--data-axis`` ranks, and runs ``fl_train_step`` (per-client DP-SGD +
+weighted aggregation, one client group per data coordinate, the f32
+master and FedAdam's state ZeRO-sharded over the data axis, each
+client's model tensor-parallel over its model group) on a reduced
 smollm-family LM over the synthetic token pipeline.  Loss decreasing over
 a few hundred federated rounds shows the stack (model zoo, sharding
-rules, DP clipping, server Adam, checkpointing) working end to end.
-``--devices`` above ``--data-axis`` is a model axis, which the port does
-not have (ROADMAP.md queue 1 item 19).
+rules, tensor parallelism, DP clipping, server Adam, checkpointing)
+working end to end.
 """
 import argparse
 import sys
@@ -31,11 +38,12 @@ def rank_main(rank, args, port):
     from repro_torch.core.dp import DPConfig
     from repro_torch.core.fl_step import (
         FLStepConfig, gather_master, make_fl_train_step,
-        make_server_optimizer, shard_master)
+        make_server_optimizer, master_dims, shard_master)
     from repro_torch.data.tokens import TokenDataConfig, make_batches
     from repro_torch.launch import collectives as coll
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.shardings import tree_shardings
+    from repro_torch.models import layers
     from repro_torch.models.base import get_family
     from repro_torch.pytree import tree_map
 
@@ -50,12 +58,14 @@ def rank_main(rank, args, port):
         lead = rank == 0
         if lead:
             print(f"[fl-pretrain] mesh {mesh.shape}: "
-                  f"{coll.describe(mesh.group, device)}", flush=True)
+                  f"{coll.describe(None, device)}", flush=True)
         cfg = get_config("smollm-360m").replace(
             n_layers=args.layers, d_model=args.d_model, n_heads=4,
             n_kv_heads=2, d_head=args.d_model // 4, d_ff=2 * args.d_model,
             vocab=2048, param_dtype="float32")
         fam = get_family(cfg.family)
+        tp = mesh.shape["model"] > 1
+        layers.set_mesh_context(mesh, None, "model", cfg=cfg)
 
         # DP granularity note (the reference example's): per-microbatch
         # clipping clips a whole-model mean gradient, so the clip is looser
@@ -75,7 +85,8 @@ def rank_main(rank, args, port):
         params = shard_master(params, master_sh)
         step = make_fl_train_step(lambda p, b: fam.loss(p, b, cfg), fl,
                                   client_shardings=client_sh,
-                                  master_shardings=master_sh)
+                                  master_shardings=master_sh,
+                                  family=cfg.family)
         opt_state = make_server_optimizer(fl).init(params)
         B = G * 8  # 8 sequences per client round (4 microbatches of 2)
         data = make_batches(
@@ -85,6 +96,11 @@ def rank_main(rank, args, port):
 
         @torch.no_grad()
         def eval_loss(b):
+            if tp:
+                # tensor-parallel: every rank evaluates its model blocks
+                mine = coll.all_gather_tree(params, master_dims(master_sh),
+                                            mesh.group)
+                return float(fam.loss(mine, b, cfg))
             whole = gather_master(params, master_sh)   # every rank gathers
             return float(fam.loss(whole, b, cfg)) if lead else None
 
@@ -109,6 +125,7 @@ def rank_main(rank, args, port):
                   f"checkpoint in {args.ckpt_dir}")
             assert final_loss < first_loss, "training did not reduce loss"
     finally:
+        layers.clear_mesh_context()
         dist.destroy_process_group()
 
 
@@ -126,10 +143,9 @@ def main():
     ap.add_argument("--device", default=None,
                     help="torch device type (default: the card)")
     args = ap.parse_args()
-    if args.devices != args.data_axis:
-        from repro_torch.launch.mesh import not_ported
-        raise not_ported(f"--devices {args.devices} over --data-axis "
-                         f"{args.data_axis} (a model axis)")
+    if args.devices % args.data_axis:
+        raise ValueError(f"--devices {args.devices} is not a multiple of "
+                         f"--data-axis {args.data_axis}")
     import torch.multiprocessing as mp
 
     from repro_torch.launch.collectives import free_port

@@ -53,8 +53,26 @@ axes:
     so the draws are the one-process round's;
   * ``delta_norm`` and ``weight_sum`` are global, equal on every rank.
 
-Without a process group (W = 1) the shardings change nothing.  A mesh
-whose model axis is above 1 raises (ROADMAP.md queue 1 item 19).
+On a mesh whose model axis M is above 1 (the dense and hybrid families,
+``family=``) the ranks of one data coordinate form a model group that
+runs the same clients together, tensor-parallel
+(:mod:`repro_torch.models.layers`; the caller installs its mesh context):
+
+  * the master and the optimizer state are 2-D blocks: the leaf's model
+    dim (``leaf_spec``'s ``"model"``) over the model group, its ZeRO
+    d_model dim over the data group; the broadcast all-gathers over the
+    data group only, so each client replica holds the model group's
+    blocks, and the delta sum is reduce-scattered over the data group on
+    each rank's model block;
+  * the clip norms (per microbatch, or per client at client level) cover
+    the whole client gradient: the blocks' squares are added over the
+    model group, a replicated leaf counted once;
+  * every noise leaf is drawn whole from the client's generator or the
+    injected source and cut to this rank's block, so the draws are the
+    one-process round's;
+  * ``delta_norm`` adds each leaf's blocks over the axes that cut it.
+
+Without a process group (W = 1) the shardings change nothing.
 """
 from __future__ import annotations
 
@@ -67,7 +85,8 @@ import torch
 from repro_torch.core.dp import DPConfig
 from repro_torch.launch import collectives as coll
 from repro_torch.launch.mesh import num_client_groups, require_runnable
-from repro_torch.launch.shardings import data_dim
+from repro_torch.launch.shardings import block, data_dim, model_dim
+from repro_torch.models import layers as L
 from repro_torch.optim.optimizers import SGD, Adam
 from repro_torch.pytree import tree_leaves, tree_map, tree_unflatten_like
 
@@ -138,16 +157,58 @@ def _draw(noise, step: int, leaf: int, shape, device) -> torch.Tensor:
                            dtype=torch.float32, device=device)
 
 
-def _clip_f32(grads, clip_norm: float):
+@dataclass(frozen=True)
+class ModelAxis:
+    """A client's model cut over the model group (``size`` ranks, this
+    one ``rank``): ``dims[j]`` is the dim of leaf j cut into equal
+    blocks (None: the leaf is whole on every rank)."""
+
+    group: object
+    rank: int
+    size: int
+    dims: tuple
+
+    def whole_shape(self, j: int, shape) -> tuple:
+        shape = list(shape)
+        if self.dims[j] is not None:
+            shape[self.dims[j]] *= self.size
+        return tuple(shape)
+
+    def cut(self, j: int, z: torch.Tensor, lead: int = 0) -> torch.Tensor:
+        """This rank's block of a whole leaf-``j``-shaped ``z`` (after
+        ``lead`` stacked dims)."""
+        d = self.dims[j]
+        if d is None:
+            return z
+        c = z.shape[lead + d] // self.size
+        return z.narrow(lead + d, self.rank * c, c)
+
+    def sq_norm(self, sqs) -> torch.Tensor:
+        """The whole model's squared norm from its leaves' (this rank's
+        blocks') squared norms: the cut leaves' sum added over the
+        group, the whole leaves' once."""
+        zero = torch.zeros((), dtype=sqs[0].dtype, device=sqs[0].device)
+        cut = sum((q for q, d in zip(sqs, self.dims) if d is not None), zero)
+        rest = sum((q for q, d in zip(sqs, self.dims) if d is None), zero)
+        return coll.all_reduce_sum(cut, self.group) + rest
+
+
+def _sq_norm(leaves, model):
+    sqs = [torch.sum(torch.square(l.float())) for l in leaves]
+    return sum(sqs) if model is None else model.sq_norm(sqs)
+
+
+def _clip_f32(grads, clip_norm: float, model=None):
     """Eq. (4) on one microbatch gradient, as the JAX package computes it:
-    the global norm in f32, and the scaled gradient promoted to f32."""
-    leaves = tree_leaves(grads)
-    nrm = torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves))
+    the global norm in f32, and the scaled gradient promoted to f32 (with
+    ``model``, the norm of the whole gradient across the blocks)."""
+    nrm = torch.sqrt(_sq_norm(tree_leaves(grads), model))
     scale = 1.0 / torch.clamp(nrm / clip_norm, min=1.0)
     return tree_map(lambda g: g.float() * scale, grads)
 
 
-def make_local_phase(loss_fn: Callable, fl: FLStepConfig):
+def make_local_phase(loss_fn: Callable, fl: FLStepConfig,
+                     model: "ModelAxis | None" = None):
     """One client's local phase (paper Eq. 4-6): local SGD steps, each
     accumulating ``n_micro`` clipped microbatch gradients before one
     noise draw and the ``local_lr`` update.
@@ -162,7 +223,8 @@ def make_local_phase(loss_fn: Callable, fl: FLStepConfig):
     from ``fl``), ``key`` is the client's noise source (a
     ``torch.Generator``, or a callable ``key(step, leaf, shape)``), and
     ``n_steps`` optionally masks trailing steps: a masked step leaves the
-    params untouched and draws nothing.
+    params untouched and draws nothing.  ``model``: the client's params
+    are this rank's blocks on the model axis (module docstring).
     """
     dp = fl.dp
     per_micro = dp.granularity == "per_microbatch"
@@ -177,14 +239,15 @@ def make_local_phase(loss_fn: Callable, fl: FLStepConfig):
             for m in range(n_micro):
                 g = loss_grad(loss_fn, params,
                               tree_map(lambda l: l[i, m], client_batch))
-                g = (_clip_f32(g, dp.clip_norm) if per_micro
+                g = (_clip_f32(g, dp.clip_norm, model) if per_micro
                      else tree_map(lambda l: l.float(), g))
                 acc = g if acc is None else tree_map(torch.add, acc, g)
             mean_g = tree_map(lambda a: a / n_micro, acc)
             if per_micro and dp.noise_multiplier > 0:
                 stddev = dp.noise_multiplier * dp.clip_norm / n_micro
                 mean_g = tree_unflatten_like(mean_g, [
-                    g + stddev * _draw(key, i, j, g.shape, g.device)
+                    g + stddev * _draw_block(key, i, j, g.shape, g.device,
+                                             model)
                     for j, g in enumerate(tree_leaves(mean_g))])
             params = tree_map(
                 lambda p, g: (p.float() - fl.local_lr * g).to(p.dtype),
@@ -192,6 +255,17 @@ def make_local_phase(loss_fn: Callable, fl: FLStepConfig):
         return params
 
     return local_phase
+
+
+def _draw_block(noise, step: int, j: int, shape, device, model, lead=()):
+    """:func:`_draw` for leaf ``j``, whose block on this rank has
+    ``shape`` (after the stacked dims ``lead``): drawn whole, then cut to
+    the block, so the draws are the one-process round's."""
+    if model is None:
+        return _draw(noise, step, j, tuple(lead) + tuple(shape), device)
+    return model.cut(j, _draw(noise, step, j, tuple(lead)
+                              + model.whole_shape(j, shape), device),
+                     len(lead))
 
 
 def client_noise(key, G: int, device):
@@ -218,32 +292,47 @@ def master_dims(master_shardings) -> "list | None":
     return [data_dim(s) for s in tree_leaves(master_shardings)]
 
 
+def master_model_dims(master_shardings) -> "list | None":
+    """Per master leaf, the dim its sharding cuts over the model axis
+    (None: whole on every rank of a model group)."""
+    if master_shardings is None:
+        return None
+    return [model_dim(s) for s in tree_leaves(master_shardings)]
+
+
 def shard_master(tree, master_shardings):
-    """This rank's shards of a whole master-shaped tree (the params, or
+    """This rank's blocks of a whole master-shaped tree (the params, or
     any tree shaped like them): no communication."""
     if master_shardings is None:
         return tree
     mesh = tree_leaves(master_shardings)[0].mesh
-    return coll.shard_tree(tree, master_dims(master_shardings), mesh.rank,
-                           num_client_groups(mesh))
+    return tree_unflatten_like(tree, [
+        block(l, s, mesh.rank, mesh.model_rank).contiguous()
+        for l, s in zip(tree_leaves(tree), tree_leaves(master_shardings))])
 
 
 def gather_master(tree, master_shardings):
-    """Whole leaves from this rank's shards (an all-gather on a mesh with a
-    process group; every rank must call it)."""
+    """Whole leaves from this rank's blocks (all-gathers over the data and
+    the model axis on a mesh with a process group; every rank must call
+    it)."""
     if master_shardings is None:
         return tree
     mesh = tree_leaves(master_shardings)[0].mesh
     if mesh.group is None:
         return tree
-    return coll.all_gather_tree(tree, master_dims(master_shardings),
+    tree = coll.all_gather_tree(tree, master_dims(master_shardings),
                                 mesh.group)
+    if mesh.shape["model"] > 1:
+        tree = coll.all_gather_tree(
+            tree, master_model_dims(master_shardings), mesh.model_group)
+    return tree
 
 
-def _round_mesh(fl: FLStepConfig, client_shardings, master_shardings):
-    """The mesh of the shardings (None without), checked runnable, and the
-    client split: every client leaf split on its leading dim, G a
-    multiple of the data-axis product."""
+def _round_mesh(fl: FLStepConfig, client_shardings, master_shardings,
+                family=None):
+    """The mesh of the shardings (None without), checked runnable for
+    ``family``, and the client split: every client leaf split on its
+    leading dim, G a multiple of the data-axis product."""
     shs = (_sharding_leaves(client_shardings)
            + _sharding_leaves(master_shardings))
     if not shs:
@@ -252,7 +341,7 @@ def _round_mesh(fl: FLStepConfig, client_shardings, master_shardings):
     if any(s.mesh != mesh for s in shs):
         raise ValueError("client and master shardings lie on different "
                          "meshes")
-    require_runnable(mesh)
+    require_runnable(mesh, family=family)
     for s in _sharding_leaves(client_shardings):
         if data_dim(s) != 0:
             raise ValueError(
@@ -267,8 +356,17 @@ def _round_mesh(fl: FLStepConfig, client_shardings, master_shardings):
     return mesh
 
 
+def _sum_blocks(sq, split, group):
+    """Per leaf, the squared norm summed over ``group`` where ``split``
+    (the leaf is cut on that axis), else as it is."""
+    part = coll.all_reduce_sum(torch.stack([
+        q if s else torch.zeros_like(q) for q, s in zip(sq, split)]), group)
+    return [part[j] if s else q for j, (q, s) in enumerate(zip(sq, split))]
+
+
 def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
-                       client_shardings=None, master_shardings=None):
+                       client_shardings=None, master_shardings=None, *,
+                       family: "str | None" = None):
     """``loss_fn(params, batch) -> scalar mean loss``, where every tensor
     in ``batch`` has a leading per-client batch dim.
 
@@ -287,24 +385,36 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
       metrics:   ``{"delta_norm", "weight_sum"}``
 
     ``client_shardings`` / ``master_shardings``: the round on a mesh
-    (module docstring).
+    (module docstring); ``family`` names the architecture family, which a
+    mesh with a model axis above 1 requires (``launch/mesh.py``'s
+    ``require_runnable``).
     """
     G = fl.num_clients
-    mesh = _round_mesh(fl, client_shardings, master_shardings)
+    mesh = _round_mesh(fl, client_shardings, master_shardings, family)
     group = mesh.group if mesh is not None else None
     w = num_client_groups(mesh) if group is not None else 1
     dims = master_dims(master_shardings)
+    model = None
+    if group is not None and mesh.shape["model"] > 1:
+        model = ModelAxis(mesh.model_group, mesh.model_rank,
+                          mesh.shape["model"],
+                          tuple(master_model_dims(master_shardings)))
     server_opt = make_server_optimizer(fl)
     cdtype = getattr(torch, fl.compute_dtype)
-    local_phase = make_local_phase(loss_fn, fl)
+    local_phase = make_local_phase(loss_fn, fl, model)
     dp = fl.dp
 
     def fl_train_step(master, opt_state, batch, weights, key):
         device = tree_leaves(master)[0].device
+        if model is not None and L.model_group() is not model.group:
+            raise ValueError(
+                "the round on a model axis needs the layers' mesh context: "
+                "models.layers.set_mesh_context(mesh, cfg=cfg)")
         master_c = tree_map(lambda m: m.to(cdtype), master)
         leaf_dims = dims or [None] * len(tree_leaves(master))
         if group is not None:
-            # the broadcast: the compute-dtype shards all-gathered
+            # the broadcast: the compute-dtype shards all-gathered over the
+            # data axis (each rank keeps its model blocks)
             master_c = coll.all_gather_tree(master_c, leaf_dims, group)
         cbatch = tree_map(
             lambda x: split_batch(x, G, fl.n_local, fl.n_micro), batch)
@@ -324,14 +434,14 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
             # draw per leaf of the stacked (G, ...) delta, this rank's
             # clients' rows of it
             norms = torch.sqrt(torch.stack([
-                sum(torch.sum(torch.square(l)) for l in tree_leaves(d))
-                for d in deltas]))
+                _sq_norm(tree_leaves(d), model) for d in deltas]))
             scales = 1.0 / torch.clamp(norms / dp.clip_norm, min=1.0)
             deltas = [tree_map(lambda l, s=scales[i]: l * s, d)
                       for i, d in enumerate(deltas)]
             if dp.noise_multiplier > 0:
                 stddev = dp.noise_multiplier * dp.clip_norm
-                zs = [_draw(sources[G], 0, j, (G,) + tuple(l.shape), device)
+                zs = [_draw_block(sources[G], 0, j, l.shape, device, model,
+                                  (G,))
                       for j, l in enumerate(tree_leaves(deltas[0]))]
                 deltas = [tree_unflatten_like(d, [
                     l + stddev * z[g] for l, z in zip(tree_leaves(d), zs)])
@@ -355,14 +465,12 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
         new_master, new_opt_state = server_opt.update(neg, opt_state, master)
         sq = [torch.sum(torch.square(l)) for l in tree_leaves(agg)]
         if group is not None:
-            # each sharded leaf's sum over its shards; replicated leaves
-            # count once
-            split = [d is not None for d in leaf_dims]
-            part = coll.all_reduce_sum(torch.stack([
-                q if s else torch.zeros_like(q)
-                for q, s in zip(sq, split)]), group)
-            sq = [part[j] if s else q
-                  for j, (q, s) in enumerate(zip(sq, split))]
+            # each leaf's sum over the blocks of the axes that cut it; a
+            # leaf whole on an axis counts once there
+            sq = _sum_blocks(sq, [d is not None for d in leaf_dims], group)
+        if model is not None:
+            sq = _sum_blocks(sq, [d is not None for d in model.dims],
+                             model.group)
         metrics = {"delta_norm": torch.sqrt(sum(sq)), "weight_sum": wsum}
         return new_master, new_opt_state, metrics
 

@@ -62,6 +62,11 @@ def ssd_intra_chunk(xr, ar, Br, Cr) -> torch.Tensor:
     b, c, q, h, p, n = check_inputs(xr, ar, Br, Cr)
     for name, t in (("xr", xr), ("ar", ar), ("Br", Br), ("Cr", Cr)):
         check_launchable(name, t)
+        if type(t) is not torch.Tensor:
+            # a tensor subclass (a DTensor) is no buffer to hand the kernel:
+            # on the model axis each rank passes its own heads' tensors
+            raise TypeError(f"ssd_intra_chunk launches on plain tensors; "
+                            f"{name} is a {type(t).__name__}")
     if q % 4 or p % 4:
         raise ValueError(f"the kernel tiles 4 x 4: chunk q={q} and head "
                          f"dim p={p} must be multiples of 4")

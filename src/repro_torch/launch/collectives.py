@@ -1,5 +1,5 @@
-"""Collectives over the mesh's data axis, and the process group they run
-in (the port's counterpart of what GSPMD inserts into the JAX package's
+"""Collectives over the mesh's axes, and the process group they run in
+(the port's counterpart of what GSPMD inserts into the JAX package's
 programs).
 
 The backend is the caller's choice, made by one stated rule
@@ -18,13 +18,24 @@ The backend is the caller's choice, made by one stated rule
 Nothing here picks a backend or a device behind the caller's back, and a
 collective that fails raises.
 
-Every function takes the data axis's process group (``mesh.group``).
+Every function takes the process group of one mesh axis (``mesh.group``
+for the data axis, ``mesh.model_group`` for the model axis).
 Trees are moved in buckets: consecutive leaves of one dtype are packed
 into one flat buffer of at most :data:`BUCKET_BYTES`, one collective per
 bucket.  :func:`stats` counts each collective's calls, the bytes of
 this rank's input buffers, how many went through host memory, and the
 host seconds spent in them (the whole call where it is host-staged or
 on the CPU; an NCCL call returns before the card has finished).
+
+The model axis (tensor parallelism inside one client's model) is carried
+by four ``autograd`` functions over the model group, Megatron's pair and
+its two reshapes (:func:`tp_copy`, :func:`tp_reduce`, :func:`tp_gather`,
+:func:`tp_scatter`).  Each tensor of a model-parallel forward is either
+*replicated* (the same bits on every rank of the group, its gradient
+computed whole on each) or *local* (this rank's own block or partial
+sum); the four functions are the only ways from one to the other, and
+each one's backward is the other side's forward, so a replicated
+tensor's gradient is whole and equal on every rank.
 """
 from __future__ import annotations
 
@@ -173,12 +184,13 @@ def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum over ranks of ``x`` (a new tensor)."""
+def all_reduce_sum(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """The sum over ranks of ``x`` (a new tensor); ``op`` another
+    ``dist.ReduceOp`` (``MAX``)."""
     t0 = time.perf_counter()
     staged = _staged(x, group)
     buf = x.detach().cpu() if staged else x.detach().clone()
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=group)
     buf = _back(buf, x, staged)
     _note("all_reduce", x.numel() * x.element_size(), staged, t0)
     return buf
@@ -300,14 +312,104 @@ def reduce_scatter_tree(tree, dims, group):
     return tree_unflatten_like(tree, out)
 
 
-def shard_tree(tree, dims, rank: int, w: int):
-    """This rank's shards of whole leaves (no communication): leaf j's
-    chunk ``rank`` of ``w`` along ``dims[j]``, or the whole leaf."""
-    out = []
-    for t, d in zip(tree_leaves(tree), dims):
-        if d is None:
-            out.append(t)
-        else:
-            c = t.shape[d] // w
-            out.append(t.narrow(d, rank * c, c).contiguous())
-    return tree_unflatten_like(tree, out)
+# ---------------------------------------------------------------------------
+# the model axis: tensor-parallel autograd functions
+# ---------------------------------------------------------------------------
+
+def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ranks, added in f32 and rounded once to ``x``'s dtype
+    (two bf16 partial sums added in bf16 would round twice)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return all_reduce_sum(x.float(), group).to(x.dtype)
+    return all_reduce_sum(x, group)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in rank order."""
+    w = dist.get_world_size(group)
+    moved = x.movedim(dim, 0)
+    full = all_gather_rows(moved.reshape(1, -1), group)
+    return full.reshape((w * moved.shape[0],) + tuple(
+        moved.shape[1:])).movedim(0, dim)
+
+
+def _chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's equal chunk of ``x`` along ``dim``."""
+    w, r = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[dim] % w:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {w} ranks")
+    c = x.shape[dim] // w
+    return x.narrow(dim, r * c, c).contiguous()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _chunk(g, ctx.dim, ctx.group), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _chunk(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """Replicated ``x`` into local compute: the identity, whose backward
+    sums the ranks' partial gradients (an all-reduce)."""
+    return _Copy.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' partial sums -> the replicated sum (an all-reduce, added
+    in f32); the backward passes the whole gradient to every partial."""
+    return _Reduce.apply(x, group)
+
+
+def tp_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks along ``dim`` -> the replicated whole (an
+    all-gather); the backward keeps this rank's block of the gradient."""
+    return _Gather.apply(x, dim, group)
+
+
+def tp_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Replicated ``x`` -> this rank's equal block along ``dim`` (no
+    communication); the backward all-gathers the blocks' gradients."""
+    return _Scatter.apply(x, dim, group)
+
+
+def tp_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over the ranks (no gradient)."""
+    return all_reduce_sum(x, group, op=dist.ReduceOp.MAX)

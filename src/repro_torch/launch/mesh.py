@@ -10,10 +10,13 @@ on one device.
 
 The ``"data"`` axis holds the FL clients (cohort members, the production
 round's client groups, the ZeRO shards of the f32 master).  The
-``"model"`` axis, tensor parallelism inside each architecture, is not
-ported: a mesh whose model axis is above 1 can be built and read (the
-sharding rules of :mod:`repro_torch.launch.shardings` are pure shape
-logic), but running one raises (:func:`require_runnable`).
+``"model"`` axis is tensor parallelism inside each client's model: the
+ranks ``d * model .. d * model + model - 1`` of data coordinate ``d``
+form one model group, each holding its blocks of the leaves that
+:mod:`repro_torch.launch.shardings` names ``"model"``.  It runs for the
+production round (``core/fl_step.py``) of the families in
+:data:`MODEL_AXIS_FAMILIES`; everything else on a model axis above 1
+raises (:func:`require_runnable`).
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ AXES = ("data", "model")
 
 # the ROADMAP.md queue 1 item that brings what the port refuses here
 _MODEL_AXIS_ITEM = 19
+
+# the families whose production round runs on a model axis above 1
+MODEL_AXIS_FAMILIES = ("dense", "hybrid")
 
 
 def not_ported(what: str) -> ValueError:
@@ -85,14 +91,30 @@ class HostMesh:
 
     @property
     def group(self):
+        """The data axis's process group of this rank (its model
+        coordinate's ranks); None without a process group."""
         if self.device_mesh is None:
             return None
         return self.device_mesh.get_group("data")
 
     @property
+    def model_group(self):
+        """The model axis's process group of this rank (its data
+        coordinate's ranks); None without a process group."""
+        if self.device_mesh is None:
+            return None
+        return self.device_mesh.get_group("model")
+
+    @property
     def rank(self) -> int:
         """This rank's coordinate on the data axis (0 without a group)."""
         return 0 if self.group is None else dist.get_rank(self.group)
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's coordinate on the model axis (0 without a group)."""
+        g = self.model_group
+        return 0 if g is None else dist.get_rank(g)
 
     def __eq__(self, other):
         return (type(other) is HostMesh and self._sizes == other._sizes
@@ -163,11 +185,26 @@ def num_client_groups(mesh) -> int:
     return int(np.prod([mesh.shape[a] for a in data_axes(mesh)]))
 
 
-def require_runnable(mesh) -> HostMesh:
+def require_model_axis(model: int, family: "str | None" = None,
+                       where: str = ""):
+    """Raise unless a model axis of ``model`` can run for ``family``: 1
+    always, above 1 for the production round of a family in
+    :data:`MODEL_AXIS_FAMILIES` (None: not the production round)."""
+    if model > 1 and family not in MODEL_AXIS_FAMILIES:
+        what = (f"the {family!r} family" if family is not None
+                else "a run that names no family (the cohort engine)")
+        raise not_ported(
+            f"a model axis of {model} for {what}"
+            f"{f' ({where})' if where else ''}; it runs for the production "
+            f"round of the {' and '.join(MODEL_AXIS_FAMILIES)} families")
+
+
+def require_runnable(mesh, *, family: "str | None" = None) -> HostMesh:
     """Raise unless a run can execute on ``mesh``: a concrete mesh over
-    the whole current process group, with a model axis of 1."""
-    if mesh.shape.get("model", 1) > 1:
-        raise not_ported(f"a model axis of {mesh.shape['model']} ({mesh!r})")
+    the whole current process group.  A model axis above 1 runs only for
+    the production round of a family in :data:`MODEL_AXIS_FAMILIES`
+    (``family`` names it; the cohort engine passes none)."""
+    require_model_axis(mesh.shape.get("model", 1), family, repr(mesh))
     if mesh.world is None:
         raise ValueError(f"{mesh!r} is abstract: it has no ranks to run on")
     n = world_size()

@@ -17,12 +17,13 @@ architecture config:
   * for G-stacked per-client tensors (role="client"), the LEADING client
     dim is sharded over the data axes and d_model dims stay unsharded.
 
-Executing a spec is the callers' job (:func:`data_dim` reads one):
-on the data axis a leaf is split along one dim into W equal shards or
-replicated.  A ``"model"`` entry is a no-op on a model axis of 1 (the
-rule names ``"model"`` wherever a candidate divides by 1) and refused at
-run time on a larger one, as is :func:`cache_shardings` (the serving
-caches of the model axis): ROADMAP.md queue 1 item 19.
+Executing a spec is the callers' job (:func:`data_dim` and
+:func:`model_dim` read one): on each axis a leaf is split along at most
+one dim into equal blocks, or replicated; :func:`block` cuts a rank's
+block out of a whole leaf.  A ``"model"`` entry is a no-op on a model
+axis of 1 (the rule names ``"model"`` wherever a candidate divides by
+1).  :func:`cache_shardings` (the serving caches on the model axis)
+raises: ROADMAP.md queue 1 item 19.
 """
 from __future__ import annotations
 
@@ -165,20 +166,41 @@ def cache_shardings(cache_tree, cfg, mesh, batch_size: int):
     raise not_ported("cache_shardings (serving on a mesh)")
 
 
-def data_dim(sharding) -> "int | None":
-    """The dim a :class:`NamedSharding` splits over the data axes (None:
-    replicated on the data axis).  Raises where the spec needs the model
-    axis to be above 1."""
-    mesh, spec = sharding.mesh, sharding.spec
-    daxes = set(_data_axes(mesh))
+def _axis_dim(sharding, names) -> "int | None":
     found = None
-    for i, entry in enumerate(spec):
-        names = entry if isinstance(entry, tuple) else (entry,)
-        if "model" in names and mesh.shape["model"] > 1:
-            raise not_ported(f"the spec {spec} on {mesh!r}")
-        if any(n in daxes for n in names if n is not None):
+    for i, entry in enumerate(sharding.spec):
+        got = entry if isinstance(entry, tuple) else (entry,)
+        if any(n in names for n in got if n is not None):
             if found is not None:
-                raise ValueError(f"spec {spec} splits two dims over the "
-                                 "data axes")
+                raise ValueError(f"spec {sharding.spec} splits two dims "
+                                 f"over {sorted(names)}")
             found = i
     return found
+
+
+def data_dim(sharding) -> "int | None":
+    """The dim a :class:`NamedSharding` splits over the data axes (None:
+    replicated on the data axis)."""
+    return _axis_dim(sharding, set(_data_axes(sharding.mesh)))
+
+
+def model_dim(sharding) -> "int | None":
+    """The dim a :class:`NamedSharding` splits over the model axis (None:
+    replicated on it, which a model axis of 1 always is)."""
+    if sharding.mesh.shape["model"] == 1:
+        return None
+    return _axis_dim(sharding, {"model"})
+
+
+def block(leaf, sharding, data_rank: int = 0, model_rank: int = 0):
+    """The block of the whole ``leaf`` that the rank at (``data_rank``,
+    ``model_rank``) holds under ``sharding`` (a view, no communication)."""
+    shape = sharding.mesh.shape
+    for dim, r, n in ((data_dim(sharding), data_rank,
+                       int(np.prod([shape[a]
+                                    for a in _data_axes(sharding.mesh)]))),
+                      (model_dim(sharding), model_rank, shape["model"])):
+        if dim is not None and n > 1:
+            c = leaf.shape[dim] // n
+            leaf = leaf.narrow(dim, r * c, c)
+    return leaf

@@ -13,12 +13,17 @@ another on one device:
         --arch smollm-360m --data-axis 4 --steps 100 \\
         --reduce d_model=256,n_layers=4,vocab=2048
 
-With ``--devices N --data-axis N`` the round runs on a ("data", "model")
-mesh of N ranks (``launch/mesh.py``), one client group per rank, the f32
-master and FedAdam's state ZeRO-sharded over the ranks
-(``launch/shardings.py``'s ``role="master"`` rule):
+With ``--devices N --data-axis G`` the round runs on a ("data", "model")
+mesh of N ranks, G x N/G (``launch/mesh.py``): one client group per data
+coordinate, the f32 master and FedAdam's state ZeRO-sharded over the
+data axis (``launch/shardings.py``'s ``role="master"`` rule) and, where
+N/G is above 1, each client's model tensor-parallel over the N/G ranks
+of its model group (the dense and hybrid families; the leaves the rule
+names ``"model"`` cut in blocks, ``models/layers.py``):
     PYTHONPATH=src python -m repro_torch.launch.train spmd \\
         --arch smollm-360m --devices 2 --data-axis 2 --steps 100
+    PYTHONPATH=src python -m repro_torch.launch.train spmd \\
+        --arch zamba2-1.2b --devices 4 --data-axis 2 --steps 100
 
 The launcher starts the N ranks itself (``torch.multiprocessing`` with
 the ``spawn`` start method, a rendezvous on a free localhost port), or,
@@ -26,15 +31,15 @@ run under ``torchrun --nproc-per-node N`` on one host, joins the group
 ``torchrun`` describes (``RANK``, ``WORLD_SIZE``, ``MASTER_PORT``).  The
 backend follows ``collectives.choose_backend``, printed by rank 0: NCCL
 with one card per rank, gloo on the CPU and for several ranks sharing a
-card (``spmd_rank(backend=...)`` names one outright).  ``--devices``
-above ``--data-axis``
-is a model axis (tensor parallelism), which raises: ROADMAP.md queue 1
-item 19.
+card (``spmd_rank(backend=...)`` names one outright).  A model axis
+for the other families raises: ROADMAP.md queue 1 item 19.
 
 The flags and output lines are the JAX launcher's, printed by rank 0
-(plus one line naming the mesh and the backend); rank 0 writes the
-checkpoint in the reference's flat-npz format.  The master params are
-kept in f32 (``make_fl_train_step``'s master) and the clients compute in
+(plus one line naming the mesh and the backend); on a model axis every
+rank evaluates the logged losses with its model group (the loss is
+tensor-parallel too).  Rank 0 writes the checkpoint, the master gathered
+whole over both axes, in the reference's flat-npz format.  The master
+params are kept in f32 (``make_fl_train_step``'s master) and the clients compute in
 the config's param dtype; the JAX launcher passes its init params, in
 the param dtype, as the master.  ``--device`` is the port's own flag.
 """
@@ -111,12 +116,15 @@ def run_spmd(args, on_round=None):
     ``torchrun`` (returning this rank's whole final master), and
     otherwise spawns the N ranks and returns None once they have ended
     (``on_round`` is then not passed to them)."""
-    if args.devices > 1 and args.devices != args.data_axis:
-        from repro_torch.launch.mesh import not_ported
-        raise not_ported(
-            f"spmd --devices {args.devices} over --data-axis "
-            f"{args.data_axis} (a model axis of "
-            f"{args.devices}/{args.data_axis})")
+    if args.devices > 1:
+        from repro_torch.launch.mesh import require_model_axis
+        if args.devices % args.data_axis:
+            raise ValueError(
+                f"spmd --devices {args.devices} is not a multiple of "
+                f"--data-axis {args.data_axis}: the mesh is data x model")
+        require_model_axis(
+            args.devices // args.data_axis, spmd_config(args).family,
+            f"spmd --devices {args.devices} --data-axis {args.data_axis}")
     if args.devices == 1:
         return _run_spmd(args, None, args.device, on_round)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
@@ -158,22 +166,37 @@ def spmd_rank(args, rank: int, port: int, backend=None, on_round=None):
                               model=world // args.data_axis)
         if rank == 0:
             print(f"[train:spmd] mesh {mesh.shape} over {world} ranks: "
-                  f"{coll.describe(mesh.group, device)}", flush=True)
+                  f"{coll.describe(None, device)}", flush=True)
         return _run_spmd(args, mesh, device, on_round)
     finally:
         dist.destroy_process_group()
 
 
 def _run_spmd(args, mesh, device, on_round):
+    from repro_torch.models import layers
+
+    if mesh is None:
+        return _spmd_rounds(args, None, device, on_round)
+    # the layers read the model axis from the mesh context, as in the
+    # JAX launcher (no batch constraints inside a client)
+    layers.set_mesh_context(mesh, None, "model", cfg=spmd_config(args))
+    try:
+        return _spmd_rounds(args, mesh, device, on_round)
+    finally:
+        layers.clear_mesh_context()
+
+
+def _spmd_rounds(args, mesh, device, on_round):
     import torch
 
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core.dp import DPConfig
     from repro_torch.core.fl_step import (
         FLStepConfig, gather_master, make_fl_train_step,
-        make_server_optimizer, shard_master)
+        make_server_optimizer, master_dims, shard_master)
     from repro_torch.data.tokens import TokenDataConfig, make_batches
     from repro_torch.device import resolve_device
+    from repro_torch.launch import collectives as coll
     from repro_torch.launch.shardings import tree_shardings
     from repro_torch.models.base import get_family
     from repro_torch.pytree import tree_map
@@ -181,7 +204,10 @@ def _run_spmd(args, mesh, device, on_round):
     dev = resolve_device(device)
     cfg = spmd_config(args)
     fam = get_family(cfg.family)
-    lead = mesh is None or mesh.rank == 0
+    lead = mesh is None or (mesh.rank == 0 and mesh.model_rank == 0)
+    # on a model axis the loss is tensor-parallel: every rank evaluates
+    tp = mesh is not None and mesh.shape["model"] > 1
+    evaluates = lead or tp
 
     G = args.data_axis
     fl = FLStepConfig(
@@ -205,7 +231,7 @@ def _run_spmd(args, mesh, device, on_round):
         return fam.loss(p, b, cfg)
 
     step = make_fl_train_step(loss_fn, fl, client_shardings=client_sh,
-                              master_shardings=master_sh)
+                              master_shardings=master_sh, family=cfg.family)
     opt_state = make_server_optimizer(fl).init(master)
     B = G * args.n_local * args.n_micro * args.per_micro
     data = make_batches(
@@ -214,28 +240,38 @@ def _run_spmd(args, mesh, device, on_round):
     weights = torch.ones((G,), device=dev) / G
 
     @torch.no_grad()
-    def eval_loss(whole, b):
-        return float(loss_fn(tree_map(lambda l: l.to(cfg.pdtype), whole), b))
+    def eval_loss(params, b):
+        return float(loss_fn(tree_map(lambda l: l.to(cfg.pdtype), params),
+                             b))
 
-    def whole_master(dtype=None):
+    def eval_params(dtype=None):
+        """What the loss is evaluated on: the whole master (every rank
+        gathers), or on a model axis this rank's model blocks of it."""
         cast = master if dtype is None else tree_map(
             lambda l: l.to(dtype), master)
+        if tp:
+            return coll.all_gather_tree(cast, master_dims(master_sh),
+                                        mesh.group)
         return gather_master(cast, master_sh)
 
     for i, batch in enumerate(data):
         tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         if i % args.log_every == 0:
-            whole = whole_master(cfg.pdtype)     # every rank gathers
-            if lead:
-                print(f"[train:spmd] round {i:5d} "
-                      f"loss {eval_loss(whole, tb):.4f}", flush=True)
-            del whole
+            params = eval_params(cfg.pdtype)
+            if evaluates:
+                loss = eval_loss(params, tb)
+                if lead:
+                    print(f"[train:spmd] round {i:5d} loss {loss:.4f}",
+                          flush=True)
+            del params
         master, opt_state, metrics = step(master, opt_state, tb, weights, i)
         if on_round is not None:
             on_round(i, master, metrics)
     del opt_state
-    final_master = whole_master()
-    final = eval_loss(final_master, tb) if lead else None
+    final = eval_loss(eval_params(), tb) if tp else None
+    final_master = gather_master(master, master_sh)
+    if lead and not tp:
+        final = eval_loss(final_master, tb)
     if lead:
         print(f"[train:spmd] final loss {final:.4f}")
         if args.ckpt_dir:

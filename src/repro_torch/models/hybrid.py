@@ -90,13 +90,14 @@ def _mamba_layers(params, cfg):
     """(segment or None, index, layer params, ln) in network order; the
     segment index is None for the trailing layers."""
     n_seg, seg_len, trailing = segment_plan(cfg)
+    seg = L.whole_stack(params["mamba_seg"], (n_seg, seg_len))
+    tail = L.whole_stack(params["mamba_tail"], (trailing,))
     for si in range(n_seg):
         for li in range(seg_len):
-            yield (si, li, L.layer_slice(params["mamba_seg"]["mix"], si, li),
-                   params["mamba_seg"]["ln"][si, li])
+            yield (si, li, L.layer_slice(seg["mix"], si, li),
+                   seg["ln"][si, li])
     for ti in range(trailing):
-        yield (None, ti, L.layer_slice(params["mamba_tail"]["mix"], ti),
-               params["mamba_tail"]["ln"][ti])
+        yield (None, ti, L.layer_slice(tail["mix"], ti), tail["ln"][ti])
 
 
 def forward_hidden(params, batch, cfg):

@@ -14,8 +14,17 @@ Conventions (the JAX package's, kept at the public surface)
   device, each dict's leaves in sorted-key order (:func:`draw_sorted`),
   stacked layers one at a time (:func:`stack_layers`).  On the ``meta``
   device (shapes only) there is no generator and nothing is drawn.
-  The JAX package's ``shard()`` and mesh context have no counterpart:
-  there is no mesh on one card.
+* The mesh context (:func:`set_mesh_context`, installed by the
+  launcher) carries the model axis: tensor parallelism over the mesh's
+  model group, explicit through the autograd collectives of
+  :mod:`repro_torch.launch.collectives`.  A layer whose params hold
+  blocks cut on the model axis (a leaf smaller than its whole shape from
+  the config) runs model-parallel: a projection whose output dim is cut
+  runs on this rank's columns, one whose input dim is cut on its rows
+  and sums the ranks' partial outputs (:func:`attention`'s q/k/v and o,
+  :func:`mlp`'s hidden, the vocab of :func:`embed`, :func:`unembed` and
+  :func:`chunked_lm_loss`); the math is the one-device layer's.  With
+  whole params, or no context, every layer is the one-device code.
 """
 from __future__ import annotations
 
@@ -26,7 +35,92 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.launch import collectives as coll
 from repro_torch.pytree import tree_map
+
+# ---------------------------------------------------------------------------
+# the mesh context: the model axis (installed by the launcher)
+# ---------------------------------------------------------------------------
+
+_MESH_CTX = {"mesh": None, "data_axes": None, "model_axis": None,
+             "attn_axis": "heads", "cfg": None}
+
+
+def set_mesh_context(mesh, data_axes=None, model_axis="model",
+                     attn_axis="heads", cfg=None):
+    """Install ``mesh`` (a :class:`repro_torch.launch.mesh.HostMesh`) for
+    the layers.  ``cfg`` gives the whole shapes that blocks are read
+    against (the JAX package reads them from its global arrays).  The
+    data axes play no part inside a client's model, as in the JAX
+    launcher (``set_mesh_context(mesh, None, "model")``).  ``attn_axis``
+    is kept for the reference's signature: the port cuts attention's
+    activations on the dim its weights are cut on, which the reference's
+    ``"heads"``/``"dh"`` option chooses by hand."""
+    _MESH_CTX.update(mesh=mesh, data_axes=data_axes, model_axis=model_axis,
+                     attn_axis=attn_axis, cfg=cfg)
+
+
+def clear_mesh_context():
+    _MESH_CTX.update(mesh=None, data_axes=None, model_axis=None,
+                     attn_axis="heads", cfg=None)
+
+
+def model_group():
+    """The model axis's process group, or None (no context, a model axis
+    of 1, or no process group)."""
+    mesh = _MESH_CTX["mesh"]
+    if mesh is None or _MESH_CTX["model_axis"] is None:
+        return None
+    if mesh.shape["model"] == 1:
+        return None
+    return mesh.model_group
+
+
+def split_dim(w, whole_shape) -> "int | None":
+    """The dim along which ``w`` is a model-axis block of a leaf of
+    ``whole_shape`` (None: ``w`` is whole)."""
+    found = None
+    for i, (a, b) in enumerate(zip(w.shape, whole_shape)):
+        if a != b:
+            if found is not None or b % a:
+                raise ValueError(f"{tuple(w.shape)} is no block of "
+                                 f"{tuple(whole_shape)}")
+            found = i
+    return found
+
+
+def whole(w, whole_shape):
+    """``w`` whole on every rank: its blocks all-gathered when it is one
+    (for replicated compute), else ``w``."""
+    d = split_dim(w, whole_shape)
+    return w if d is None else coll.tp_gather(w, d, model_group())
+
+
+def block_of(w, whole_shape, dim: int):
+    """This rank's block of ``w`` along ``dim`` (for local compute),
+    whether ``w`` holds that block, the whole leaf or another block."""
+    d = split_dim(w, whole_shape)
+    if d == dim:
+        return w
+    return coll.tp_scatter(whole(w, whole_shape), dim, model_group())
+
+
+def shard(x, *logical):
+    """The JAX package's activation constraint: a replicated activation
+    becomes this rank's block along the dim named ``"model"`` (``None``
+    and ``"batch"`` entries stay whole: a client's microbatch is not split
+    over the data axes).  Without a model axis, ``x``."""
+    g = model_group()
+    if g is None or "model" not in logical:
+        return x
+    return coll.tp_scatter(x, logical.index("model"), g)
+
+
+def _ctx_cfg():
+    cfg = _MESH_CTX["cfg"]
+    if cfg is None:
+        raise ValueError("the model axis needs set_mesh_context(..., cfg=)")
+    return cfg
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -93,6 +187,23 @@ def _copy_into(out, layer, idx):
 def layer_slice(tree, *idx):
     """One layer's params out of stacked leaves (views, no copies)."""
     return tree_map(lambda v: v[idx], tree)
+
+
+def whole_stack(tree, lead):
+    """Stacked leaves (leading dims ``lead``) with any leaf the model axis
+    cuts on a stacking dim gathered whole: the leaf rule matches dims by
+    size, and a layer count can equal a candidate size."""
+    g = model_group()
+    if g is None:
+        return tree
+
+    def fix(v):
+        for k, n in enumerate(lead):
+            if v.shape[k] != n:
+                return coll.tp_gather(v, k, g)
+        return v
+
+    return tree_map(fix, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +281,55 @@ def _softcap(x, cap: float):
     return torch.tanh(x / cap) * cap if cap > 0 else x
 
 
+def _attn_shapes(cfg):
+    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": (D, H, Dh), "wk": (D, Hkv, Dh), "wv": (D, Hkv, Dh),
+            "wo": (H, Dh, D)}
+
+
+def _in_projs(x, p, cfg, names):
+    """``_proj(x, p[n])`` for each name, whole on every rank: a weight cut
+    on an output dim projects ``x`` on this rank's columns, and the
+    blocks are all-gathered (one call when all are cut on head_dim)."""
+    g = model_group()
+    shapes = _attn_shapes(cfg)
+    ws = [p[n] for n in names]
+    dims = ([None] * len(names) if g is None
+            else [split_dim(w, shapes[n]) for w, n in zip(ws, names)])
+    # a cut input dim (d_model) is no column block: gather that one whole
+    ws = [whole(w, shapes[n]) if d == 0 else w
+          for w, n, d in zip(ws, names, dims)]
+    dims = [None if d == 0 else d for d in dims]
+    if all(d is None for d in dims):
+        return [_proj(x, w) for w in ws]
+    xc = coll.tp_copy(x, g)
+    out = [_proj(x, w) if d is None else _proj(xc, w)
+           for w, d in zip(ws, dims)]
+    if len(set(dims)) == 1 and dims[0] == 2:
+        # all cut on head_dim: one gather of the heads side by side
+        sizes = [o.shape[2] for o in out]
+        return list(torch.split(coll.tp_gather(
+            torch.cat(out, dim=2), 3, g), sizes, dim=2))
+    return [o if d is None else coll.tp_gather(o, x.dim() - 2 + d, g)
+            for o, d in zip(out, dims)]
+
+
+def _o_proj(o, wo, cfg):
+    """o (B, S, H, Dh) times wo: with wo cut on heads or head_dim, this
+    rank's block of o (the JAX package's ``shard(o, ...)``) on its rows,
+    the partial sums added over the model group."""
+    g = model_group()
+    shape = _attn_shapes(cfg)["wo"]
+    d = None if g is None else split_dim(wo, shape)
+    if d is None or d == 2:
+        return _out_proj(o, wo if d is None else whole(wo, shape))
+    axes = [None] * 4
+    axes[2 + d] = "model"
+    return coll.tp_reduce(_out_proj(shard(o, *axes), wo), g)
+
+
 def _qkv(x, p, cfg, positions, rope=True):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = _in_projs(x, p, cfg, ("wq", "wk", "wv"))
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -197,6 +355,11 @@ def attention(
     (matrix products and an f32 softmax), as the JAX package leaves it
     to XLA outside any Pallas kernel.  ``rope=False`` (Whisper) applies
     no rotary embedding; with ``kv_override`` only q is rotated.
+
+    On the model axis q/k/v come from this rank's columns and are
+    all-gathered whole (the leaf rule cuts head_dim, and RoPE pairs dim i
+    with i + Dh/2 across the cut), the core runs whole on every rank of
+    the group, and o goes through wo's rows (module docstring).
     """
     B, S, D = x.shape
     if positions is None:
@@ -205,7 +368,7 @@ def attention(
         q, k, v = _qkv(x, p, cfg, positions, rope=rope)
         kv_pos = positions
     else:
-        q = _proj(x, p["wq"])
+        (q,) = _in_projs(x, p, cfg, ("wq",))
         if rope:
             q = apply_rope(q, positions, cfg.rope_theta)
         k, v, kv_pos = kv_override
@@ -244,7 +407,7 @@ def attention(
         o = torch.cat([attend_chunk(q[:, i:i + eff_chunk],
                                     positions[:, i:i + eff_chunk])
                        for i in range(0, S, eff_chunk)], dim=1)
-    return _out_proj(o, p["wo"])
+    return _o_proj(o, p["wo"], cfg)
 
 
 def decode_attention(q, p, cache_k, cache_v, pos, cfg, *, window: int = 0):
@@ -276,15 +439,35 @@ def init_mlp(gen, d_model, d_ff, dtype, variant="swiglu"):
     return draw_sorted(**makers)
 
 
-def mlp(x, p, variant="swiglu"):
-    up = torch.matmul(x, p["w_up"])
+def _mlp_hidden(x, w_up, w_gate, variant):
+    up = torch.matmul(x, w_up)
     if variant == "swiglu":
-        h = F.silu(torch.matmul(x, p["w_gate"])) * up
-    elif variant == "geglu":
+        return F.silu(torch.matmul(x, w_gate)) * up
+    if variant == "geglu":
         # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(torch.matmul(x, p["w_gate"]), approximate="tanh") * up
-    else:
-        h = F.gelu(up, approximate="tanh")
+        return F.gelu(torch.matmul(x, w_gate), approximate="tanh") * up
+    return F.gelu(up, approximate="tanh")
+
+
+def mlp(x, p, variant="swiglu"):
+    """On the model axis the hidden is this rank's block of d_ff (the JAX
+    package's ``shard(h, "batch", None, "model")``): w_up/w_gate's
+    columns, w_down's rows, the partial outputs added over the group."""
+    g = model_group()
+    if g is not None:
+        D, Fd = x.shape[-1], _ctx_cfg().d_ff
+        wide, tall = (D, Fd), (Fd, D)
+        cut = [split_dim(p["w_up"], wide), split_dim(p["w_down"], tall)]
+        if "w_gate" in p:
+            cut.append(split_dim(p["w_gate"], wide))
+        if any(d is not None for d in cut):
+            gate = p.get("w_gate")
+            h = _mlp_hidden(coll.tp_copy(x, g), block_of(p["w_up"], wide, 1),
+                            None if gate is None else block_of(gate, wide, 1),
+                            variant)
+            return coll.tp_reduce(
+                torch.matmul(h, block_of(p["w_down"], tall, 0)), g)
+    h = _mlp_hidden(x, p["w_up"], p.get("w_gate"), variant)
     return torch.matmul(h, p["w_down"])
 
 
@@ -297,13 +480,42 @@ def init_embedding(gen, vocab, d_model, dtype):
     return dense_init(gen, (vocab, d_model), dtype, fan_in=d_model)
 
 
+def _vocab_block(table):
+    """(model group, first row, table) when ``table`` (V, D) holds a
+    block of the vocab on the model axis, else (None, 0, table); a table
+    cut on another dim is all-gathered whole."""
+    g = model_group()
+    if g is None:
+        return None, 0, table
+    whole_shape = (_ctx_cfg().vocab, table.shape[1])
+    d = split_dim(table, whole_shape)
+    if d is None:
+        return None, 0, table
+    if d != 0:
+        return None, 0, whole(table, whole_shape)
+    return g, table.shape[0] * torch.distributed.get_rank(g), table
+
+
 def embed(tokens, emb):
-    return F.embedding(tokens, emb)
+    """On the model axis (a vocab block per rank) each rank looks up the
+    tokens in its rows, zero elsewhere, and the rows are summed over the
+    group (one nonzero term per token: exact)."""
+    g, lo, emb = _vocab_block(emb)
+    if g is None:
+        return F.embedding(tokens, emb)
+    local = tokens.long() - lo
+    inside = (local >= 0) & (local < emb.shape[0])
+    rows = F.embedding(torch.where(inside, local, 0), emb)
+    return coll.tp_reduce(torch.where(inside[..., None], rows, 0), g)
 
 
 def unembed(x, emb_or_head, softcap: float = 0.0):
-    logits = torch.matmul(x, emb_or_head.t()).float()
-    return _softcap(logits, softcap)
+    g, _, W = _vocab_block(emb_or_head)
+    if g is None:
+        return _softcap(torch.matmul(x, W.t()).float(), softcap)
+    logits = _softcap(torch.matmul(coll.tp_copy(x, g), W.t()).float(),
+                      softcap)
+    return coll.tp_gather(logits, logits.dim() - 1, g)
 
 
 def cross_entropy_loss(logits, labels, vocab: int):
@@ -325,7 +537,30 @@ def chunked_lm_loss(h, labels, W, softcap: float = 0.0,
     if size * n_chunks != S:
         raise ValueError(f"sequence {S} does not split into {n_chunks} "
                          f"chunks of {size}")
-    losses = [cross_entropy_loss(unembed(h[:, i:i + size], W, softcap),
-                                 labels[:, i:i + size], W.shape[0])
-              for i in range(0, S, size)]
+    g, lo, W = _vocab_block(W)
+    if g is None:
+        losses = [cross_entropy_loss(unembed(h[:, i:i + size], W, softcap),
+                                     labels[:, i:i + size], W.shape[0])
+                  for i in range(0, S, size)]
+    else:
+        hc = coll.tp_copy(h, g)
+        losses = [_vocab_parallel_ce(hc[:, i:i + size],
+                                     labels[:, i:i + size], W, softcap, lo, g)
+                  for i in range(0, S, size)]
     return torch.mean(torch.stack(losses))
+
+
+def _vocab_parallel_ce(h, labels, W, softcap, lo, group):
+    """:func:`cross_entropy_loss` of ``unembed(h, W)`` with W this rank's
+    vocab rows from ``lo``: the log-sum-exp from the group's maximum and
+    the sum of the ranks' exp-sums, the gold logit from the rank that
+    holds it (one all-reduce of both)."""
+    logits = _softcap(torch.matmul(h, W.t()).float(), softcap)
+    m = coll.tp_max(logits.detach().amax(dim=-1), group)
+    sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < W.shape[0])
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    gold = torch.where(inside, gold[..., 0], 0.0)
+    both = coll.tp_reduce(torch.stack([sumexp, gold]), group)
+    return torch.mean(m + torch.log(both[0]) - both[1])

@@ -14,6 +14,12 @@ with a_t = -exp(A_log) * dt_t (scalar per head), B/C shared across heads
 
 Decode is the recurrent form on a persistent (B, H, P, N) state plus a
 (width-1) causal-conv state.
+
+On the model axis (:func:`repro_torch.models.layers.set_mesh_context`,
+params cut by the leaf rule) :func:`mamba2_forward` runs the SSM heads
+split over the model group: each rank scans its H/M heads (the
+``ssd_intra_chunk`` kernel launches on them) and its d_inner block goes
+through the gated norm and out_proj's rows (:func:`_forward_tp`).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.launch import collectives as coll
 from repro_torch.models import layers as L
 
 
@@ -137,8 +144,87 @@ def _softplus(x):
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _shapes(cfg):
+    """The whole shapes of one mixer's leaves."""
+    D, di, H, N = cfg.d_model, d_inner(cfg), n_heads_ssm(cfg), cfg.ssm_state
+    C = conv_channels(cfg)
+    return {"in_proj": (D, 2 * di + 2 * N + H), "conv_w": (cfg.ssm_conv, C),
+            "conv_b": (C,), "dt_bias": (H,), "A_log": (H,), "D": (H,),
+            "norm": (di,), "out_proj": (di, D)}
+
+
+def gated_rms_norm(y, z, scale, eps, group=None):
+    """``rms_norm(y * silu(z), scale)``; with ``group``, y, z and scale are
+    this rank's blocks of d_inner and the mean of squares covers the
+    whole d_inner (the blocks' sums of squares added over the group)."""
+    g = y * F.silu(z)
+    x32 = g.float()
+    if group is None:
+        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    else:
+        ss = torch.sum(torch.square(x32), dim=-1, keepdim=True)
+        total = coll.tp_copy(coll.tp_reduce(ss, group), group)
+        var = total / (x32.shape[-1] * torch.distributed.get_world_size(
+            group))
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(g.dtype)
+
+
+def _forward_tp(x, p, cfg, group):
+    """:func:`mamba2_forward` on the model axis.  The fused in_proj's
+    output dim is cut contiguously (the leaf rule), so its split into
+    z/x/B/C/dt crosses the blocks: the projection runs on this rank's
+    columns and is all-gathered whole, as are the conv's channels.  Then
+    each rank takes its H/M heads of x, z and dt (the JAX package's
+    ``shard``), scans them with the group's whole B and C, and adds its
+    rows of out_proj to the group's sum."""
+    Bsz, S, D = x.shape
+    di, H, N = d_inner(cfg), n_heads_ssm(cfg), cfg.ssm_state
+    P = cfg.ssm_head_dim
+    shapes = _shapes(cfg)
+    w_in = p["in_proj"]
+    if L.split_dim(w_in, shapes["in_proj"]) == 1:
+        zxbcdt = coll.tp_gather(torch.matmul(coll.tp_copy(x, group), w_in),
+                                2, group)
+    else:
+        zxbcdt = torch.matmul(x, L.whole(w_in, shapes["in_proj"]))
+    z, xs, Bm, Cm, dt = torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
+    xBC_raw = torch.cat([xs, Bm, Cm], -1)
+    xBC = F.silu(_causal_conv(xBC_raw, L.whole(p["conv_w"], shapes["conv_w"]),
+                              L.whole(p["conv_b"], shapes["conv_b"])))
+    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+
+    xs, z, dt = (L.shard(t, None, None, "model") for t in (xs, z, dt))
+    h = dt.shape[-1]                                               # H / M
+    dt = _softplus(dt.float() + L.block_of(p["dt_bias"], (H,), 0))
+    a = -torch.exp(L.block_of(p["A_log"], (H,), 0)) * dt
+    xh = xs.reshape(Bsz, S, h, P)
+    x_dt = (xh.float() * dt[..., None]).to(x.dtype)
+    y, ssm_final = ssd_chunked(
+        x_dt, a, coll.tp_copy(Bm, group), coll.tp_copy(Cm, group),
+        min(cfg.ssm_chunk, S))
+    D_skip = L.block_of(p["D"], (H,), 0)
+    y = y + xh * D_skip[None, None, :, None].to(x.dtype)
+    y = y.reshape(Bsz, S, h * P).to(x.dtype)
+    y = gated_rms_norm(y, z, L.block_of(p["norm"], (di,), 0), cfg.norm_eps,
+                       group)
+    out = coll.tp_reduce(
+        torch.matmul(y, L.block_of(p["out_proj"], (di, D), 0)), group)
+    K = cfg.ssm_conv
+    return out, (xBC_raw[:, S - (K - 1):], ssm_final)
+
+
+def _cut(p, cfg) -> bool:
+    shapes = _shapes(cfg)
+    return any(L.split_dim(p[k], s) is not None for k, s in shapes.items())
+
+
 def mamba2_forward(x, p, cfg, state=None):
-    """Full mamba2 mixer on (B, S, D). Returns (out, (conv_state, ssm_state))."""
+    """Full mamba2 mixer on (B, S, D). Returns (out, (conv_state, ssm_state))
+    (on the model axis the ssm state holds this rank's heads)."""
+    group = L.model_group()
+    if group is not None and state is None and _cut(p, cfg):
+        return _forward_tp(x, p, cfg, group)
     Bsz, S, D = x.shape
     di, H, N, P = d_inner(cfg), n_heads_ssm(cfg), cfg.ssm_state, cfg.ssm_head_dim
 
@@ -165,7 +251,7 @@ def mamba2_forward(x, p, cfg, state=None):
     y = y + xh * p["D"][None, None, :, None].to(x.dtype)
     # SSD mixes f32 decay factors in; pin back to the residual dtype
     y = y.reshape(Bsz, S, di).to(x.dtype)
-    y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
     out = torch.matmul(y, p["out_proj"])
     K = cfg.ssm_conv
     if state is not None:

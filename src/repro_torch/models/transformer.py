@@ -81,8 +81,9 @@ def layer_windows(cfg) -> list:
 
 def layers(params, cfg):
     """(index, layer params, window) in network order."""
+    blocks = L.whole_stack(params["blocks"], (cfg.n_layers,))
     for i, window in enumerate(layer_windows(cfg)):
-        yield i, L.layer_slice(params["blocks"], i), window
+        yield i, L.layer_slice(blocks, i), window
 
 
 # ---------------------------------------------------------------------------

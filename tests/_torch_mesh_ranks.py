@@ -1,5 +1,5 @@
 """Gloo ranks for the port's mesh tests (``tests/test_torch_mesh.py``,
-``tests/test_torch_spmd.py``).
+``tests/test_torch_spmd.py``, ``tests/test_torch_model_axis.py``).
 
 :func:`spawn` starts W ranks on the CPU (``torch.multiprocessing`` with
 ``spawn``, a gloo group over a free localhost port); each rank runs one
@@ -154,11 +154,14 @@ def collective_cases(mesh):
     """The collectives module's tree and tensor operations on known
     values: each rank's inputs are a function of its rank."""
     from repro_torch.launch import collectives as coll
+    from repro_torch.launch.shardings import NamedSharding, block
     g, r = mesh.group, mesh.rank
     whole = {"a": torch.arange(24.0).reshape(2, 4, 3),
              "b": torch.arange(5.0)}
     dims = [1, None]                   # "a" split on dim 1, "b" replicated
-    mine = coll.shard_tree(whole, dims, r, WORLD)
+    specs = {"a": (None, "data", None), "b": (None,)}
+    mine = {k: block(v, NamedSharding(mesh, specs[k]), r).contiguous()
+            for k, v in whole.items()}
     mine_int = torch.full((2, 3), r, dtype=torch.int32)
     return {
         "shard": leaves_np(mine),
@@ -181,6 +184,30 @@ def _mesh_again(mesh):
     again = make_host_mesh(data=WORLD)
     return (again == mesh and hash(again) == hash(mesh)
             and CohortSharding(again) == CohortSharding(mesh))
+
+
+def _model_axis_mesh():
+    """A (1, WORLD) mesh on the ranks: runnable for the production round
+    of the dense and hybrid families, refused for the cohort engine; one
+    tensor-parallel sum and gather over its model group."""
+    import torch.distributed as dist
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.mesh import make_host_mesh, require_runnable
+    m = make_host_mesh(data=1, model=WORLD)
+    try:
+        require_runnable(m)
+        engine = "accepted"
+    except ValueError as e:
+        engine = str(e)
+    g, r = m.model_group, m.model_rank
+    return {"runnable": [require_runnable(m, family=f) is m
+                         for f in ("dense", "hybrid")],
+            "coords": (m.rank, r),
+            "sizes": (dist.get_world_size(m.group), dist.get_world_size(g)),
+            "reduced": coll.tp_reduce(torch.tensor([1.0 + r]), g).tolist(),
+            "gathered": coll.tp_gather(torch.tensor([[float(r)]]), 1,
+                                       g).tolist(),
+            "engine": engine}
 
 
 def engine_ranks(rank, out, init):
@@ -212,6 +239,7 @@ def engine_ranks(rank, out, init):
                                  resume_from=str(ck))[1:])
 
     res["resume"] = _guard(crash_resume)
+    res["model_axis"] = _guard(_model_axis_mesh)
     res["partition"] = _guard(lambda: _partition_proof(mesh))
 
     def session():
@@ -246,13 +274,13 @@ def setup_arch(arch):
     return cfg, params, batch
 
 
-def fl_config(granularity, server_opt, server_lr):
+def fl_config(granularity, server_opt, server_lr, sigma=0.5):
     from repro_torch.core.dp import DPConfig
     from repro_torch.core.fl_step import FLStepConfig
     return FLStepConfig(
         num_clients=G, n_local=1, n_micro=N_MICRO, local_lr=0.05,
         server_lr=server_lr, server_opt=server_opt, compute_dtype="float32",
-        dp=DPConfig(1.0, 0.5, granularity))
+        dp=DPConfig(1.0, sigma, granularity))
 
 
 def noise_source(noise):
@@ -306,3 +334,160 @@ def spmd_ranks(rank, out, rounds, noise):
     mesh = make_host_mesh(data=WORLD)
     return {name: _guard(lambda n=name, a=args: round_on(mesh, *a, noise[n]))
             for name, args in rounds.items()}
+
+
+# ---------------------------------------------------------------------------
+# the model axis (tests/test_torch_model_axis.py)
+# ---------------------------------------------------------------------------
+
+def rounds_on(mesh, arch, granularity, server_opt, server_lr, noise,
+              n_rounds=2, sigma=0.5, start=None):
+    """``n_rounds`` rounds of the reduced ``arch`` on ``mesh`` (None: one
+    process), each with the injected ``noise``, from the seeded params or
+    the whole leaves ``start`` (numpy); on a model axis the layers' mesh
+    context is installed, as the launcher installs it.
+    Returns each round's whole master and metrics, this rank's final
+    blocks, the head counts the plain ``ssd_intra_chunk`` received and
+    the unclipped norm of client 0's first microbatch gradient."""
+    from repro_torch.core.fl_step import (
+        gather_master, loss_grad, make_fl_train_step, make_server_optimizer,
+        master_model_dims, shard_master)
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.shardings import tree_shardings
+    from repro_torch.models import layers as L
+    from repro_torch.models.base import get_family
+    from repro_torch.pytree import tree_global_norm, tree_map
+    from repro_torch.pytree import tree_unflatten_like
+    cfg, params, batch = setup_arch(arch)
+    if start is not None:
+        params = tree_unflatten_like(params,
+                                     [torch.from_numpy(a) for a in start])
+    fam = get_family(cfg.family)
+    fl = fl_config(granularity, server_opt, server_lr, sigma)
+    client_sh = master_sh = family = None
+    if mesh is not None:
+        stacked = tree_map(lambda l: torch.empty(
+            (G,) + tuple(l.shape), device="meta"), params)
+        client_sh = tree_shardings(stacked, cfg, mesh, role="client")
+        master_sh = tree_shardings(params, cfg, mesh, role="master")
+        family = cfg.family
+        L.set_mesh_context(mesh, None, "model", cfg=cfg)
+    heads = []
+    plain = ssd_ops.ssd_intra_chunk_ref
+
+    def counted(xr, *rest):
+        heads.append(int(xr.shape[3]))
+        return plain(xr, *rest)
+
+    ssd_ops.ssd_intra_chunk_ref = counted
+    try:
+        local = shard_master(params, master_sh)
+        step = make_fl_train_step(lambda p, b: fam.loss(p, b, cfg), fl,
+                                  client_shardings=client_sh,
+                                  master_shardings=master_sh, family=family)
+        opt = make_server_optimizer(fl).init(local)
+        rounds = []
+        for _ in range(n_rounds):
+            local, opt, met = step(local, opt, batch, torch.ones(G) / G,
+                                   noise_source(noise))
+            rounds.append({"master": leaves_np(gather_master(local,
+                                                             master_sh)),
+                           "delta_norm": float(met["delta_norm"]),
+                           "weight_sum": float(met["weight_sum"])})
+    finally:
+        ssd_ops.ssd_intra_chunk_ref = plain
+        L.clear_mesh_context()
+    micro = {k: v[:PER_MICRO] for k, v in batch.items()}
+    g0 = loss_grad(lambda p, b: fam.loss(p, b, cfg), params, micro)
+    return {"rounds": rounds, "blocks": leaves_np(local),
+            "model_dims": master_model_dims(master_sh),
+            "coords": None if mesh is None else (mesh.rank, mesh.model_rank),
+            "heads": sorted(set(heads)), "n_ssd_heads": cfg.ssm_expand
+            * cfg.d_model // cfg.ssm_head_dim if cfg.family == "hybrid"
+            else 0, "grad0_norm": float(tree_global_norm(g0))}
+
+
+def layer_cases(mesh):
+    """The gated RMSNorm, the vocab-cut embedding and the vocab-parallel
+    loss on this rank's blocks against the whole functions: the largest
+    differences of the values and of the gradients (whole ones compared
+    on this rank's block)."""
+    from repro_torch.launch.shardings import NamedSharding, block
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M2
+    cfg, _, _ = setup_arch("smollm-360m")
+    g, r = mesh.model_group, mesh.model_rank
+    m = mesh.shape["model"]
+    gen = torch.Generator().manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def cut(t, dim):
+        spec = [None] * t.dim()
+        spec[dim] = "model"
+        return block(t, NamedSharding(mesh, tuple(spec)), 0, r)
+
+    out = {}
+    di = 2 * cfg.d_model
+    y, z, scale, w = rand(2, 5, di), rand(2, 5, di), rand(di), rand(2, 5, di)
+    whole_in = [t.clone().requires_grad_() for t in (y, z, scale)]
+    ref = M2.gated_rms_norm(*whole_in, 1e-6)
+    ref_g = torch.autograd.grad((ref * w).sum(), whole_in)
+    part_in = [cut(t, t.dim() - 1).clone().requires_grad_()
+               for t in (y, z, scale)]
+    got = M2.gated_rms_norm(*part_in, 1e-6, group=g)
+    # the gradients of the whole loss: the ranks' terms added
+    got_g = torch.autograd.grad(L.coll.tp_reduce(
+        (got * cut(w, 2)).sum(), g), part_in)
+    out["gated_norm"] = (
+        float((got - cut(ref, 2)).abs().max()),
+        max(float((a - cut(b, b.dim() - 1)).abs().max())
+            for a, b in zip(got_g, ref_g)))
+
+    V, D = cfg.vocab, cfg.d_model
+    table, h = rand(V, D), rand(2, 8, D)
+    tokens = torch.randint(0, V, (2, 8), generator=gen)
+    for name, fn in (
+            ("embed", lambda t, x: (L.embed(tokens, t) * h).sum()),
+            ("loss", lambda t, x: L.chunked_lm_loss(x, tokens, t,
+                                                    loss_chunk=4))):
+        wt, wx = table.clone().requires_grad_(), h.clone().requires_grad_()
+        ref = fn(wt, wx)
+        ref_g = torch.autograd.grad(ref, (wt, wx), allow_unused=True)
+        L.set_mesh_context(mesh, None, "model", cfg=cfg)
+        try:
+            pt, px = cut(table, 0).clone().requires_grad_(), \
+                h.clone().requires_grad_()
+            got = fn(pt, px)
+            got_g = torch.autograd.grad(got, (pt, px), allow_unused=True)
+        finally:
+            L.clear_mesh_context()
+        gx = got_g[1]
+        errs = [float((got_g[0] - cut(ref_g[0], 0)).abs().max())]
+        if ref_g[1] is not None:
+            errs.append(float((gx - ref_g[1]).abs().max()))
+        out[name] = (float((got - ref).abs()), max(errs))
+    out["model"] = m
+    return out
+
+
+def model_axis_ranks(rank, out, data, rounds, noise):
+    """Every case of tests/test_torch_model_axis.py on this rank, on a
+    ``data`` x ``WORLD / data`` mesh: ``rounds`` is ``{name: (arch,
+    granularity, server_opt, server_lr, sigma)}``."""
+    import torch.distributed as dist
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.mesh import make_host_mesh, require_runnable
+    mesh = make_host_mesh(data=data, model=dist.get_world_size() // data)
+    res = {"mesh": mesh.shape, "coords": (mesh.rank, mesh.model_rank),
+           "runnable": _guard(lambda: [require_runnable(
+               mesh, family=f) is mesh for f in ("dense", "hybrid")])}
+    res["layers"] = _guard(lambda: layer_cases(mesh))
+    coll.reset_stats()
+    for name, (arch, gran, opt, lr, sigma) in rounds.items():
+        res[name] = _guard(lambda a=arch, gr=gran, o=opt, l=lr, sg=sigma,
+                           n=name: rounds_on(mesh, a, gr, o, l, noise[n],
+                                             sigma=sg))
+    res["collectives"] = coll.stats()
+    return res

@@ -273,8 +273,11 @@ def test_bf16_round_matches_reference(arch):
 
 def test_shardings_are_the_distributed_half():
     """Shardings on a mesh over no process group (W = 1) change nothing:
-    the round is bit for bit the unsharded one; on a mesh with a model
-    axis above 1 they raise, naming ROADMAP.md queue 1 item 19."""
+    the round is bit for bit the unsharded one.  On a mesh with a model
+    axis above 1 the round runs for the dense and hybrid families (here
+    it then wants the mesh's two ranks; ``tests/test_torch_model_axis.py``
+    runs it on them) and raises for a round that names no family or
+    another family, naming ROADMAP.md queue 1 item 19."""
     from repro_torch.launch.mesh import HostMesh, make_host_mesh
     from repro_torch.launch.shardings import tree_shardings
     fl = FLStepConfig(num_clients=2, n_micro=1, local_lr=0.1, dp=DPConfig(
@@ -301,10 +304,16 @@ def test_shardings_are_the_distributed_half():
                         batch, torch.ones(2) / 2, 3))
     assert torch.equal(out[0][0]["w"], out[1][0]["w"])
     assert torch.equal(out[0][2]["delta_norm"], out[1][2]["delta_norm"])
-    model2 = HostMesh(1, 2, world=1)
+    model2 = tree_shardings(params, Cfg, HostMesh(1, 2, world=1),
+                            role="master")
     with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 19"):
-        make_fl_train_step(loss, fl, master_shardings=tree_shardings(
-            params, Cfg, model2, role="master"))
+        make_fl_train_step(loss, fl, master_shardings=model2)
+    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 19") as e:
+        make_fl_train_step(loss, fl, master_shardings=model2, family="moe")
+    assert "'moe' family" in str(e.value)
+    with pytest.raises(ValueError, match="spans 2 of the process group's 1"):
+        make_fl_train_step(loss, fl, master_shardings=model2,
+                           family="dense")
 
 
 def test_round_draws_from_per_client_generators_reproducibly():

@@ -1,7 +1,8 @@
 """``python -m repro_torch.launch.train`` on the CPU: ``sim`` and ``spmd
 --device cpu --reduce ...`` run and print the JAX launcher's line
 formats; ``spmd`` trains (the loss falls), checkpoints a restorable
-master, reruns bit-identically and refuses what is the distributed half.
+master, reruns bit-identically, runs a model axis on two gloo ranks
+and refuses what is the distributed half still to port.
 """
 import ast
 import json
@@ -19,6 +20,9 @@ from repro_torch.launch import train
 from repro_torch.pytree import tree_leaves
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# the launcher's ranks compute with PyTorch's default thread count; the
+# one-process run they are compared with must too
+DEFAULT_THREADS = torch.get_num_threads()
 SPMD = ["spmd", "--device", "cpu", "--steps", "3", "--log-every", "2",
         "--seq", "32", "--data-axis", "2", "--n-micro", "2",
         "--per-micro", "1", "--reduce", "d_model=64,n_layers=2,vocab=256"]
@@ -75,14 +79,42 @@ def test_spmd_on_round_sees_every_round():
     assert all(s[1] > 0 and s[2] == pytest.approx(1.0) for s in seen)
 
 
-def test_spmd_more_devices_is_the_distributed_half():
-    """``--devices`` above ``--data-axis`` is a model axis: it raises,
-    naming ROADMAP.md queue 1 item 19, before any rank starts
-    (``tests/test_torch_spmd.py`` runs ``--devices 2 --data-axis 2``)."""
-    args = train.build_parser().parse_args(
-        SPMD + ["--devices", "2", "--data-axis", "1"])
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 19"):
-        train.run_spmd(args)
+def test_spmd_more_devices_is_the_distributed_half(tmp_path, capfd):
+    """``--devices`` above ``--data-axis`` is a model axis: ``--devices 2
+    --data-axis 1`` spawns two gloo ranks that train one client's model
+    tensor-parallel, and its checkpoint (the master gathered whole) equals
+    the one-process run's within 1e-5.  A model axis for a family the
+    port does not carry on one raises before any rank starts, naming
+    ROADMAP.md queue 1 item 19, as does a ``--devices`` that ``--data-axis``
+    does not divide (``tests/test_torch_spmd.py`` runs ``--devices 2
+    --data-axis 2``)."""
+    one_client = [a if a != "2" or SPMD[i - 1] != "--data-axis" else "1"
+                  for i, a in enumerate(SPMD)]
+    assert train.main(one_client + ["--devices", "2",
+                                    "--ckpt-dir", str(tmp_path / "tp")]) == 0
+    lines = _lines(capfd.readouterr().out)
+    assert lines[0].startswith("[train:spmd] mesh {'data': 1, 'model': 2} "
+                               "over 2 ranks: backend gloo, world 2")
+    for got, want in zip(lines[1:], SPMD_LINES):
+        assert re.fullmatch(want, got), got
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        train.main(one_client + ["--ckpt-dir", str(tmp_path / "one")])
+    finally:
+        torch.set_num_threads(1)
+    tp, meta_tp = ckpt.load_flat(str(tmp_path / "tp"))
+    one, meta_one = ckpt.load_flat(str(tmp_path / "one"))
+    assert sorted(tp) == sorted(one) and len(one) > 5
+    for k in one:
+        np.testing.assert_allclose(tp[k], one[k], rtol=0, atol=1e-5)
+    assert meta_tp["loss"] == pytest.approx(meta_one["loss"], abs=1e-5)
+    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 19") as e:
+        train.run_spmd(train.build_parser().parse_args(
+            SPMD + ["--arch", "olmoe-1b-7b", "--devices", "4"]))
+    assert "'moe' family" in str(e.value)
+    with pytest.raises(ValueError, match="not a multiple of --data-axis 2"):
+        train.run_spmd(train.build_parser().parse_args(
+            SPMD + ["--devices", "3"]))
 
 
 def test_spmd_defaults_to_the_card(monkeypatch):

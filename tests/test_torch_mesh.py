@@ -38,6 +38,7 @@ the cohort engine run on a two-rank gloo mesh on the CPU.
   is replicated and the proof says so.
 """
 import pathlib
+import re
 import sys
 
 import jax
@@ -272,12 +273,21 @@ def test_the_model_axis_raises_naming_item_19():
         dryrun.run_one("gemma2-2b", "train_4k", "single")
     with pytest.raises(ValueError, match=ROADMAP_19):
         t_mesh.require_runnable(t_mesh.HostMesh(1, 2, world=2))
+    with pytest.raises(ValueError, match=ROADMAP_19) as e:
+        t_mesh.require_runnable(t_mesh.HostMesh(1, 2, world=2),
+                                family="moe")
+    assert "'moe' family" in str(e.value)
+    # the production round of the dense and hybrid families passes the
+    # model axis (and then wants the mesh's ranks: test_torch_model_axis)
+    with pytest.raises(ValueError, match="spans 2 of the process group's 1"):
+        t_mesh.require_runnable(t_mesh.HostMesh(1, 2, world=2),
+                                family="hybrid")
     sh = t_sh.NamedSharding(t_mesh.HostMesh.abstract(1, 2), ("model", None))
-    with pytest.raises(ValueError, match=ROADMAP_19):
-        t_sh.data_dim(sh)
+    assert t_sh.data_dim(sh) is None and t_sh.model_dim(sh) == 0
     one = t_sh.NamedSharding(t_mesh.HostMesh.abstract(2, 1),
                              ("model", "data"))
     assert t_sh.data_dim(one) == 1          # "model" of size 1 is a no-op
+    assert t_sh.model_dim(one) is None
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +338,20 @@ def _same_logs(a, b, mesh_vs_one=False):
 
 def _max_diff(a, b):
     return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def test_a_model_axis_runs_for_the_production_families(ranks):
+    """On the two ranks a (1, 2) mesh is runnable for the dense and hybrid
+    production rounds: rank r is model coordinate r of one model group,
+    whose tensor-parallel collectives sum and gather over both ranks; the
+    cohort engine still refuses it (item 19)."""
+    for r in range(M.WORLD):
+        res = _result(ranks, "model_axis", r)
+        assert res["runnable"] == [True, True]
+        assert res["coords"] == (0, r) and res["sizes"] == (1, 2)
+        assert res["reduced"] == [3.0]
+        assert res["gathered"] == [[0.0, 1.0]]
+        assert re.search(ROADMAP_19, res["engine"])
 
 
 def test_ranks_ran_on_a_two_rank_mesh(ranks):
