@@ -3148,6 +3148,20 @@ MESH_MODEL = (
 )
 MESH_MODEL_ROUNDS = 2
 MESH_MODEL_SMALL = dict(G=2, n_micro=2, seq=32)
+# the bounds at full width, set between the sound readings and a control
+# whose tp_copy backward drops its all-reduce
+# (scripts/torch_model_axis_control.py; PERF.md section 6).  One
+# microbatch's f32 gradient at the seeded params on the model axis
+# against W = 1's, relative L2, largest over the leaves: sound 2.3e-4
+# (zamba2-1.2b) and 3.5e-6 (smollm-360m), the control 0.97-1.01.  The
+# bf16 runs' update (final master minus the initial params) against
+# W = 1's, relative L2 over the leaves: median sound 7.1e-3 and 5.9e-3,
+# the control 2.1e-2 and 4.1e-2; the largest (sound 4.7e-2, the control
+# 6.2e-2 and 8.0e-2) is only capped, since the noise, the same on both
+# sides, swamps most of a bf16 update
+MESH_MODEL_GRAD_RTOL = 1e-3
+MESH_MODEL_UPDATE_MEDIAN = 1.2e-2
+MESH_MODEL_UPDATE_MAX = 1e-1
 SSD_BF16_RTOL = 5e-2          # [kernels-zoo]'s bf16 tolerance
 
 
@@ -3187,7 +3201,7 @@ def _small_tp_round(arch, dev, mesh=None):
         client_sh = tree_shardings(stacked, cfg, mesh, role="client")
         master_sh = tree_shardings(params, cfg, mesh, role="master")
         family = cfg.family
-        layers.set_mesh_context(mesh, None, "model", cfg=cfg)
+        layers.set_mesh_context(mesh, cfg=cfg)
     try:
         local = shard_master(params, master_sh)
         step = make_fl_train_step(lambda p, b: fam.loss(p, b, cfg), fl,
@@ -3208,6 +3222,102 @@ def _small_tp_round(arch, dev, mesh=None):
             launched)
 
 
+def _full_grad(arch, flags, world, data, device, mesh=None):
+    """The gradient of one microbatch's loss (the run's first batch's first
+    per_micro rows; no clip, no noise) at the seeded full-width params in
+    f32, per leaf whole on the CPU; on ``mesh`` through its model axis,
+    each rank on its model blocks of the params (the master's placement),
+    the gradient's blocks gathered over the model group (rank 0 returns
+    them, the others None)."""
+    import torch
+    from repro_torch.core.fl_step import loss_grad, master_model_dims
+    from repro_torch.data.tokens import TokenDataConfig, make_batches
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import train
+    from repro_torch.launch.shardings import tree_shardings
+    from repro_torch.models import layers
+    from repro_torch.models.base import get_family
+    from repro_torch.pytree import tree_leaves, tree_unflatten_like
+    args = _spmd_args(arch, _mesh_model_flags(flags, world, data))
+    cfg = train.spmd_config(args).replace(param_dtype="float32")
+    fam = get_family(cfg.family)
+    params = fam.init_params(cfg, seed=args.seed, device=device)
+    (batch,) = make_batches(TokenDataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, seed=args.seed), num_batches=1,
+        batch_size=args.per_micro)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+    def loss(p, b):
+        return fam.loss(p, b, cfg)
+
+    if mesh is None:
+        return [g.cpu() for g in tree_leaves(loss_grad(loss, params, batch))]
+    dims = master_model_dims(tree_shardings(params, cfg, mesh, role="master"))
+    m, r = mesh.shape["model"], mesh.model_rank
+    params = tree_unflatten_like(params, [
+        l if d is None else l.narrow(d, r * (l.shape[d] // m),
+                                     l.shape[d] // m).contiguous()
+        for l, d in zip(tree_leaves(params), dims)])
+    layers.set_mesh_context(mesh, cfg=cfg)
+    try:
+        grads = loss_grad(loss, params, batch)
+    finally:
+        layers.clear_mesh_context()
+    del params
+    grads = coll.all_gather_tree(grads, dims, mesh.model_group)
+    if mesh.rank or mesh.model_rank:
+        return None
+    return [g.cpu() for g in tree_leaves(grads)]
+
+
+def _per_leaf(names, pairs):
+    """(relative L2, leaf name) per leaf, sorted; its median and largest."""
+    rels = sorted((_rel_l2(a, b), n) for n, (a, b) in zip(names, pairs))
+    return rels, rels[len(rels) // 2][0], rels[-1]
+
+
+def _full_width_bounds(arch, args, cfg, got, ref, grad, grad_ref):
+    """[mesh-model]'s bounds at full width: the f32 gradient on the model
+    axis (``grad``) against W = 1's (``grad_ref``), per leaf within
+    ``MESH_MODEL_GRAD_RTOL``; and each leaf's update in the bf16 runs
+    (``got`` minus the initial params) against W = 1's (``ref`` minus
+    them), median and largest within ``MESH_MODEL_UPDATE_MEDIAN`` /
+    ``_MAX``.  The master alone would hide a wrong update behind the
+    initial weights, and delta_norm behind the noise, which is the same
+    on both sides; the noise still swamps most of a bf16 update, so the
+    f32 gradient is the sharper of the two.  Logs both before requiring
+    either."""
+    import torch
+    from repro_torch.models.base import get_family
+    from repro_torch.pytree import tree_leaves, tree_paths
+    init = get_family(cfg.family).init_params(cfg, seed=args.seed,
+                                              device="cuda")
+    names = ["/".join(map(str, p)) for p in tree_paths(init)]
+    init = [l.float().cpu() for l in tree_leaves(init)]
+    for name, a in zip(names, got):
+        require(bool(torch.isfinite(a).all()),
+                f"[mesh-model] {arch}: nonfinite master at {name}")
+    g_rels, g_med, (g_top, g_at) = _per_leaf(names, zip(grad, grad_ref))
+    u_rels, u_med, (u_top, u_at) = _per_leaf(
+        names, [(a - i, b - i) for a, b, i in zip(got, ref, init)])
+    log(f"[mesh-model] {arch}: f32 gradient of one microbatch at full "
+        f"width, relative L2 per leaf from W=1 over {len(g_rels)} leaves: "
+        f"median {g_med:.4e}, max {g_top:.4e} at {g_at}, largest five "
+        f"{[(float(f'{r:.4e}'), n) for r, n in g_rels[-5:]]}")
+    log(f"[mesh-model] {arch}: update (master - init) relative L2 per "
+        f"leaf from W=1 over {len(u_rels)} leaves: median {u_med:.4e}, max "
+        f"{u_top:.4e} at {u_at}, largest five "
+        f"{[(float(f'{r:.4e}'), n) for r, n in u_rels[-5:]]}")
+    require(g_top <= MESH_MODEL_GRAD_RTOL,
+            f"[mesh-model] {arch}: gradient bound: max {g_top:.4e} at "
+            f"{g_at} (limit {MESH_MODEL_GRAD_RTOL}) from W=1")
+    require(u_med <= MESH_MODEL_UPDATE_MEDIAN
+            and u_top <= MESH_MODEL_UPDATE_MAX,
+            f"[mesh-model] {arch}: update bound: median {u_med:.4e} (limit "
+            f"{MESH_MODEL_UPDATE_MEDIAN}), max {u_top:.4e} at {u_at} (limit "
+            f"{MESH_MODEL_UPDATE_MAX}) from W=1")
+
+
 def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
                      rerun_port, small_port):
     """One rank of [mesh-model]: ``run_spmd`` on a data x model mesh through
@@ -3215,8 +3325,9 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
     each ssd_intra_chunk launch's head count and holding the first launch
     against the plain version on the same inputs; then, with
     ``rerun_port``, round 0 again in this process; then the f32
-    reduced round of the same family on the same mesh shape.  Saves what
-    it measured to ``out/rank<r>.pt``."""
+    reduced round of the same family on the same mesh shape and the f32
+    gradient of one microbatch at full width (``_full_grad``).  Saves
+    what it measured to ``out/rank<r>.pt``."""
     device = _rank_setup(rank, world, port, backend, join=False)
     import torch
     import torch.distributed as dist
@@ -3286,6 +3397,8 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
         small, dn, n = _small_tp_round(arch, device, mesh)
         res["small"] = {"delta_norm": dn, "launches": n,
                         "master": small if rank == 0 else None}
+        torch.cuda.empty_cache()
+        res["grad"] = _full_grad(arch, flags, world, data, device, mesh)
     finally:
         dist.destroy_process_group()
     torch.save(res, out / f"rank{rank}.pt")
@@ -3301,10 +3414,11 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
     bf16 tolerance of the plain version on the same inputs; the ranks'
     delta norms equal; the blocks of the leaves the model axis leaves
     whole bit-identical across each model group; zamba2's round 0 rerun
-    in the same processes bit-identical; a finite master.  Prints the
-    master's per-leaf relative L2 from W = 1 (a bf16 route: no strict
-    bound) and holds the f32 round of each reduced config on the same
-    mesh shape within 1e-5 of its W = 1 round on the card.  Logs each
+    in the same processes bit-identical; a finite master; the full-width
+    bounds of ``_full_width_bounds`` (held first: one microbatch's f32
+    gradient per leaf, and the bf16 runs' update per leaf, against
+    W = 1's); and the f32 round of each reduced config on the same mesh
+    shape within 1e-5 of its W = 1 round on the card.  Logs each
     rank's walls, peak memory and collectives (calls and bytes).
     ``backend="nccl"`` puts each rank on its own card
     (``scripts/torch_model_axis_cards.py``).  Returns the ssd_intra_chunk
@@ -3328,6 +3442,7 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
         cfg = train.spmd_config(args)
         m = world // data
         small_ref, small_dn, small_n = _small_tp_round(arch, "cuda")
+        grad_ref = _full_grad(arch, flags, world, data, "cuda")
         _free_card()
         t0 = time.perf_counter()
         _mesh_spawn(_mesh_model_rank, world, world, backend, arch, flags,
@@ -3337,6 +3452,8 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
         wall = time.perf_counter() - t0
         for f in out.iterdir():
             f.unlink()
+        _full_width_bounds(arch, args, cfg, ranks[0]["master"], ref,
+                           ranks[0]["grad"], grad_ref)
         hybrid = cfg.family == "hybrid"
         dims = [model_dim(s) for s in tree_leaves(tree_shardings(
             get_family(cfg.family).init_params(cfg, 0, device="meta"), cfg,
@@ -3381,11 +3498,6 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
                                 f"[mesh-model] {arch}: leaf {j} (whole on "
                                 f"the model axis) differs in the model "
                                 f"group of rank {lead}")
-        got = ranks[0]["master"]
-        for leaf in got:
-            require(bool(torch.isfinite(leaf).all()), f"[mesh-model] {arch}: "
-                    "nonfinite master")
-        rels = sorted(_rel_l2(a, b) for a, b in zip(got, ref))
         rel_n = max(abs(a - b) / abs(b) for a, b in
                     zip(ranks[0]["norms"], st["norms"]))
         small = ranks[0]["small"]
@@ -3416,11 +3528,8 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
             f"{cfg.param_dtype} clients, f32 master; {world} {backend} "
             f"ranks {where}), {MESH_MODEL_ROUNDS} rounds: {heads}; the blocks "
             f"of the {sum(d is None for d in dims)} leaves whole on the "
-            f"model axis bit-identical across each model group; master "
-            f"relative L2 per leaf from W=1 median {rels[len(rels) // 2]:.3e}"
-            f" max {rels[-1]:.3e} (bf16 clients: bf16 routes of a deep "
-            f"random model differ by 0.22-1.10 per leaf, ROADMAP.md queue "
-            f"3), delta_norm {rel_n:.3e}; W=1 walls "
+            f"model axis bit-identical across each model group; delta_norm "
+            f"{rel_n:.3e} from W=1; W=1 walls "
             f"{[round(w, 3) for w in st['walls']]} s, peak "
             f"{ref_peak / 2**30:.2f} GiB; reduced f32 round on the same "
             f"mesh shape {d_small:.3e} from W=1 (tolerance {MESH_TIGHT}); "
@@ -3436,7 +3545,7 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
                 f"{coll_s:.1f} s in collectives (host clock), peak memory "
                 f"{res['peak'] / 2**30:.2f} GiB, collectives (calls, "
                 f"bytes) {calls}")
-        del ranks, got, ref
+        del ranks, ref, grad_ref
         _free_card()
     return launches
 

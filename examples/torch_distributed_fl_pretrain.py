@@ -65,7 +65,7 @@ def rank_main(rank, args, port):
             vocab=2048, param_dtype="float32")
         fam = get_family(cfg.family)
         tp = mesh.shape["model"] > 1
-        layers.set_mesh_context(mesh, None, "model", cfg=cfg)
+        layers.set_mesh_context(mesh, cfg=cfg)
 
         # DP granularity note (the reference example's): per-microbatch
         # clipping clips a whole-model mean gradient, so the clip is looser

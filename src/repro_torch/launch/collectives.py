@@ -388,28 +388,30 @@ class _Scatter(torch.autograd.Function):
 
 def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
     """Replicated ``x`` into local compute: the identity, whose backward
-    sums the ranks' partial gradients (an all-reduce)."""
-    return _Copy.apply(x, group)
+    sums the ranks' partial gradients (an all-reduce).  With no group
+    (no model axis) this and the functions below return ``x``."""
+    return x if group is None else _Copy.apply(x, group)
 
 
 def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The ranks' partial sums -> the replicated sum (an all-reduce, added
     in f32); the backward passes the whole gradient to every partial."""
-    return _Reduce.apply(x, group)
+    return x if group is None else _Reduce.apply(x, group)
 
 
 def tp_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The ranks' blocks along ``dim`` -> the replicated whole (an
     all-gather); the backward keeps this rank's block of the gradient."""
-    return _Gather.apply(x, dim, group)
+    return x if group is None else _Gather.apply(x, dim, group)
 
 
 def tp_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Replicated ``x`` -> this rank's equal block along ``dim`` (no
     communication); the backward all-gathers the blocks' gradients."""
-    return _Scatter.apply(x, dim, group)
+    return x if group is None else _Scatter.apply(x, dim, group)
 
 
 def tp_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise maximum over the ranks (no gradient)."""
-    return all_reduce_sum(x, group, op=dist.ReduceOp.MAX)
+    return x if group is None else all_reduce_sum(x, group,
+                                                  op=dist.ReduceOp.MAX)

@@ -179,7 +179,7 @@ def _run_spmd(args, mesh, device, on_round):
         return _spmd_rounds(args, None, device, on_round)
     # the layers read the model axis from the mesh context, as in the
     # JAX launcher (no batch constraints inside a client)
-    layers.set_mesh_context(mesh, None, "model", cfg=spmd_config(args))
+    layers.set_mesh_context(mesh, cfg=spmd_config(args))
     try:
         return _spmd_rounds(args, mesh, device, on_round)
     finally:

@@ -24,7 +24,10 @@ Conventions (the JAX package's, kept at the public surface)
   and sums the ranks' partial outputs (:func:`attention`'s q/k/v and o,
   :func:`mlp`'s hidden, the vocab of :func:`embed`, :func:`unembed` and
   :func:`chunked_lm_loss`); the math is the one-device layer's.  With
-  whole params, or no context, every layer is the one-device code.
+  no context the helpers (:func:`whole`, :func:`block_of`,
+  :func:`shard` and the collectives) return their input and every layer
+  is the one-device code; attention, the MLP and the vocab functions
+  run it with whole params too.
 """
 from __future__ import annotations
 
@@ -42,36 +45,30 @@ from repro_torch.pytree import tree_map
 # the mesh context: the model axis (installed by the launcher)
 # ---------------------------------------------------------------------------
 
-_MESH_CTX = {"mesh": None, "data_axes": None, "model_axis": None,
-             "attn_axis": "heads", "cfg": None}
+_MESH_CTX = {"mesh": None, "cfg": None}
 
 
-def set_mesh_context(mesh, data_axes=None, model_axis="model",
-                     attn_axis="heads", cfg=None):
+def set_mesh_context(mesh, *, cfg):
     """Install ``mesh`` (a :class:`repro_torch.launch.mesh.HostMesh`) for
-    the layers.  ``cfg`` gives the whole shapes that blocks are read
-    against (the JAX package reads them from its global arrays).  The
-    data axes play no part inside a client's model, as in the JAX
-    launcher (``set_mesh_context(mesh, None, "model")``).  ``attn_axis``
-    is kept for the reference's signature: the port cuts attention's
-    activations on the dim its weights are cut on, which the reference's
-    ``"heads"``/``"dh"`` option chooses by hand."""
-    _MESH_CTX.update(mesh=mesh, data_axes=data_axes, model_axis=model_axis,
-                     attn_axis=attn_axis, cfg=cfg)
+    the layers: its ``"model"`` axis carries tensor parallelism.  ``cfg``
+    gives the whole shapes that blocks are read against (the JAX package
+    reads them from its global arrays).  The reference's ``data_axes``,
+    ``model_axis`` and ``attn_axis`` have no counterpart: the data axes
+    play no part inside a client's model (the JAX launcher passes None),
+    the model axis is the mesh's ``"model"``, and attention's activations
+    are cut on the dim its weights are cut on."""
+    _MESH_CTX.update(mesh=mesh, cfg=cfg)
 
 
 def clear_mesh_context():
-    _MESH_CTX.update(mesh=None, data_axes=None, model_axis=None,
-                     attn_axis="heads", cfg=None)
+    _MESH_CTX.update(mesh=None, cfg=None)
 
 
 def model_group():
     """The model axis's process group, or None (no context, a model axis
     of 1, or no process group)."""
     mesh = _MESH_CTX["mesh"]
-    if mesh is None or _MESH_CTX["model_axis"] is None:
-        return None
-    if mesh.shape["model"] == 1:
+    if mesh is None or mesh.shape["model"] == 1:
         return None
     return mesh.model_group
 
@@ -91,18 +88,20 @@ def split_dim(w, whole_shape) -> "int | None":
 
 def whole(w, whole_shape):
     """``w`` whole on every rank: its blocks all-gathered when it is one
-    (for replicated compute), else ``w``."""
-    d = split_dim(w, whole_shape)
-    return w if d is None else coll.tp_gather(w, d, model_group())
+    (for replicated compute), else ``w`` (always, with no model axis)."""
+    g = model_group()
+    d = None if g is None else split_dim(w, whole_shape)
+    return w if d is None else coll.tp_gather(w, d, g)
 
 
 def block_of(w, whole_shape, dim: int):
     """This rank's block of ``w`` along ``dim`` (for local compute),
-    whether ``w`` holds that block, the whole leaf or another block."""
-    d = split_dim(w, whole_shape)
-    if d == dim:
+    whether ``w`` holds that block, the whole leaf or another block;
+    with no model axis, ``w``."""
+    g = model_group()
+    if g is None or split_dim(w, whole_shape) == dim:
         return w
-    return coll.tp_scatter(whole(w, whole_shape), dim, model_group())
+    return coll.tp_scatter(whole(w, whole_shape), dim, g)
 
 
 def shard(x, *logical):
@@ -373,9 +372,19 @@ def attention(
             q = apply_rope(q, positions, cfg.rope_theta)
         k, v, kv_pos = kv_override
 
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    rep = H // Hkv
-    scale = Dh ** -0.5
+    o = attend(q, k, v, positions, kv_pos, cfg, window=window,
+               causal=causal, q_chunk=q_chunk)
+    return _o_proj(o, p["wo"], cfg)
+
+
+def attend(q, k, v, positions, kv_pos, cfg, *, window: int = 0,
+           causal: bool = True, q_chunk: int = 1024):
+    """The core of :func:`attention`: q (B, S, H, Dh) against k/v (B, Skv,
+    Hkv, Dh) -> (B, S, H, Dh), the heads and the GQA ratio read from the
+    tensors, ``cfg`` giving the scale's head_dim and the softcap."""
+    S, H = q.shape[1], q.shape[2]
+    rep = H // k.shape[2]
+    scale = cfg.head_dim ** -0.5
     kk = torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
     vv = torch.repeat_interleave(v, rep, dim=2) if rep > 1 else v
     k_t = kk.permute(0, 2, 3, 1)                          # (B, H, Dh, Skv)
@@ -393,7 +402,7 @@ def attention(
         if causal:
             mask = mask & (dk <= dq)
         logits = logits.masked_fill_(~mask[:, None], -1e30)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
         return torch.matmul(probs, v_t).permute(0, 2, 1, 3)  # (B, Cq, H, Dh)
 
     # pick the largest divisor of S that fits the target chunk (S=1500
@@ -402,12 +411,10 @@ def attention(
     while eff_chunk > 1 and S % eff_chunk:
         eff_chunk -= 1
     if S <= q_chunk or eff_chunk < 64:
-        o = attend_chunk(q, positions)
-    else:
-        o = torch.cat([attend_chunk(q[:, i:i + eff_chunk],
-                                    positions[:, i:i + eff_chunk])
-                       for i in range(0, S, eff_chunk)], dim=1)
-    return _o_proj(o, p["wo"], cfg)
+        return attend_chunk(q, positions)
+    return torch.cat([attend_chunk(q[:, i:i + eff_chunk],
+                                   positions[:, i:i + eff_chunk])
+                      for i in range(0, S, eff_chunk)], dim=1)
 
 
 def decode_attention(q, p, cache_k, cache_v, pos, cfg, *, window: int = 0):

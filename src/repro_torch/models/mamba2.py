@@ -19,7 +19,7 @@ On the model axis (:func:`repro_torch.models.layers.set_mesh_context`,
 params cut by the leaf rule) :func:`mamba2_forward` runs the SSM heads
 split over the model group: each rank scans its H/M heads (the
 ``ssd_intra_chunk`` kernel launches on them) and its d_inner block goes
-through the gated norm and out_proj's rows (:func:`_forward_tp`).
+through the gated norm and out_proj's rows.
 """
 from __future__ import annotations
 
@@ -170,89 +170,60 @@ def gated_rms_norm(y, z, scale, eps, group=None):
     return (out * (1.0 + scale.float())).to(g.dtype)
 
 
-def _forward_tp(x, p, cfg, group):
-    """:func:`mamba2_forward` on the model axis.  The fused in_proj's
-    output dim is cut contiguously (the leaf rule), so its split into
-    z/x/B/C/dt crosses the blocks: the projection runs on this rank's
-    columns and is all-gathered whole, as are the conv's channels.  Then
-    each rank takes its H/M heads of x, z and dt (the JAX package's
-    ``shard``), scans them with the group's whole B and C, and adds its
-    rows of out_proj to the group's sum."""
+def mamba2_forward(x, p, cfg, state=None):
+    """Full mamba2 mixer on (B, S, D). Returns (out, (conv_state, ssm_state)).
+
+    On the model axis the fused in_proj's output dim is cut contiguously
+    (the leaf rule), so its split into z/x/B/C/dt crosses the blocks: the
+    projection runs on this rank's columns and is all-gathered whole, as
+    are the conv's channels.  Then each rank takes its H/M heads of x, z
+    and dt (the JAX package's ``shard``), scans them with the group's
+    whole B and C, and adds its rows of out_proj to the group's sum; the
+    ssm state holds this rank's heads.  With no model axis every helper
+    below returns its input and this is the one-device mixer."""
+    group = L.model_group()
     Bsz, S, D = x.shape
-    di, H, N = d_inner(cfg), n_heads_ssm(cfg), cfg.ssm_state
-    P = cfg.ssm_head_dim
+    di, H, N, P = d_inner(cfg), n_heads_ssm(cfg), cfg.ssm_state, cfg.ssm_head_dim
     shapes = _shapes(cfg)
+
     w_in = p["in_proj"]
-    if L.split_dim(w_in, shapes["in_proj"]) == 1:
+    if group is not None and L.split_dim(w_in, shapes["in_proj"]) == 1:
         zxbcdt = coll.tp_gather(torch.matmul(coll.tp_copy(x, group), w_in),
                                 2, group)
     else:
         zxbcdt = torch.matmul(x, L.whole(w_in, shapes["in_proj"]))
     z, xs, Bm, Cm, dt = torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
+
     xBC_raw = torch.cat([xs, Bm, Cm], -1)
-    xBC = F.silu(_causal_conv(xBC_raw, L.whole(p["conv_w"], shapes["conv_w"]),
-                              L.whole(p["conv_b"], shapes["conv_b"])))
+    conv_w = L.whole(p["conv_w"], shapes["conv_w"])
+    conv_b = L.whole(p["conv_b"], shapes["conv_b"])
+    if state is not None:
+        conv_in = torch.cat([state[0], xBC_raw], dim=1)
+        xBC = _causal_conv(conv_in, conv_w, conv_b)[:, state[0].shape[1]:]
+    else:
+        xBC = _causal_conv(xBC_raw, conv_w, conv_b)
+    xBC = F.silu(xBC)
     xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
 
     xs, z, dt = (L.shard(t, None, None, "model") for t in (xs, z, dt))
     h = dt.shape[-1]                                               # H / M
-    dt = _softplus(dt.float() + L.block_of(p["dt_bias"], (H,), 0))
-    a = -torch.exp(L.block_of(p["A_log"], (H,), 0)) * dt
+    dt = _softplus(dt.float() + L.block_of(p["dt_bias"], (H,), 0))  # (B,S,h)
+    a = -torch.exp(L.block_of(p["A_log"], (H,), 0)) * dt            # (B,S,h)
     xh = xs.reshape(Bsz, S, h, P)
     x_dt = (xh.float() * dt[..., None]).to(x.dtype)
+
+    init_ssm = state[1] if state is not None else None
     y, ssm_final = ssd_chunked(
         x_dt, a, coll.tp_copy(Bm, group), coll.tp_copy(Cm, group),
-        min(cfg.ssm_chunk, S))
+        min(cfg.ssm_chunk, S), init_state=init_ssm)
     D_skip = L.block_of(p["D"], (H,), 0)
     y = y + xh * D_skip[None, None, :, None].to(x.dtype)
+    # SSD mixes f32 decay factors in; pin back to the residual dtype
     y = y.reshape(Bsz, S, h * P).to(x.dtype)
     y = gated_rms_norm(y, z, L.block_of(p["norm"], (di,), 0), cfg.norm_eps,
                        group)
     out = coll.tp_reduce(
         torch.matmul(y, L.block_of(p["out_proj"], (di, D), 0)), group)
-    K = cfg.ssm_conv
-    return out, (xBC_raw[:, S - (K - 1):], ssm_final)
-
-
-def _cut(p, cfg) -> bool:
-    shapes = _shapes(cfg)
-    return any(L.split_dim(p[k], s) is not None for k, s in shapes.items())
-
-
-def mamba2_forward(x, p, cfg, state=None):
-    """Full mamba2 mixer on (B, S, D). Returns (out, (conv_state, ssm_state))
-    (on the model axis the ssm state holds this rank's heads)."""
-    group = L.model_group()
-    if group is not None and state is None and _cut(p, cfg):
-        return _forward_tp(x, p, cfg, group)
-    Bsz, S, D = x.shape
-    di, H, N, P = d_inner(cfg), n_heads_ssm(cfg), cfg.ssm_state, cfg.ssm_head_dim
-
-    zxbcdt = torch.matmul(x, p["in_proj"])
-    z, xs, Bm, Cm, dt = torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
-
-    xBC_raw = torch.cat([xs, Bm, Cm], -1)
-    if state is not None:
-        conv_in = torch.cat([state[0], xBC_raw], dim=1)
-        xBC = _causal_conv(conv_in, p["conv_w"], p["conv_b"])[:, state[0].shape[1]:]
-    else:
-        xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
-    xBC = F.silu(xBC)
-    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
-
-    dt = _softplus(dt.float() + p["dt_bias"])                      # (B,S,H)
-    a = -torch.exp(p["A_log"]) * dt                                # (B,S,H)
-    xh = xs.reshape(Bsz, S, H, P)
-    x_dt = (xh.float() * dt[..., None]).to(x.dtype)
-
-    init_ssm = state[1] if state is not None else None
-    y, ssm_final = ssd_chunked(
-        x_dt, a, Bm, Cm, min(cfg.ssm_chunk, S), init_state=init_ssm)
-    y = y + xh * p["D"][None, None, :, None].to(x.dtype)
-    # SSD mixes f32 decay factors in; pin back to the residual dtype
-    y = y.reshape(Bsz, S, di).to(x.dtype)
-    y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
-    out = torch.matmul(y, p["out_proj"])
     K = cfg.ssm_conv
     if state is not None:
         tail = torch.cat([state[0], xBC_raw], dim=1)[:, -(K - 1):]

@@ -371,7 +371,7 @@ def rounds_on(mesh, arch, granularity, server_opt, server_lr, noise,
         client_sh = tree_shardings(stacked, cfg, mesh, role="client")
         master_sh = tree_shardings(params, cfg, mesh, role="master")
         family = cfg.family
-        L.set_mesh_context(mesh, None, "model", cfg=cfg)
+        L.set_mesh_context(mesh, cfg=cfg)
     heads = []
     plain = ssd_ops.ssd_intra_chunk_ref
 
@@ -455,7 +455,7 @@ def layer_cases(mesh):
         wt, wx = table.clone().requires_grad_(), h.clone().requires_grad_()
         ref = fn(wt, wx)
         ref_g = torch.autograd.grad(ref, (wt, wx), allow_unused=True)
-        L.set_mesh_context(mesh, None, "model", cfg=cfg)
+        L.set_mesh_context(mesh, cfg=cfg)
         try:
             pt, px = cut(table, 0).clone().requires_grad_(), \
                 h.clone().requires_grad_()
@@ -468,8 +468,77 @@ def layer_cases(mesh):
         if ref_g[1] is not None:
             errs.append(float((gx - ref_g[1]).abs().max()))
         out[name] = (float((got - ref).abs()), max(errs))
+    for name, with_state in (("mamba2", False), ("mamba2_state", True)):
+        out[name] = mamba2_case(mesh, with_state, rand)
     out["model"] = m
     return out
+
+
+def mamba2_case(mesh, with_state, rand):
+    """One Mamba2 mixer of the reduced zamba2 on this rank's blocks (cut
+    by the leaf rule, under the mesh context) against the whole mixer
+    with no context, from no state or from a state (the conv state whole,
+    the ssm state this rank's heads): the largest differences of the
+    output and final ssm state, and of the gradients of the params, the
+    input and the state (each relative to its largest entry)."""
+    from repro_torch.launch.shardings import NamedSharding, block, leaf_spec
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.pytree import tree_map
+    cfg, params, _ = setup_arch("zamba2-1.2b")
+    g, r = mesh.model_group, mesh.model_rank
+    p = tree_map(lambda v: v[0, 0].clone(), params["mamba_seg"]["mix"])
+    names = sorted(p)
+
+    def cut_leaf(t):
+        # the spec of the leaf in a client's (1, ...) stack, client dim off
+        spec = leaf_spec((1,) + tuple(t.shape), cfg, mesh, "client")[1:]
+        return block(t, NamedSharding(mesh, spec), 0, r)
+
+    def head_block(t):
+        return block(t, NamedSharding(mesh, (None, "model", None, None)),
+                     0, r)
+
+    Bsz, S = 2, SEQ
+    H, P, N = M2.n_heads_ssm(cfg), cfg.ssm_head_dim, cfg.ssm_state
+    x, w = rand(Bsz, S, cfg.d_model), rand(Bsz, S, cfg.d_model)
+    conv0 = rand(Bsz, cfg.ssm_conv - 1, M2.conv_channels(cfg))
+    ssm0, w_fin = rand(Bsz, H, P, N), rand(Bsz, H, P, N)
+
+    def run(leaves, x_in, states, fin_w, reduce):
+        state = tuple(states) if with_state else None
+        out, (_, fin) = M2.mamba2_forward(x_in, dict(zip(names, leaves)),
+                                          cfg, state)
+        loss = (out * w).sum() + reduce((fin * fin_w).sum())
+        grads = torch.autograd.grad(loss, list(leaves) + [x_in] + (
+            list(states) if with_state else []))
+        return out, fin, grads
+
+    def leaf_inputs(ts):
+        return [t.clone().requires_grad_() for t in ts]
+
+    ref_out, ref_fin, ref_g = run(
+        leaf_inputs([p[k] for k in names]), x.clone().requires_grad_(),
+        leaf_inputs([conv0, ssm0]), w_fin, lambda t: t)
+    L.set_mesh_context(mesh, cfg=cfg)
+    try:
+        got_out, got_fin, got_g = run(
+            leaf_inputs([cut_leaf(p[k]) for k in names]),
+            x.clone().requires_grad_(),
+            leaf_inputs([conv0, head_block(ssm0)]), head_block(w_fin),
+            lambda t: L.coll.tp_reduce(t, g))
+    finally:
+        L.clear_mesh_context()
+    n = len(names)
+    want = [cut_leaf(t) for t in ref_g[:n]] + [ref_g[n]]
+    if with_state:
+        want += [ref_g[n + 1], head_block(ref_g[n + 2])]
+    value = max(float((got_out - ref_out).abs().max()),
+                float((got_fin - head_block(ref_fin)).abs().max()))
+    # the gradients reach a few hundred: each one's difference relative
+    # to its largest entry
+    return value, max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(got_g, want))
 
 
 def model_axis_ranks(rank, out, data, rounds, noise):

@@ -14,9 +14,9 @@ is 2, on gloo ranks on the CPU: tensor parallelism for the dense
 * The ranks of a model group hold bit-identical blocks of the leaves the
   model axis leaves whole; the plain ``ssd_intra_chunk`` receives H / M
   of the hybrid's SSM heads on each rank.
-* The gated RMSNorm over a cut d_inner, the vocab-cut embedding and the
-  vocab-parallel loss, values and gradients, against the whole
-  functions.
+* The gated RMSNorm over a cut d_inner, the vocab-cut embedding, the
+  vocab-parallel loss and the Mamba2 mixer (with and without a state),
+  values and gradients, against the whole functions.
 * At sigma = 0 FedAdam's first step is about +-lr wherever Delta's sign
   is stable; the spread from W = 1 (1.1e-4 on a few entries) is held as
   ``tests/test_torch_fl_step.py`` holds the FedAdam round.
@@ -115,12 +115,15 @@ def test_the_production_families_run_on_a_model_axis(ranks, world):
         assert res["runnable"] == [True, True], res["runnable"]
 
 
-@pytest.mark.parametrize("case", ["gated_norm", "embed", "loss"])
+@pytest.mark.parametrize("case", ["gated_norm", "embed", "loss", "mamba2",
+                                  "mamba2_state"])
 @pytest.mark.parametrize("world", list(MESHES))
 def test_layers_on_blocks_match_the_whole_functions(ranks, world, case):
     """The gated RMSNorm's mean of squares covers the whole d_inner; the
     vocab-cut embedding and the vocab-parallel cross entropy equal the
-    whole ones; each one's gradients on this rank's blocks too."""
+    whole ones; the Mamba2 mixer on its blocks equals the whole mixer,
+    from no state and from a state whose ssm part holds this rank's
+    heads; each one's gradients on this rank's blocks too."""
     for res in ranks[world]:
         layers = res["layers"]
         assert "error" not in layers, layers["error"]
