@@ -136,8 +136,13 @@ package ``repro``) and fails with a non-zero exit on the first problem:
 25. [mesh-model] the model axis: ``spmd --devices 2 --data-axis 1``
     for zamba2-1.2b at [train-zoo]'s flags (one client, its model
     tensor-parallel over two gloo ranks on cuda:0) with round 0 rerun, and
-    ``--devices 4 --data-axis 2`` for smollm-360m, 2 rounds each against
-    the W = 1 run in this process: per rank ``ssd_intra_chunk`` launched
+    ``--devices 4 --data-axis 2`` for smollm-360m, 2 rounds each, then
+    one round each of xlstm-350m and olmoe-1b-7b (2 of its 16 layers) at
+    ``--devices 2 --data-axis 1`` (``MESH_MODEL``; whisper-large-v3 and
+    phi-3-vision-4.2b run in ``scripts/torch_model_axis_control.py``),
+    against the W = 1 run in this
+    process: each leaf's f32 gradient and bf16 update bounded; per rank
+    ``ssd_intra_chunk`` launched
     as often as W = 1 per client, at 32 of zamba2's 64 SSM heads, its
     first launch held against the plain version; equal delta norms, the
     leaves whole on the model axis bit-identical in each model group, the
@@ -2233,11 +2238,36 @@ TRAIN_GRAD_RTOL = 1e-2          # relative L2 per leaf or input
 TRAIN_BF16_RATIO = 1.5
 
 
+# an entry's depth cut, among its spmd flags: ("--depth", K) trains K of
+# the config's layers (Whisper's encoder too), widths and dtype kept.  It
+# is this script's, not the launcher's: _spmd_args takes it out and
+# _spmd_cfg makes the cut config, which the phases hand to the launcher
+DEPTH = "--depth"
+
+
 def _spmd_args(arch, flags):
     from repro_torch.launch import train
-    return train.build_parser().parse_args(
+    flags, depth = list(flags), 0
+    if DEPTH in flags:
+        i = flags.index(DEPTH)
+        depth = int(flags[i + 1])
+        del flags[i:i + 2]
+    args = train.build_parser().parse_args(
         ["spmd", "--arch", arch, "--steps", str(TRAIN_ROUNDS), "--sigma",
          "0.02", "--clip", "10"] + flags)
+    args.depth = depth
+    return args
+
+
+def _spmd_cfg(args):
+    """The config ``args`` trains: the launcher's ``spmd_config``, cut to
+    ``args.depth`` layers where the entry asks."""
+    from repro_torch.launch import train
+    cfg = train.spmd_config(args)
+    if args.depth:
+        cfg = cfg.replace(n_layers=args.depth,
+                          n_enc_layers=min(cfg.n_enc_layers, args.depth))
+    return cfg
 
 
 def _train_spmd_once(arch, flags, smi, profile_round=None):
@@ -2295,7 +2325,7 @@ def _train_spmd_once(arch, flags, smi, profile_round=None):
     # the first round's wall also holds the init and one loss evaluation
     state["prev"] = None
     state["n"], state["t"] = 0, t0
-    master = train.run_spmd(args, on_round=on_round)
+    master = train.run_spmd(args, on_round=on_round, cfg=_spmd_cfg(args))
     torch.cuda.synchronize()
     total = ssd_scan.launches()
     require(flash_attn.launches() == 0, f"[train-zoo] {arch}: flash_decode "
@@ -2336,11 +2366,10 @@ def _ssd_grad_check(args, dev, smi):
     from repro_torch.core.fl_step import loss_grad
     from repro_torch.data.tokens import TokenDataConfig, make_batches
     from repro_torch.kernels.ssd_scan import ops, ref, ssd_scan
-    from repro_torch.launch import train
     from repro_torch.models import mamba2
     from repro_torch.models.base import get_family
     from repro_torch.pytree import tree_leaves, tree_map, tree_paths
-    cfg = train.spmd_config(args)
+    cfg = _spmd_cfg(args)
     fam = get_family(cfg.family)
     n0 = ssd_scan.launches()
     # 1. the block
@@ -2431,9 +2460,8 @@ def _ssd_backward_times(args, dev, smi):
     closed-form backward, device ms each."""
     import torch
     from repro_torch.kernels.ssd_scan import ref, ssd_scan
-    from repro_torch.launch import train
     from repro_torch.models import mamba2
-    cfg = train.spmd_config(args)
+    cfg = _spmd_cfg(args)
     shape = (args.per_micro, args.seq // cfg.ssm_chunk, cfg.ssm_chunk,
              mamba2.n_heads_ssm(cfg), cfg.ssm_head_dim, cfg.ssm_state)
     xr, ar, Br, Cr = _ssd_inputs(shape, torch.bfloat16, dev)
@@ -2461,12 +2489,11 @@ def phase_train_zoo(dev, smi):
     final master on the CPU and delta norms ([mesh-train]'s W = 1
     references)."""
     import torch
-    from repro_torch.launch import train
     launches, times, refs = 0, None, {}
     for arch, flags in TRAIN_ZOO.items():
         first, total, st, peak, wall, args = _train_spmd_once(arch, flags,
                                                               smi)
-        cfg = train.spmd_config(args)
+        cfg = _spmd_cfg(args)
         G, nm = args.data_axis, args.n_micro
         per_round = (cfg.n_layers * G * args.n_local * nm
                      if cfg.family == "hybrid" else 0)
@@ -2707,10 +2734,12 @@ def _rank_setup(rank, world, port, backend, join=True):
     return device
 
 
-def _mesh_main_rank(rank, port, world, backend, out):
+def _mesh_main_rank(rank, port, world, backend, out, model=1):
     """One rank of [mesh-main]: [main]'s FedAsync on a (world, 1) mesh at
     sigma 1, its rerun and a sigma-0 run; one full cohort's partition
-    proof.  Saves what it measured to ``out/rank<r>.pt``."""
+    proof.  On a model axis (``model`` > 1: a (world / model, model)
+    mesh) the sigma-1 run alone.  Saves what it measured to
+    ``out/rank<r>.pt``."""
     device = _rank_setup(rank, world, port, backend)
     import dataclasses
 
@@ -2724,10 +2753,11 @@ def _mesh_main_rank(rank, port, world, backend, out):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.pytree import tree_leaves
     try:
-        mesh = make_host_mesh(data=world)
-        res = {"describe": coll.describe(mesh.group, device)}
+        mesh = make_host_mesh(data=world // model, model=model)
+        res = {"describe": coll.describe(mesh.group, device),
+               "coords": (mesh.rank, mesh.model_rank)}
         ecfg = EngineConfig(staleness_window=120.0, max_cohort=4, mesh=mesh)
-        for tag, sigma, path in MESH_MAIN_RUNS:
+        for tag, sigma, path in MESH_MAIN_RUNS[:1 if model > 1 else None]:
             cfg = dataclasses.replace(_main_cfg(), sigma=sigma, dp_path=path)
             dp_clip.reset_launches()
             coll.reset_stats()
@@ -2813,6 +2843,59 @@ def _mesh_main_check(ranks, world, backend, s_max, log_main, l0, lj):
                 f"{what}: partition report {rep}")
 
 
+def _mesh_main_model_axis(smi, twins):
+    """[mesh-main]'s (data 2, model 2) run: 4 gloo ranks on cuda:0, [main]'s
+    FedAsync at sigma 1, the members of each data coordinate replicated
+    over its model group.  Each rank against its data-axis twin in the
+    (2, 1) run (``twins``, rank r's twin r // 2): RunLog and params
+    bit-identical, ``dp_clip`` launched as often; the model ranks of a
+    data coordinate bit-identical to each other; a cohort of 4 split 2
+    per data coordinate.  Returns the ranks' dp_clip launches."""
+    import torch
+    out = ROOT / "build" / "mesh_main_model2"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _mesh_spawn(_mesh_main_rank, 4, 4, "gloo", out, 2)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+             for r in range(4)]
+    launches = [0, 0]
+    for r, res in enumerate(ranks):
+        what = f"[mesh-main] (data 2, model 2) rank {r}"
+        got, twin = res["sigma1"], twins[r // 2]["sigma1"]
+        require(res["coords"] == (r // 2, r % 2), f"{what}: coordinates "
+                f"{res['coords']}")
+        require(got["launches"] == twin["launches"], f"{what}: dp_clip "
+                f"launches {got['launches']}, its data-axis twin "
+                f"{twin['launches']}")
+        require(got["log"] == twin["log"], f"{what}: RunLog differs from "
+                "the (2, 1) run's")
+        require(got["cohorts"] == twin["cohorts"], f"{what}: cohorts")
+        for a, b in zip(got["params"], twin["params"]):
+            require(torch.equal(a, b), f"{what}: params differ from the "
+                    "(2, 1) run's")
+        for a, b in zip(got["params"], ranks[r ^ 1]["sigma1"]["params"]):
+            require(torch.equal(a, b), f"{what}: differs from its model "
+                    "group's other rank")
+        require(set(res["partition"].values()) == {2},
+                f"{what}: partition report {res['partition']}")
+        launches = [launches[0] + got["launches"][0],
+                    launches[1] + got["launches"][1]]
+        log(f"[mesh-main] (data 2, model 2) rank {r}: {res['describe']}; "
+            f"sigma-1 run {got['wall']:.3f} s (its (2, 1) twin "
+            f"{twin['wall']:.3f} s), peak {got['peak'] / 2**30:.2f} GiB, "
+            f"dp_clip launches {got['launches']}, collectives "
+            f"{got['collectives']}")
+    log(f"[mesh-main] {smi}; (data 2, model 2), 4 gloo ranks on one card: "
+        f"each rank's RunLog, params and dp_clip launches bit-identical to "
+        f"its data-axis twin's in the (2, 1) run, the model ranks of each "
+        f"data coordinate bit-identical, a cohort of 4 split 2 per data "
+        f"coordinate; spawn to exit {wall:.1f} s")
+    for f in out.iterdir():
+        f.unlink()
+    return launches
+
+
 def phase_mesh_main(smi, main_runs):
     """[mesh-main]: [main]'s FedAsync (the paper's SERConfig, D = 317,124,
     5 clients on T1..T5, B = 128, sigma 1, dp_path="pallas", window 120,
@@ -2833,7 +2916,10 @@ def phase_mesh_main(smi, main_runs):
       cohort of 4 partitioned 2 per rank (``assert_cohort_partitioned``);
     * W = 2 and W = 4 over NCCL, one rank per card, where the machine has
       that many cards: the same requirements (at W = 4 a cohort of 4 holds
-      one member per rank).
+      one member per rank);
+    * a (data 2, model 2) mesh of 4 gloo ranks on cuda:0
+      (:func:`_mesh_main_model_axis`): every rank bit-identical to its
+      data-axis twin in the W = 2 gloo run, dp_clip launches included.
 
     Member local steps/s at W = 1, W = 2 and in [main] (walls of whole
     runs, corpus and evals included), each rank's backend and
@@ -2936,6 +3022,9 @@ def phase_mesh_main(smi, main_runs):
                 f"{got['collectives']}")
         log(f"[mesh-main] W={world} {backend}: the ranks took "
             f"{spawn_wall:.1f} s from spawn to exit")
+        if (world, backend) == (2, "gloo"):
+            launches = [a + b for a, b in zip(launches, _mesh_main_model_axis(
+                smi, ranks))]
     log(f"[mesh-main] {smi}; member local steps/s (whole runs, corpus and "
         f"evals included; [main] and each rank's first run cold, W=1 and "
         f"the ranks' reruns warm): "
@@ -2989,7 +3078,7 @@ def _mesh_train_rank(rank, port, world, backend, arch, flags, out,
         coll.reset_stats()
         t0 = time.perf_counter()
         whole = train.spmd_rank(args, rank, at_port, backend=backend,
-                                on_round=on_round)
+                                on_round=on_round, cfg=_spmd_cfg(args))
         torch.cuda.synchronize()
         res = dict(launches=st["launches"], walls=st["walls"],
                    norms=st["norms"], prints=st["prints"],
@@ -3043,20 +3132,20 @@ MESH_TRAIN = (
 
 def phase_mesh_train(smi, refs):
     """[mesh-train]: ``launch/train.py spmd --devices W --data-axis W`` at
-    full width and depth, 3 rounds, the f32 master and FedAdam's state
-    sharded over the ranks (``MESH_TRAIN``).  Requires ssd_intra_chunk
-    launched on each rank 38 x n_micro per round and client plus 38 per
-    loss eval on rank 0, the ranks' delta norms equal, the master and
-    delta norms within 1e-5 (relative) of the W = 1 run from the same
-    seed at W = 2 (``refs[arch]``: [train-zoo]'s first zamba2 run; smollm
-    at G = 2 run here) and within the run tolerance at W = 4 (a 4-term
+    full width and depth, 3 rounds, the f32
+    master and FedAdam's state sharded over the ranks (``MESH_TRAIN``).
+    Requires ssd_intra_chunk launched on each rank n_layers x n_micro per
+    round and client plus n_layers per loss eval on rank 0, the ranks'
+    delta norms equal, the master and delta norms within 1e-5 (relative)
+    of the W = 1 run from the same seed at W = 2 (``refs[arch]``:
+    [train-zoo]'s first zamba2 run for the full-depth NCCL entry; the
+    others run here) and within the run tolerance at W = 4 (a 4-term
     reduce-scatter sums in another order, which FedAdam's first step can
     turn into +-lr), and round 0 rerun bit-identical in the same rank
     processes (zamba2 on gloo: fingerprints of every shard).  Logs
     each rank's peak memory, walls, collectives and their host time.
     Returns the ssd_intra_chunk launches of the gloo runs' ranks."""
     import torch
-    from repro_torch.launch import train
     launches = 0
     cards = torch.cuda.device_count()
     for arch, flags, world, backend, rerun in MESH_TRAIN:
@@ -3070,7 +3159,7 @@ def phase_mesh_train(smi, refs):
             ref, _, st, _, _, _ = _train_spmd_once(arch, flags, smi)
             ref_norms = st["norms"]
         args = _spmd_args(arch, flags)
-        cfg = train.spmd_config(args)
+        cfg = _spmd_cfg(args)
         require(args.data_axis == world, f"[mesh-train] {arch}: G != W")
         ranks, wall = _mesh_train_ranks(arch, flags, world, backend, rerun)
         hybrid = cfg.family == "hybrid"
@@ -3141,12 +3230,25 @@ def phase_mesh_train(smi, refs):
 # [mesh-model]: (arch, spmd flags, --devices, --data-axis, rerun): the
 # model axis of 2, zamba2-1.2b at [train-zoo]'s flags with one client
 # (G = 1, both ranks one model group), smollm-360m at the launcher's
-# defaults on a 2 x 2 mesh; all ranks gloo on the one card
+# defaults on a 2 x 2 mesh; then one round of xlstm-350m (full depth) and
+# olmoe-1b-7b (its router and experts; 2 of its 16 layers, where two ranks
+# and the W = 1 round fit the card's 80 GB) at the launcher's defaults
+# with one client; all at full width in the config's dtype, all ranks gloo
+# on the one card.  With whisper-large-v3 and phi-3-vision-4.2b too the
+# script took 1,066-1,151 s of its 1,200; those two (``MESH_MODEL_MORE``:
+# 8 of 32 layers in each stack, where 24 took 143.6 s and 31.3 GiB per
+# rank and 32 would not fit) run in scripts/torch_model_axis_control.py
 MESH_MODEL = (
     ("zamba2-1.2b", TRAIN_ZOO["zamba2-1.2b"], 2, 1, True),
     ("smollm-360m", [], 4, 2, False),
+    ("xlstm-350m", ["--steps", "1"], 2, 1, False),
+    ("olmoe-1b-7b", ["--steps", "1", DEPTH, "2"], 2, 1, False),
 )
-MESH_MODEL_ROUNDS = 2
+MESH_MODEL_MORE = (
+    ("whisper-large-v3", ["--steps", "1", DEPTH, "8"], 2, 1, False),
+    ("phi-3-vision-4.2b", ["--steps", "1", DEPTH, "8"], 2, 1, False),
+)
+MESH_MODEL_ROUNDS = 2         # unless the entry's flags say --steps
 MESH_MODEL_SMALL = dict(G=2, n_micro=2, seq=32)
 # the bounds at full width, set between the sound readings and a control
 # whose tp_copy backward drops its all-reduce
@@ -3162,11 +3264,25 @@ MESH_MODEL_SMALL = dict(G=2, n_micro=2, seq=32)
 MESH_MODEL_GRAD_RTOL = 1e-3
 MESH_MODEL_UPDATE_MEDIAN = 1.2e-2
 MESH_MODEL_UPDATE_MAX = 1e-1
+# xlstm-350m's f32 gradient at full depth is chaotic in W = 1 itself: on
+# the CPU a change of thread count (the sums' order) moves it by 0.13
+# median, 0.30 max per leaf (24 layers, seq 128; the mLSTM stack, since 3
+# sLSTM layers alone move 2e-6), and 1.6e-3 at 8 layers, 2.3e-5 at 4 with
+# an sLSTM every 2.  Its gradient check runs that full-width 4-layer
+# model (these flags on top of the entry's; the run stays full depth).
+# The same chaos moves its bf16 update's largest per-leaf distance (the
+# gate biases b_i, 84 entries) to 0.22 at W = 1 vs the model axis against
+# the control's 0.31: the cap for it is 0.5, the median's limit is the
+# others' (sound 2.8e-3, control 3.6e-2; PERF.md section 6)
+MESH_MODEL_GRAD_FLAGS = {
+    "xlstm-350m": [DEPTH, "4", "--reduce", "slstm_every=2"],
+}
+MESH_MODEL_UPDATE_MAX_OF = {"xlstm-350m": 0.5}
 SSD_BF16_RTOL = 5e-2          # [kernels-zoo]'s bf16 tolerance
 
 
 def _mesh_model_flags(flags, world, data):
-    return flags + ["--steps", str(MESH_MODEL_ROUNDS), "--devices",
+    return ["--steps", str(MESH_MODEL_ROUNDS)] + flags + ["--devices",
                     str(world), "--data-axis", str(data)]
 
 
@@ -3194,19 +3310,18 @@ def _small_tp_round(arch, dev, mesh=None):
                       compute_dtype="float32",
                       dp=DPConfig(1.0, 0.5, "per_microbatch"))
     params = fam.init_params(cfg, seed=0, device=dev)
-    client_sh = master_sh = family = None
+    client_sh = master_sh = None
     if mesh is not None:
         stacked = tree_map(lambda l: torch.empty(
             (k["G"],) + tuple(l.shape), device="meta"), params)
         client_sh = tree_shardings(stacked, cfg, mesh, role="client")
         master_sh = tree_shardings(params, cfg, mesh, role="master")
-        family = cfg.family
         layers.set_mesh_context(mesh, cfg=cfg)
     try:
         local = shard_master(params, master_sh)
         step = make_fl_train_step(lambda p, b: fam.loss(p, b, cfg), fl,
                                   client_shardings=client_sh,
-                                  master_shardings=master_sh, family=family)
+                                  master_shardings=master_sh)
         batch = {key: torch.from_numpy(v).to(dev) for key, v in
                  _small_batch(cfg, k["G"] * k["n_micro"], k["seq"],
                               1).items()}
@@ -3238,13 +3353,15 @@ def _full_grad(arch, flags, world, data, device, mesh=None):
     from repro_torch.models import layers
     from repro_torch.models.base import get_family
     from repro_torch.pytree import tree_leaves, tree_unflatten_like
-    args = _spmd_args(arch, _mesh_model_flags(flags, world, data))
-    cfg = train.spmd_config(args).replace(param_dtype="float32")
+    args = _spmd_args(arch, _mesh_model_flags(
+        flags + MESH_MODEL_GRAD_FLAGS.get(arch, []), world, data))
+    cfg = _spmd_cfg(args).replace(param_dtype="float32")
     fam = get_family(cfg.family)
     params = fam.init_params(cfg, seed=args.seed, device=device)
     (batch,) = make_batches(TokenDataConfig(
         vocab=cfg.vocab, seq_len=args.seq, seed=args.seed), num_batches=1,
         batch_size=args.per_micro)
+    batch.update(train.stub_inputs(cfg, args.per_micro, [args.seed, 0]))
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
     def loss(p, b):
@@ -3278,11 +3395,13 @@ def _per_leaf(names, pairs):
 
 def _full_width_bounds(arch, args, cfg, got, ref, grad, grad_ref):
     """[mesh-model]'s bounds at full width: the f32 gradient on the model
-    axis (``grad``) against W = 1's (``grad_ref``), per leaf within
-    ``MESH_MODEL_GRAD_RTOL``; and each leaf's update in the bf16 runs
-    (``got`` minus the initial params) against W = 1's (``ref`` minus
-    them), median and largest within ``MESH_MODEL_UPDATE_MEDIAN`` /
-    ``_MAX``.  The master alone would hide a wrong update behind the
+    axis (``grad``) against W = 1's (``grad_ref``; for an arch of
+    ``MESH_MODEL_GRAD_FLAGS``, of the model those flags make), per leaf
+    within ``MESH_MODEL_GRAD_RTOL``; and each leaf's update in the bf16
+    runs (``got`` minus the initial params) against W = 1's (``ref``
+    minus them), median and largest within ``MESH_MODEL_UPDATE_MEDIAN`` /
+    ``_MAX`` (or the arch's ``MESH_MODEL_UPDATE_MAX_OF``).  The master
+    alone would hide a wrong update behind the
     initial weights, and delta_norm behind the noise, which is the same
     on both sides; the noise still swamps most of a bf16 update, so the
     f32 gradient is the sharper of the two.  Logs both before requiring
@@ -3300,8 +3419,10 @@ def _full_width_bounds(arch, args, cfg, got, ref, grad, grad_ref):
     g_rels, g_med, (g_top, g_at) = _per_leaf(names, zip(grad, grad_ref))
     u_rels, u_med, (u_top, u_at) = _per_leaf(
         names, [(a - i, b - i) for a, b, i in zip(got, ref, init)])
+    cut = MESH_MODEL_GRAD_FLAGS.get(arch)
     log(f"[mesh-model] {arch}: f32 gradient of one microbatch at full "
-        f"width, relative L2 per leaf from W=1 over {len(g_rels)} leaves: "
+        f"width{f' (spmd flags {cut})' if cut else ''}, relative L2 per "
+        f"leaf from W=1 over {len(g_rels)} leaves: "
         f"median {g_med:.4e}, max {g_top:.4e} at {g_at}, largest five "
         f"{[(float(f'{r:.4e}'), n) for r, n in g_rels[-5:]]}")
     log(f"[mesh-model] {arch}: update (master - init) relative L2 per "
@@ -3311,15 +3432,15 @@ def _full_width_bounds(arch, args, cfg, got, ref, grad, grad_ref):
     require(g_top <= MESH_MODEL_GRAD_RTOL,
             f"[mesh-model] {arch}: gradient bound: max {g_top:.4e} at "
             f"{g_at} (limit {MESH_MODEL_GRAD_RTOL}) from W=1")
-    require(u_med <= MESH_MODEL_UPDATE_MEDIAN
-            and u_top <= MESH_MODEL_UPDATE_MAX,
+    u_cap = MESH_MODEL_UPDATE_MAX_OF.get(arch, MESH_MODEL_UPDATE_MAX)
+    require(u_med <= MESH_MODEL_UPDATE_MEDIAN and u_top <= u_cap,
             f"[mesh-model] {arch}: update bound: median {u_med:.4e} (limit "
             f"{MESH_MODEL_UPDATE_MEDIAN}), max {u_top:.4e} at {u_at} (limit "
-            f"{MESH_MODEL_UPDATE_MAX}) from W=1")
+            f"{u_cap}) from W=1")
 
 
 def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
-                     rerun_port, small_port):
+                     rerun_port, small_port, grad=True):
     """One rank of [mesh-model]: ``run_spmd`` on a data x model mesh through
     ``launch.train.spmd_rank`` (gloo, every rank on cuda:0), recording
     each ssd_intra_chunk launch's head count and holding the first launch
@@ -3354,9 +3475,9 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
 
     ssd_scan.ssd_intra_chunk = counted
 
-    def run(at_port, steps=MESH_MODEL_ROUNDS):
+    def run(at_port, steps=None):
         args = _spmd_args(arch, _mesh_model_flags(flags, world, data))
-        args.steps = steps
+        args.steps = steps or args.steps
         st = {"launches": [], "walls": [], "norms": [], "prints": [],
               "n": 0, "t": time.perf_counter()}
 
@@ -3374,7 +3495,7 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
         coll.reset_stats()
         t0 = time.perf_counter()
         whole = train.spmd_rank(args, rank, at_port, backend=backend,
-                                on_round=on_round)
+                                on_round=on_round, cfg=_spmd_cfg(args))
         torch.cuda.synchronize()
         res = dict(launches=st["launches"], walls=st["walls"],
                    norms=st["norms"], prints=st["prints"],
@@ -3398,17 +3519,21 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
         res["small"] = {"delta_norm": dn, "launches": n,
                         "master": small if rank == 0 else None}
         torch.cuda.empty_cache()
-        res["grad"] = _full_grad(arch, flags, world, data, device, mesh)
+        if grad:
+            res["grad"] = _full_grad(arch, flags, world, data, device, mesh)
     finally:
         dist.destroy_process_group()
     torch.save(res, out / f"rank{rank}.pt")
 
 
-def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
+def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
+                     reference=True):
     """[mesh-model]: ``launch/train.py spmd --devices N --data-axis G`` with
-    a model axis of N / G = 2 at full width and depth (``MESH_MODEL``),
-    every rank a gloo process on the one card, 2 rounds; the same run at
-    W = 1 (``--devices 1``) in this process is the reference.  Requires
+    a model axis of N / G = 2 at full width (``MESH_MODEL``: full depth,
+    or the depth cut the entry's ``DEPTH`` makes, logged), every rank
+    a gloo process on the one card, 2 rounds (or the entry's
+    ``--steps``); the same run at W = 1 (``--devices 1``) in this
+    process is the reference.  Requires
     per rank: ssd_intra_chunk launched per round as often as the W = 1
     run per client, at H / 2 = 32 heads, its first launch within the
     bf16 tolerance of the plain version on the same inputs; the ranks'
@@ -3421,10 +3546,14 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
     shape within 1e-5 of its W = 1 round on the card.  Logs each
     rank's walls, peak memory and collectives (calls and bytes).
     ``backend="nccl"`` puts each rank on its own card
-    (``scripts/torch_model_axis_cards.py``).  Returns the ssd_intra_chunk
-    launches of the ranks' main runs."""
+    (``scripts/torch_model_axis_cards.py``); ``reference=False`` runs no
+    W = 1 run at full width (for a model whose W = 1 round does not fit
+    one card; dense families only), and then all it checks is the ranks'
+    equal delta norms, the whole leaves bit-identical across each model
+    group, a finite master and the reduced f32 round.  Returns the ssd_intra_chunk launches of
+    the ranks' main runs."""
     import torch
-    from repro_torch.launch import train
+    from repro_torch.configs import get_config
     from repro_torch.launch.collectives import free_port
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.shardings import model_dim, tree_shardings
@@ -3436,35 +3565,52 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
     out.mkdir(parents=True, exist_ok=True)
     for arch, flags, world, data, rerun in configs:
         t_phase = time.perf_counter()
-        ref, _, st, ref_peak, ref_wall, _ = _train_spmd_once(
-            arch, _mesh_model_flags(flags, 1, data), smi)
         args = _spmd_args(arch, _mesh_model_flags(flags, world, data))
-        cfg = train.spmd_config(args)
+        cfg = _spmd_cfg(args)
         m = world // data
+        hybrid = cfg.family == "hybrid"
+        require(reference or not hybrid, f"[mesh-model] {arch}: the hybrid's "
+                "launch check needs the W = 1 run")
+        ref = None
+        if reference:
+            ref, _, st, ref_peak, _, _ = _train_spmd_once(
+                arch, _mesh_model_flags(flags, 1, data), smi)
+        whole_depth = get_config(arch)
+        depth = (f"depth cut to {cfg.n_layers} of {whole_depth.n_layers} "
+                 f"layers" if args.depth else "full depth")
+        log(f"[mesh-model] {arch}: {depth}, full width, "
+            f"{cfg.param_dtype} clients")
         small_ref, small_dn, small_n = _small_tp_round(arch, "cuda")
-        grad_ref = _full_grad(arch, flags, world, data, "cuda")
+        grad_ref = (_full_grad(arch, flags, world, data, "cuda")
+                    if reference else None)
         _free_card()
         t0 = time.perf_counter()
         _mesh_spawn(_mesh_model_rank, world, world, backend, arch, flags,
-                    data, out, free_port() if rerun else None, free_port())
+                    data, out, free_port() if rerun else None, free_port(),
+                    reference)
         ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
                  for r in range(world)]
         wall = time.perf_counter() - t0
         for f in out.iterdir():
             f.unlink()
-        _full_width_bounds(arch, args, cfg, ranks[0]["master"], ref,
-                           ranks[0]["grad"], grad_ref)
-        hybrid = cfg.family == "hybrid"
+        if reference:
+            _full_width_bounds(arch, args, cfg, ranks[0]["master"], ref,
+                               ranks[0]["grad"], grad_ref)
+        else:
+            require(all(bool(torch.isfinite(a).all())
+                        for a in ranks[0]["master"]),
+                    f"[mesh-model] {arch}: nonfinite master")
         dims = [model_dim(s) for s in tree_leaves(tree_shardings(
             get_family(cfg.family).init_params(cfg, 0, device="meta"), cfg,
             HostMesh.abstract(data, m), role="master"))]
         # W = 1's launches per client (its last round has no loss eval);
         # a rank runs G / data clients, and every rank evaluates the loss
-        per_client = st["launches"][-1] // args.data_axis
+        w1_launches = st["launches"] if reference else [0]
+        per_client = w1_launches[-1] // args.data_axis
         require(per_client == (cfg.n_layers * args.n_local * args.n_micro
                                if hybrid else 0),
-                f"[mesh-model] {arch} W=1: {st['launches']} launches")
-        want = [per_client * (args.data_axis // data)] * MESH_MODEL_ROUNDS
+                f"[mesh-model] {arch} W=1: {w1_launches} launches")
+        want = [per_client * (args.data_axis // data)] * args.steps
         evals = cfg.n_layers if hybrid else 0
         want[0] += evals
         for r, res in enumerate(ranks):
@@ -3472,7 +3618,7 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
                     and res["total"] == sum(want) + evals,
                     f"[mesh-model] {arch} rank {r}: ssd_intra_chunk per "
                     f"round {res['launches']} ({res['total']} in all), "
-                    f"expected {want} (W=1 {st['launches']}, "
+                    f"expected {want} (W=1 {w1_launches}, "
                     f"{per_client} per client)")
             require(res["norms"] == ranks[0]["norms"], f"[mesh-model] "
                     f"{arch}: the ranks' delta norms differ")
@@ -3498,8 +3644,14 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
                                 f"[mesh-model] {arch}: leaf {j} (whole on "
                                 f"the model axis) differs in the model "
                                 f"group of rank {lead}")
-        rel_n = max(abs(a - b) / abs(b) for a, b in
-                    zip(ranks[0]["norms"], st["norms"]))
+        if reference:
+            rel_n = max(abs(a - b) / abs(b) for a, b in
+                        zip(ranks[0]["norms"], st["norms"]))
+            w1 = (f"delta_norm {rel_n:.3e} from W=1; W=1 walls "
+                  f"{[round(w, 3) for w in st['walls']]} s, peak "
+                  f"{ref_peak / 2**30:.2f} GiB")
+        else:
+            w1 = "no W=1 run at full width (its round does not fit a card)"
         small = ranks[0]["small"]
         d_small = max(float((a - b).abs().max())
                       for a, b in zip(small["master"], small_ref))
@@ -3511,7 +3663,8 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
                 f"{small['launches']} per rank, W=1 {small_n} for "
                 f"{data} data rank(s)")
         heads = (f"ssd_intra_chunk per rank per round {ranks[0]['launches']}"
-                 f" (W=1 {st['launches']}, {per_client} per client, +"
+                 f" (W=1 {w1_launches}, "
+                 f"{per_client} per client, +"
                  f"{evals} per loss eval), at {ranks[0]['heads']} of "
                  f"{n_heads_ssm(cfg)} heads (first launch "
                  f"{ranks[0]['kernel_err'][2]} max |err| "
@@ -3526,12 +3679,11 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo"):
             f"{data} (model axis {m}, G={args.data_axis}, n_micro="
             f"{args.n_micro}, per_micro={args.per_micro}, seq {args.seq}, "
             f"{cfg.param_dtype} clients, f32 master; {world} {backend} "
-            f"ranks {where}), {MESH_MODEL_ROUNDS} rounds: {heads}; the blocks "
+            f"ranks {where}), {args.steps} round(s), {depth}: {heads}; "
+            f"the blocks "
             f"of the {sum(d is None for d in dims)} leaves whole on the "
-            f"model axis bit-identical across each model group; delta_norm "
-            f"{rel_n:.3e} from W=1; W=1 walls "
-            f"{[round(w, 3) for w in st['walls']]} s, peak "
-            f"{ref_peak / 2**30:.2f} GiB; reduced f32 round on the same "
+            f"model axis bit-identical across each model group; {w1}; "
+            f"reduced f32 round on the same "
             f"mesh shape {d_small:.3e} from W=1 (tolerance {MESH_TIGHT}); "
             f"spawn to exit {wall:.1f} s{note}; phase "
             f"{time.perf_counter() - t_phase:.1f} s")

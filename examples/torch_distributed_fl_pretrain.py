@@ -85,8 +85,7 @@ def rank_main(rank, args, port):
         params = shard_master(params, master_sh)
         step = make_fl_train_step(lambda p, b: fam.loss(p, b, cfg), fl,
                                   client_shardings=client_sh,
-                                  master_shardings=master_sh,
-                                  family=cfg.family)
+                                  master_shardings=master_sh)
         opt_state = make_server_optimizer(fl).init(params)
         B = G * 8  # 8 sequences per client round (4 microbatches of 2)
         data = make_batches(

@@ -6,7 +6,8 @@ On a model axis the leaf rule cuts attention's head_dim, so each rank of
 a model group gathers q/k/v whole and runs the whole core
 (``models.layers.attend``).  A head-split core would run a rank's share
 of the heads instead.  For each of [mesh-model]'s configurations
-(``chip_smoke.MESH_MODEL``) this times ``attend`` forward and backward
+(``chip_smoke.MESH_MODEL`` and ``MESH_MODEL_MORE``; xLSTM has no
+attention) this times ``attend`` forward and backward
 on the card at the per-client shape of a microbatch, bf16, with all the
 heads and with the largest share a split over the model axis leaves one
 rank (whole KV groups: smollm-360m's 5 groups of 3 heads split 3 / 2),
@@ -68,15 +69,16 @@ def core_ms(cfg, B, S, H, Hkv):
 
 
 def main():
-    from repro_torch.launch import train
     from repro_torch.models.hybrid import segment_plan
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    for arch, flags, world, data, _ in C.MESH_MODEL:
+    for arch, flags, world, data, _ in C.MESH_MODEL + C.MESH_MODEL_MORE:
         args = C._spmd_args(arch, C._mesh_model_flags(flags, world, data))
-        cfg = train.spmd_config(args)
+        cfg = C._spmd_cfg(args)
+        if cfg.family == "ssm":                      # xLSTM attends nothing
+            continue
         m = world // data
         H, Hkv = cfg.n_heads, cfg.n_kv_heads
         share_kv = -(-Hkv // m)                     # whole KV groups

@@ -5,13 +5,21 @@
 Runs zamba2-1.2b (at [train-zoo]'s flags: bf16 clients, f32 master,
 FedAdam, n_micro 2, per_micro 2, seq 256) and smollm-360m (the
 launcher's defaults) at ``spmd --devices 4 --data-axis 2``: 2 clients,
-each model tensor-parallel over 2 cards, 2 rounds, against the W = 1
-run in this process, with [mesh-model]'s checks (ssd_intra_chunk per
-rank as W = 1 per client at 32 heads, equal delta norms, the leaves
-whole on the model axis bit-identical in each model group, zamba2's
-rerun bit-identical, the f32 reduced round within 1e-5 of W = 1) and
-each rank's walls, peak memory and collectives.  Exits with the first
-failed requirement's message, as ``chip_smoke.py`` does.
+each model tensor-parallel over 2 cards, 2 rounds; then one round of
+each other family at the launcher's defaults, full width in the
+config's dtype: phi-3-vision-4.2b, whisper-large-v3 and xlstm-350m at
+full depth, olmoe-1b-7b at 8 of its 16 layers and qwen2-moe-a2.7b at 4
+of its 24 (``chip_smoke.DEPTH``).  Each against the W = 1 run in this process
+(but those of ``NO_REFERENCE``, whose W = 1 round does not fit one card:
+they keep the checks that need none), with [mesh-model]'s checks
+(ssd_intra_chunk per rank as W = 1 per client
+at 32 heads, equal delta norms, the leaves whole on the model axis
+bit-identical in each model group, zamba2's rerun bit-identical, the f32
+reduced round within 1e-5 of W = 1, the full-width gradient and update
+bounds) and each rank's walls, peak memory and collectives.  Exits with
+the first failed requirement's message, as ``chip_smoke.py`` does.
+``python3 scripts/torch_model_axis_cards.py ARCH ...`` runs the named
+configurations alone.
 """
 import os
 import pathlib
@@ -25,7 +33,16 @@ import chip_smoke as C  # noqa: E402
 CONFIGS = (
     ("zamba2-1.2b", C.TRAIN_ZOO["zamba2-1.2b"], 4, 2, True),
     ("smollm-360m", [], 4, 2, False),
+    ("xlstm-350m", ["--steps", "1"], 4, 2, False),
+    ("phi-3-vision-4.2b", ["--steps", "1"], 4, 2, False),
+    ("olmoe-1b-7b", ["--steps", "1", C.DEPTH, "8"], 4, 2, False),
+    ("qwen2-moe-a2.7b", ["--steps", "1", C.DEPTH, "4"], 4, 2, False),
+    ("whisper-large-v3", ["--steps", "1"], 4, 2, False),
 )
+# their W = 1 round (both clients on one card, ~44 B per parameter at
+# zamba2's 53 GiB) does not fit a card: no full-width W = 1 run for them
+NO_REFERENCE = ("phi-3-vision-4.2b", "olmoe-1b-7b", "qwen2-moe-a2.7b",
+                "whisper-large-v3")
 
 
 def main():
@@ -36,7 +53,12 @@ def main():
     _, smi = C.phase_device()
     cards = torch.cuda.device_count()
     C.require(cards >= 4, f"[model-axis-cards] {cards} card(s): needs 4")
-    C.phase_mesh_model(smi, CONFIGS, backend="nccl")
+    named = sys.argv[1:] or [c[0] for c in CONFIGS]
+    for reference in (True, False):
+        C.phase_mesh_model(smi, [
+            c for c in CONFIGS if c[0] in named
+            and (c[0] not in NO_REFERENCE) == reference], backend="nccl",
+            reference=reference)
     C.log(f"[model-axis-cards] {time.perf_counter() - t0:.1f} s in all")
     print(smi)
 

@@ -1,9 +1,15 @@
 """[mesh-model]'s full-width bounds, against a control.
 
     python3 scripts/torch_model_axis_control.py [ARCH ...]   # one card
+    python3 scripts/torch_model_axis_control.py --cards [ARCH ...]  # four
 
 Runs ``chip_smoke.py``'s [mesh-model] phase (``phase_device``, then
-``phase_mesh_model`` on the configs of ``MESH_MODEL`` named, default all)
+``phase_mesh_model`` on the configs of ``MESH_MODEL`` and
+``MESH_MODEL_MORE`` named, default all: the second holds the entries
+kept out of ``chip_smoke.py`` for its time limit;
+with ``--cards``, on those of ``scripts/torch_model_axis_cards.py``'s
+``CONFIGS`` that have a W = 1 run, over NCCL, a card per rank, at
+``--devices 4 --data-axis 2``)
 in a fresh process twice: from this checkout, and from a copy of
 ``chip_smoke.py`` and ``src/repro_torch`` under
 ``build/model_axis_control`` whose ``tp_copy`` backward returns each
@@ -32,10 +38,16 @@ CHILD = """
 import os, sys, pathlib
 root = pathlib.Path(sys.argv[1])
 os.environ.setdefault("TRITON_CACHE_DIR", str(root / "build" / "triton"))
-sys.path[:0] = [str(root), str(root / "src")]
+sys.path[:0] = [str(root), str(root / "src"), str(root / "scripts")]
 import chip_smoke as C
 _, smi = C.phase_device()
-C.phase_mesh_model(smi, [c for c in C.MESH_MODEL if c[0] in sys.argv[2:]])
+if sys.argv[2] == "cards":
+    from torch_model_axis_cards import CONFIGS
+    C.phase_mesh_model(smi, [c for c in CONFIGS if c[0] in sys.argv[3:]],
+                       backend="nccl")
+else:
+    C.phase_mesh_model(smi, [c for c in C.MESH_MODEL + C.MESH_MODEL_MORE
+                             if c[0] in sys.argv[3:]])
 print(smi)
 """
 
@@ -46,6 +58,9 @@ def make_copy():
     shutil.rmtree(COPY, ignore_errors=True)
     (COPY / "src").mkdir(parents=True)
     shutil.copy2(ROOT / "chip_smoke.py", COPY / "chip_smoke.py")
+    (COPY / "scripts").mkdir()
+    shutil.copy2(ROOT / "scripts" / "torch_model_axis_cards.py",
+                 COPY / "scripts" / "torch_model_axis_cards.py")
     shutil.copytree(ROOT / "src" / "repro_torch", COPY / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     path = COPY / MUTANT_FILE
@@ -57,36 +72,47 @@ def make_copy():
     path.write_text(text.replace(old, new))
 
 
-def run(root, archs):
-    """[mesh-model] from ``root`` in a fresh process: its exit code and
-    its failure message ("" when it passed)."""
-    proc = subprocess.run([sys.executable, "-c", CHILD, str(root), *archs],
-                          capture_output=True, text=True)
+def run(root, where, archs):
+    """[mesh-model] from ``root`` in a fresh process (``where``: "card" or
+    "cards"): its exit code and its failure message ("" when it
+    passed)."""
+    proc = subprocess.run([sys.executable, "-c", CHILD, str(root), where,
+                           *archs], capture_output=True, text=True)
     said = (proc.stdout + proc.stderr).splitlines()
     for line in said:
-        if line.startswith("[mesh-model]") and (
-                "relative L2 per leaf" in line or "rank 0:" in line):
+        if line.startswith("[mesh-model]"):
             print(f"  {line}", flush=True)
     failed = [ln for ln in said if "chip_smoke FAILED" in ln]
     if proc.returncode and not failed:
-        failed = said[-5:] or ["no output"]
+        # no requirement failed: the last lines say what stopped it
+        failed = ["; ".join(ln.strip() for ln in said[-12:] if ln.strip())
+                  or "no output"]
     return proc.returncode, failed[-1] if failed else ""
 
 
 def main():
     import chip_smoke as C
-    archs = sys.argv[1:] or [c[0] for c in C.MESH_MODEL]
-    print(f"[control] the bounds: gradient max <= "
+    where = "cards" if sys.argv[1:2] == ["--cards"] else "card"
+    named = sys.argv[2:] if where == "cards" else sys.argv[1:]
+    if where == "cards":
+        sys.path.insert(0, str(ROOT / "scripts"))
+        from torch_model_axis_cards import CONFIGS, NO_REFERENCE
+        # the bounds need the W = 1 run
+        CONFIGS = [c for c in CONFIGS if c[0] not in NO_REFERENCE]
+    else:
+        CONFIGS = C.MESH_MODEL + C.MESH_MODEL_MORE
+    archs = named or [c[0] for c in CONFIGS]
+    print(f"[control] {where}: the bounds: gradient max <= "
           f"{C.MESH_MODEL_GRAD_RTOL}; update median <= "
-          f"{C.MESH_MODEL_UPDATE_MEDIAN}, max <= {C.MESH_MODEL_UPDATE_MAX}; "
-          f"{archs}", flush=True)
+          f"{C.MESH_MODEL_UPDATE_MEDIAN}, max <= {C.MESH_MODEL_UPDATE_MAX} "
+          f"({C.MESH_MODEL_UPDATE_MAX_OF} for these); {archs}", flush=True)
     make_copy()
     runs = [("checkout", ROOT, archs)] + [
         (f"control {a}", COPY, [a]) for a in archs]
     ok = True
     for tag, root, names in runs:
         print(f"[control] {tag} ({root}):", flush=True)
-        rc, failure = run(root, names)
+        rc, failure = run(root, where, names)
         print(f"[control] {tag}: rc {rc}{': ' + failure if failure else ''}",
               flush=True)
         if root == ROOT:

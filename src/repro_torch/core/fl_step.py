@@ -53,8 +53,8 @@ axes:
     so the draws are the one-process round's;
   * ``delta_norm`` and ``weight_sum`` are global, equal on every rank.
 
-On a mesh whose model axis M is above 1 (the dense and hybrid families,
-``family=``) the ranks of one data coordinate form a model group that
+On a mesh whose model axis M is above 1 (every family of the zoo) the
+ranks of one data coordinate form a model group that
 runs the same clients together, tensor-parallel
 (:mod:`repro_torch.models.layers`; the caller installs its mesh context):
 
@@ -328,10 +328,9 @@ def gather_master(tree, master_shardings):
     return tree
 
 
-def _round_mesh(fl: FLStepConfig, client_shardings, master_shardings,
-                family=None):
-    """The mesh of the shardings (None without), checked runnable for
-    ``family``, and the client split: every client leaf split on its
+def _round_mesh(fl: FLStepConfig, client_shardings, master_shardings):
+    """The mesh of the shardings (None without), checked runnable, and
+    the client split: every client leaf split on its
     leading dim, G a multiple of the data-axis product."""
     shs = (_sharding_leaves(client_shardings)
            + _sharding_leaves(master_shardings))
@@ -341,7 +340,7 @@ def _round_mesh(fl: FLStepConfig, client_shardings, master_shardings,
     if any(s.mesh != mesh for s in shs):
         raise ValueError("client and master shardings lie on different "
                          "meshes")
-    require_runnable(mesh, family=family)
+    require_runnable(mesh)
     for s in _sharding_leaves(client_shardings):
         if data_dim(s) != 0:
             raise ValueError(
@@ -365,8 +364,7 @@ def _sum_blocks(sq, split, group):
 
 
 def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
-                       client_shardings=None, master_shardings=None, *,
-                       family: "str | None" = None):
+                       client_shardings=None, master_shardings=None):
     """``loss_fn(params, batch) -> scalar mean loss``, where every tensor
     in ``batch`` has a leading per-client batch dim.
 
@@ -385,12 +383,12 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
       metrics:   ``{"delta_norm", "weight_sum"}``
 
     ``client_shardings`` / ``master_shardings``: the round on a mesh
-    (module docstring); ``family`` names the architecture family, which a
-    mesh with a model axis above 1 requires (``launch/mesh.py``'s
-    ``require_runnable``).
+    (module docstring); on a model axis above 1 the step raises unless
+    the layers' mesh context of that mesh is installed
+    (``models.layers.set_mesh_context``).
     """
     G = fl.num_clients
-    mesh = _round_mesh(fl, client_shardings, master_shardings, family)
+    mesh = _round_mesh(fl, client_shardings, master_shardings)
     group = mesh.group if mesh is not None else None
     w = num_client_groups(mesh) if group is not None else 1
     dims = master_dims(master_shardings)

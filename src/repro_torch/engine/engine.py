@@ -64,8 +64,12 @@ to a multiple of the data-axis product (``cohort.padded_cohort_size``;
 pad members take zero steps from the pad row and the merge leaves them
 out) and the client-state arena's row count rounds up to one.  Member
 generators are seeded by dispatch seed, so a member's noise does not
-depend on the rank it lands on.  A mesh with a model axis above 1
-raises (ROADMAP.md queue 1 item 19).
+depend on the rank it lands on.  On a model axis above 1 the members
+(the SER CNN) are replicated over the model axis, as in the JAX
+package's engine: every model rank of a data coordinate trains that
+coordinate's members, gathers over its data group only, and holds the
+run of the data-axis-only mesh of the same data width, bit for bit;
+rank 0 of the process group alone writes a snapshot.
 """
 from __future__ import annotations
 
@@ -298,7 +302,8 @@ class CohortRunner:
         add_noise = bool(c0.use_dp and c0.dp_cfg.noise_multiplier > 0)
         self.dp_path = c0.dp_path if c0.use_dp else "jnp"
         # the mesh: members split over the data axis of the process group
-        # (no group, W = 1: the one-process step); arena cohorts pad to a
+        # and replicated over a model axis (no group, W = 1: the
+        # one-process step); arena cohorts pad to a
         # multiple of the data-axis product (reference engine.py:368-374)
         self.mesh = cfg.mesh
         self.sharding = None

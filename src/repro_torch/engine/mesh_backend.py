@@ -80,8 +80,10 @@ class CohortSharding:
     With ``arch_cfg`` (a model-zoo architecture config) :meth:`spec` also
     names the tensor dims ``launch.shardings.leaf_spec``'s
     ``role="client"`` rule puts on ``model``, exactly the production
-    round's stacked layout; those are no-ops on a model axis of 1, the
-    only one the port runs.
+    round's stacked layout.  The engine builds it without one, as the
+    JAX package's does: on a model axis above 1 the members are
+    replicated over the model group, every model rank of a data
+    coordinate training the same rows and gathering over its data group.
 
     Equality/hash key on ``(mesh, arch_cfg)`` so ``cached_cohort_step``
     keeps one built step per mesh.

@@ -40,10 +40,12 @@ Storage is the durable flat-npz store of :mod:`repro_torch.checkpoint`
 (atomic publish, ``keep_last`` retention, escaped tree-path keys).
 
 On a mesh every rank builds the snapshot (the state is the same on
-every rank), rank 0 writes it, and all ranks wait at a barrier before
-going on, so each rank restores from the same file.  A resume at another
-data-axis size works: the arenas' rows beyond the pad row, which the
-mesh's rounding adds, carry nothing, and are cut or added on restore.
+every rank), rank 0 of the process group writes it (one writer, however
+many model ranks each data coordinate has), and all ranks of the group
+wait at a barrier before going on, so each rank restores from the same
+file.  A resume at another data-axis size works: the arenas' rows beyond
+the pad row, which the mesh's rounding adds, carry nothing, and are cut
+or added on restore.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ import torch
 from repro_torch.checkpoint import checkpoint as _ckpt
 from repro_torch.checkpoint.checkpoint import _escape, _path_key, to_numpy
 from repro_torch.engine.cohort import LocalRoundPlan
+from repro_torch.launch.mesh import is_writer
 from repro_torch.pytree import tree_flatten_with_path, tree_unflatten_like
 
 _RUNNER_COUNTERS = ("cohorts_run", "h2d_bytes_total", "host_syncs_at_eval",
@@ -107,15 +110,15 @@ class CheckpointPolicy:
         self._next = (int(step) // self.every + 1) * self.every
 
     def _publish(self, step: int, tree: dict, meta: dict,
-                 group=None) -> str:
-        """Write the snapshot (on a mesh, ``group``: rank 0 writes and
-        every rank waits for it)."""
-        if group is None or torch.distributed.get_rank(group) == 0:
+                 on_ranks: bool = False) -> str:
+        """Write the snapshot (``on_ranks``, a mesh over a process group:
+        rank 0 of the group writes and every rank waits for it)."""
+        if not on_ranks or is_writer():
             path = _ckpt.save(self.directory, step, tree, meta,
                               keep_last=self.keep_last)
-        if group is not None:
+        if on_ranks:
             from repro_torch.launch.collectives import barrier
-            barrier(group)
+            barrier(torch.distributed.group.WORLD)
             path = os.path.join(self.directory, f"step_{int(step):08d}.npz")
         self.mark(step)
         self.saves += 1
@@ -390,8 +393,8 @@ def _restore_pending(flat, meta, clients, globals_) -> dict:
 # loop-facing entry points
 # ---------------------------------------------------------------------------
 
-def _group(runner):
-    return runner.mesh.group if runner.mesh is not None else None
+def _on_ranks(runner) -> bool:
+    return runner.mesh is not None and runner.mesh.group is not None
 
 
 def save_async(policy: CheckpointPolicy, runner, clients, log, injector,
@@ -404,7 +407,7 @@ def save_async(policy: CheckpointPolicy, runner, clients, log, injector,
     meta.update(kind="async", t_virtual=float(t_virtual),
                 engine_version=int(server_version),
                 heap=[[float(t), int(cid)] for t, cid in heap])
-    return policy._publish(int(total_updates), flat, meta, _group(runner))
+    return policy._publish(int(total_updates), flat, meta, _on_ranks(runner))
 
 
 def restore_async(directory: str, runner, clients, log, injector,
@@ -432,7 +435,7 @@ def save_fedavg(policy: CheckpointPolicy, runner, clients, log, injector,
     flat, meta = _snapshot_common(
         runner, clients, log, injector, global_params, rng, pending={})
     meta.update(kind="fedavg", t_virtual=float(t_virtual), round=int(rnd))
-    return policy._publish(int(rnd), flat, meta, _group(runner))
+    return policy._publish(int(rnd), flat, meta, _on_ranks(runner))
 
 
 def restore_fedavg(directory: str, runner, clients, log, injector,

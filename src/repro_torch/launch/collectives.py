@@ -135,6 +135,15 @@ def _host(x: torch.Tensor, staged: bool) -> torch.Tensor:
     return x.cpu() if staged else x
 
 
+def _buffer(x: torch.Tensor, staged: bool) -> torch.Tensor:
+    """A contiguous copy of ``x`` for an in-place collective (NCCL refuses
+    a strided tensor, such as the gradient of a chunk's view), on the
+    host when ``staged``."""
+    x = x.detach()
+    return (x.contiguous().cpu() if staged
+            else x.clone(memory_format=torch.contiguous_format))
+
+
 def _back(y: torch.Tensor, like: torch.Tensor, staged: bool) -> torch.Tensor:
     return y.to(like.device) if staged else y
 
@@ -189,7 +198,7 @@ def all_reduce_sum(x: torch.Tensor, group, op=None) -> torch.Tensor:
     ``dist.ReduceOp`` (``MAX``)."""
     t0 = time.perf_counter()
     staged = _staged(x, group)
-    buf = x.detach().cpu() if staged else x.detach().clone()
+    buf = _buffer(x, staged)
     dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=group)
     buf = _back(buf, x, staged)
     _note("all_reduce", x.numel() * x.element_size(), staged, t0)
@@ -200,7 +209,7 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
     """Rank ``src``'s ``x`` on every rank (a new tensor)."""
     t0 = time.perf_counter()
     staged = _staged(x, group)
-    buf = x.detach().cpu() if staged else x.detach().clone()
+    buf = _buffer(x, staged)
     dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
     buf = _back(buf, x, staged)
     _note("broadcast", x.numel() * x.element_size(), staged, t0)
@@ -261,8 +270,11 @@ def _rows(t: torch.Tensor, dim: int, w: int) -> torch.Tensor:
 def all_gather_tree(tree, dims, group):
     """Whole leaves from this rank's shards: leaf j, split along
     ``dims[j]`` (None: replicated, returned as is), is all-gathered and
-    its W chunks joined along that dim in rank order."""
+    its W chunks joined along that dim in rank order.  A group of one
+    rank moves nothing: its shards are whole."""
     w = dist.get_world_size(group)
+    if w == 1:
+        return tree
     leaves = tree_leaves(tree)
     out = list(leaves)
     split = [(j, t) for j, t in enumerate(leaves) if dims[j] is not None]
@@ -284,8 +296,11 @@ def all_gather_tree(tree, dims, group):
 def reduce_scatter_tree(tree, dims, group):
     """The sum over ranks of whole leaves, each left as this rank's shard:
     leaf j is reduce-scattered along ``dims[j]``, or all-reduced whole
-    where that is None (a replicated leaf)."""
+    where that is None (a replicated leaf).  A group of one rank moves
+    nothing: the sum is the tree."""
     w = dist.get_world_size(group)
+    if w == 1:
+        return tree
     leaves = tree_leaves(tree)
     out = [None] * len(leaves)
     split = [(j, t) for j, t in enumerate(leaves) if dims[j] is not None]

@@ -2,9 +2,10 @@
 and compiles every (architecture x input shape x production mesh)
 program with XLA and reads memory, FLOPs and collective bytes from the
 compiled artifact.  Its meshes are the 16x16 and 2x16x16 production
-meshes, whose model axis (tensor parallelism) the port does not have,
-and PyTorch has no ahead-of-time compiled artifact to read.  Each entry
-point raises, naming ROADMAP.md queue 1 item 19.
+meshes, and it lowers the serving programs (prefill, decode) on them,
+which the port does not run on a mesh; PyTorch has no ahead-of-time
+compiled artifact to read.  Each entry point raises, naming ROADMAP.md
+queue 1 item 19 (its third part).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b
 """

@@ -14,9 +14,13 @@ round's client groups, the ZeRO shards of the f32 master).  The
 ranks ``d * model .. d * model + model - 1`` of data coordinate ``d``
 form one model group, each holding its blocks of the leaves that
 :mod:`repro_torch.launch.shardings` names ``"model"``.  It runs for the
-production round (``core/fl_step.py``) of the families in
-:data:`MODEL_AXIS_FAMILIES`; everything else on a model axis above 1
-raises (:func:`require_runnable`).
+production round (``core/fl_step.py``) of every family of the zoo, and
+for the cohort engine, whose members
+(the SER CNN, which the leaf rule does not cut) are replicated over the
+model axis: every model rank of a data coordinate runs that
+coordinate's members, as the JAX package's engine does.  Serving on a
+mesh (the caches' shardings, the production meshes and their dry run)
+raises: ROADMAP.md queue 1 item 19, its third part.
 """
 from __future__ import annotations
 
@@ -28,19 +32,15 @@ AXES = ("data", "model")
 # the ROADMAP.md queue 1 item that brings what the port refuses here
 _MODEL_AXIS_ITEM = 19
 
-# the families whose production round runs on a model axis above 1
-MODEL_AXIS_FAMILIES = ("dense", "hybrid")
-
-
 def not_ported(what: str) -> ValueError:
     return ValueError(
         f"{what} is not ported yet (ROADMAP.md queue 1 item "
-        f"{_MODEL_AXIS_ITEM}, 'the model axis')")
+        f"{_MODEL_AXIS_ITEM}, part 3: serving on a mesh)")
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    """The JAX package's 16x16 (or 2x16x16) production mesh: its model
-    axis is tensor parallelism, which the port does not have."""
+    """The JAX package's 16x16 (or 2x16x16) production mesh, which only
+    its dry run uses: not ported."""
     raise not_ported(f"make_production_mesh(multi_pod={multi_pod})")
 
 
@@ -185,26 +185,9 @@ def num_client_groups(mesh) -> int:
     return int(np.prod([mesh.shape[a] for a in data_axes(mesh)]))
 
 
-def require_model_axis(model: int, family: "str | None" = None,
-                       where: str = ""):
-    """Raise unless a model axis of ``model`` can run for ``family``: 1
-    always, above 1 for the production round of a family in
-    :data:`MODEL_AXIS_FAMILIES` (None: not the production round)."""
-    if model > 1 and family not in MODEL_AXIS_FAMILIES:
-        what = (f"the {family!r} family" if family is not None
-                else "a run that names no family (the cohort engine)")
-        raise not_ported(
-            f"a model axis of {model} for {what}"
-            f"{f' ({where})' if where else ''}; it runs for the production "
-            f"round of the {' and '.join(MODEL_AXIS_FAMILIES)} families")
-
-
-def require_runnable(mesh, *, family: "str | None" = None) -> HostMesh:
+def require_runnable(mesh) -> HostMesh:
     """Raise unless a run can execute on ``mesh``: a concrete mesh over
-    the whole current process group.  A model axis above 1 runs only for
-    the production round of a family in :data:`MODEL_AXIS_FAMILIES`
-    (``family`` names it; the cohort engine passes none)."""
-    require_model_axis(mesh.shape.get("model", 1), family, repr(mesh))
+    the whole current process group."""
     if mesh.world is None:
         raise ValueError(f"{mesh!r} is abstract: it has no ranks to run on")
     n = world_size()
@@ -214,3 +197,10 @@ def require_runnable(mesh, *, family: "str | None" = None) -> HostMesh:
             f"rank(s): a run takes every rank of the group (build the mesh "
             f"with make_host_mesh(data={n}) in every rank)")
     return mesh
+
+
+def is_writer() -> bool:
+    """Whether this process writes a run's host-side files (checkpoints,
+    logs): rank 0 of the process group, or the only process.  Every rank
+    of a mesh computes the same host state, so one writes it."""
+    return not dist.is_initialized() or dist.get_rank() == 0

@@ -23,7 +23,7 @@ one dim into equal blocks, or replicated; :func:`block` cuts a rank's
 block out of a whole leaf.  A ``"model"`` entry is a no-op on a model
 axis of 1 (the rule names ``"model"`` wherever a candidate divides by
 1).  :func:`cache_shardings` (the serving caches on the model axis)
-raises: ROADMAP.md queue 1 item 19.
+raises: ROADMAP.md queue 1 item 19, its third part (serving on a mesh).
 """
 from __future__ import annotations
 

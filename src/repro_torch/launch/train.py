@@ -18,12 +18,12 @@ mesh of N ranks, G x N/G (``launch/mesh.py``): one client group per data
 coordinate, the f32 master and FedAdam's state ZeRO-sharded over the
 data axis (``launch/shardings.py``'s ``role="master"`` rule) and, where
 N/G is above 1, each client's model tensor-parallel over the N/G ranks
-of its model group (the dense and hybrid families; the leaves the rule
-names ``"model"`` cut in blocks, ``models/layers.py``):
+of its model group (every family; the leaves the rule names ``"model"``
+cut in blocks, ``models/layers.py``):
     PYTHONPATH=src python -m repro_torch.launch.train spmd \\
         --arch smollm-360m --devices 2 --data-axis 2 --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train spmd \\
-        --arch zamba2-1.2b --devices 4 --data-axis 2 --steps 100
+        --arch olmoe-1b-7b --devices 4 --data-axis 2 --steps 100
 
 The launcher starts the N ranks itself (``torch.multiprocessing`` with
 the ``spawn`` start method, a rendezvous on a free localhost port), or,
@@ -31,8 +31,7 @@ run under ``torchrun --nproc-per-node N`` on one host, joins the group
 ``torchrun`` describes (``RANK``, ``WORLD_SIZE``, ``MASTER_PORT``).  The
 backend follows ``collectives.choose_backend``, printed by rank 0: NCCL
 with one card per rank, gloo on the CPU and for several ranks sharing a
-card (``spmd_rank(backend=...)`` names one outright).  A model axis
-for the other families raises: ROADMAP.md queue 1 item 19.
+card (``spmd_rank(backend=...)`` names one outright).
 
 The flags and output lines are the JAX launcher's, printed by rank 0
 (plus one line naming the mesh and the backend); on a model axis every
@@ -55,6 +54,7 @@ def run_sim(args):
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core.testbed import TestbedConfig, run_experiment
     from repro_torch.data.synthetic_ser import SERDataConfig
+    from repro_torch.launch.mesh import is_writer
 
     cfg = TestbedConfig(
         use_dp=args.sigma > 0, sigma=args.sigma, batch_size=args.batch,
@@ -73,12 +73,12 @@ def run_sim(args):
     eps = {k: round(v[-1], 2) for k, v in log.eps_trajectory.items() if v}
     print(f"[train:sim] eps={eps} disparity={fr['privacy_disparity']:.1f}x "
           f"jain={fr['jain_participation']:.2f}")
-    if args.ckpt_dir:
+    if args.ckpt_dir and is_writer():
         ckpt.save(args.ckpt_dir, len(log.times), params,
                   meta={"strategy": args.strategy, "sigma": args.sigma,
                         "acc": log.global_acc[-1]})
         print(f"[train:sim] checkpoint -> {args.ckpt_dir}")
-    if args.log_json:
+    if args.log_json and is_writer():
         with open(args.log_json, "w") as f:
             json.dump({"acc": log.global_acc, "times": log.times,
                        "eps": {k: v for k, v in log.eps_trajectory.items()},
@@ -106,46 +106,64 @@ def spmd_config(args):
     return cfg
 
 
-def run_spmd(args, on_round=None):
+def stub_inputs(cfg, batch_size: int, seed) -> dict:
+    """One batch's stubbed modality inputs (``models.base.input_specs``):
+    the audio family's encoder frames, the VLM family's patch
+    embeddings; standard normal f32 from numpy seeded by ``seed``, the
+    same on every rank; nothing for the other families.  The JAX
+    launcher feeds tokens and labels only, which those two families'
+    losses cannot take."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (batch_size, cfg.enc_frames, cfg.d_model), dtype=np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (batch_size, cfg.n_patches, cfg.d_model), dtype=np.float32)
+    return out
+
+
+def run_spmd(args, on_round=None, cfg=None):
     """``args.steps`` rounds of the production round over the synthetic
     token pipeline.  ``on_round(i, master, metrics)``, if given, is
     called after each round (``master``: this rank's shards on a mesh).
+    ``cfg`` is the architecture config to train in place of
+    ``spmd_config(args)`` (a caller's cut of it).
 
     ``--devices 1`` runs in this process and returns the final master
     params.  ``--devices N`` joins the process group when run under
     ``torchrun`` (returning this rank's whole final master), and
     otherwise spawns the N ranks and returns None once they have ended
     (``on_round`` is then not passed to them)."""
-    if args.devices > 1:
-        from repro_torch.launch.mesh import require_model_axis
-        if args.devices % args.data_axis:
-            raise ValueError(
-                f"spmd --devices {args.devices} is not a multiple of "
-                f"--data-axis {args.data_axis}: the mesh is data x model")
-        require_model_axis(
-            args.devices // args.data_axis, spmd_config(args).family,
-            f"spmd --devices {args.devices} --data-axis {args.data_axis}")
+    if args.devices > 1 and args.devices % args.data_axis:
+        raise ValueError(
+            f"spmd --devices {args.devices} is not a multiple of "
+            f"--data-axis {args.data_axis}: the mesh is data x model")
     if args.devices == 1:
-        return _run_spmd(args, None, args.device, on_round)
+        return _run_spmd(args, None, args.device, on_round, cfg)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         if int(os.environ["WORLD_SIZE"]) != args.devices:
             raise ValueError(
                 f"torchrun started {os.environ['WORLD_SIZE']} ranks for "
                 f"--devices {args.devices}")
         return spmd_rank(args, int(os.environ["RANK"]),
-                         int(os.environ["MASTER_PORT"]), on_round=on_round)
+                         int(os.environ["MASTER_PORT"]), on_round=on_round,
+                         cfg=cfg)
     import torch.multiprocessing as mp
     from repro_torch.launch.collectives import free_port
-    mp.start_processes(_spawned_rank, args=(args, free_port()),
+    mp.start_processes(_spawned_rank, args=(args, free_port(), cfg),
                        nprocs=args.devices, start_method="spawn")
     return None
 
 
-def _spawned_rank(rank, args, port):
-    spmd_rank(args, rank, port)
+def _spawned_rank(rank, args, port, cfg):
+    spmd_rank(args, rank, port, cfg=cfg)
 
 
-def spmd_rank(args, rank: int, port: int, backend=None, on_round=None):
+def spmd_rank(args, rank: int, port: int, backend=None, on_round=None,
+              cfg=None):
     """Rank ``rank`` of ``args.devices``: join the group at
     ``tcp://localhost:<port>`` (the backend by ``choose_backend`` unless
     given), run the round on the mesh, leave the group.  Returns the
@@ -167,26 +185,27 @@ def spmd_rank(args, rank: int, port: int, backend=None, on_round=None):
         if rank == 0:
             print(f"[train:spmd] mesh {mesh.shape} over {world} ranks: "
                   f"{coll.describe(None, device)}", flush=True)
-        return _run_spmd(args, mesh, device, on_round)
+        return _run_spmd(args, mesh, device, on_round, cfg)
     finally:
         dist.destroy_process_group()
 
 
-def _run_spmd(args, mesh, device, on_round):
+def _run_spmd(args, mesh, device, on_round, cfg=None):
     from repro_torch.models import layers
 
+    cfg = cfg or spmd_config(args)
     if mesh is None:
-        return _spmd_rounds(args, None, device, on_round)
+        return _spmd_rounds(args, None, device, on_round, cfg)
     # the layers read the model axis from the mesh context, as in the
     # JAX launcher (no batch constraints inside a client)
-    layers.set_mesh_context(mesh, cfg=spmd_config(args))
+    layers.set_mesh_context(mesh, cfg=cfg)
     try:
-        return _spmd_rounds(args, mesh, device, on_round)
+        return _spmd_rounds(args, mesh, device, on_round, cfg)
     finally:
         layers.clear_mesh_context()
 
 
-def _spmd_rounds(args, mesh, device, on_round):
+def _spmd_rounds(args, mesh, device, on_round, cfg):
     import torch
 
     from repro_torch.checkpoint import checkpoint as ckpt
@@ -202,7 +221,6 @@ def _spmd_rounds(args, mesh, device, on_round):
     from repro_torch.pytree import tree_map
 
     dev = resolve_device(device)
-    cfg = spmd_config(args)
     fam = get_family(cfg.family)
     lead = mesh is None or (mesh.rank == 0 and mesh.model_rank == 0)
     # on a model axis the loss is tensor-parallel: every rank evaluates
@@ -231,7 +249,7 @@ def _spmd_rounds(args, mesh, device, on_round):
         return fam.loss(p, b, cfg)
 
     step = make_fl_train_step(loss_fn, fl, client_shardings=client_sh,
-                              master_shardings=master_sh, family=cfg.family)
+                              master_shardings=master_sh)
     opt_state = make_server_optimizer(fl).init(master)
     B = G * args.n_local * args.n_micro * args.per_micro
     data = make_batches(
@@ -256,6 +274,8 @@ def _spmd_rounds(args, mesh, device, on_round):
 
     for i, batch in enumerate(data):
         tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        tb.update({k: torch.from_numpy(v).to(dev, cfg.pdtype) for k, v in
+                   stub_inputs(cfg, B, [args.seed, i]).items()})
         if i % args.log_every == 0:
             params = eval_params(cfg.pdtype)
             if evaluates:

@@ -22,8 +22,11 @@ Conventions (the JAX package's, kept at the public surface)
   the config) runs model-parallel: a projection whose output dim is cut
   runs on this rank's columns, one whose input dim is cut on its rows
   and sums the ranks' partial outputs (:func:`attention`'s q/k/v and o,
-  :func:`mlp`'s hidden, the vocab of :func:`embed`, :func:`unembed` and
-  :func:`chunked_lm_loss`); the math is the one-device layer's.  With
+  :func:`mlp`'s hidden, :func:`down_proj`, the vocab or the d_model
+  columns of :func:`embed`, :func:`unembed` and :func:`chunked_lm_loss`);
+  a norm's scale cut in blocks is read whole (:func:`rms_norm`,
+  :func:`layer_norm`), and a norm over a cut activation adds its sums of
+  squares over the group; the math is the one-device layer's.  With
   no context the helpers (:func:`whole`, :func:`block_of`,
   :func:`shard` and the collectives) return their input and every layer
   is the one-device code; attention, the MLP and the vocab functions
@@ -210,14 +213,25 @@ def whole_stack(tree, lead):
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x, scale, eps=1e-6):
+def rms_norm(x, scale, eps=1e-6, group=None):
+    """RMSNorm over the last dim.  On the model axis a scale cut in blocks
+    is read whole; with ``group``, x and scale are this rank's blocks of
+    the normed dim and the mean of squares covers the whole dim (the
+    blocks' sums of squares added over the group)."""
     x32 = x.float()
-    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    if group is None:
+        scale = whole(scale, (x.shape[-1],))
+        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    else:
+        ss = torch.sum(torch.square(x32), dim=-1, keepdim=True)
+        var = coll.tp_copy(coll.tp_reduce(ss, group), group) / (
+            x32.shape[-1] * torch.distributed.get_world_size(group))
     out = x32 * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
+    scale, bias = (whole(t, (x.shape[-1],)) for t in (scale, bias))
     x32 = x.float()
     mu = x32.mean(-1, keepdim=True)
     var = x32.var(-1, unbiased=False, keepdim=True)
@@ -316,12 +330,15 @@ def _in_projs(x, p, cfg, names):
 def _o_proj(o, wo, cfg):
     """o (B, S, H, Dh) times wo: with wo cut on heads or head_dim, this
     rank's block of o (the JAX package's ``shard(o, ...)``) on its rows,
-    the partial sums added over the model group."""
+    the partial sums added over the model group; with wo cut on d_model,
+    o on this rank's output columns, all-gathered."""
     g = model_group()
     shape = _attn_shapes(cfg)["wo"]
     d = None if g is None else split_dim(wo, shape)
-    if d is None or d == 2:
-        return _out_proj(o, wo if d is None else whole(wo, shape))
+    if d is None:
+        return _out_proj(o, wo)
+    if d == 2:
+        return coll.tp_gather(_out_proj(coll.tp_copy(o, g), wo), 2, g)
     axes = [None] * 4
     axes[2 + d] = "model"
     return coll.tp_reduce(_out_proj(shard(o, *axes), wo), g)
@@ -456,13 +473,15 @@ def _mlp_hidden(x, w_up, w_gate, variant):
     return F.gelu(up, approximate="tanh")
 
 
-def mlp(x, p, variant="swiglu"):
+def mlp(x, p, variant="swiglu", d_ff=None):
     """On the model axis the hidden is this rank's block of d_ff (the JAX
     package's ``shard(h, "batch", None, "model")``): w_up/w_gate's
-    columns, w_down's rows, the partial outputs added over the group."""
+    columns, then w_down as :func:`down_proj` takes it.  ``d_ff`` is the
+    hidden's whole width (default the config's; MoE's shared expert and
+    the sLSTM's FFN have their own)."""
     g = model_group()
     if g is not None:
-        D, Fd = x.shape[-1], _ctx_cfg().d_ff
+        D, Fd = x.shape[-1], d_ff or _ctx_cfg().d_ff
         wide, tall = (D, Fd), (Fd, D)
         cut = [split_dim(p["w_up"], wide), split_dim(p["w_down"], tall)]
         if "w_gate" in p:
@@ -472,10 +491,38 @@ def mlp(x, p, variant="swiglu"):
             h = _mlp_hidden(coll.tp_copy(x, g), block_of(p["w_up"], wide, 1),
                             None if gate is None else block_of(gate, wide, 1),
                             variant)
-            return coll.tp_reduce(
-                torch.matmul(h, block_of(p["w_down"], tall, 0)), g)
+            return down_proj(h, p["w_down"], tall)
     h = _mlp_hidden(x, p["w_up"], p.get("w_gate"), variant)
     return torch.matmul(h, p["w_down"])
+
+
+def down_proj(h, w, whole_shape):
+    """``h @ w`` replicated, from h this rank's block of the hidden (its
+    last dim) and w (..., F, D) of ``whole_shape``: w cut on F (or whole)
+    takes this rank's rows and the partial outputs are added over the
+    group; w cut on D gathers the hidden whole, projects it on this
+    rank's columns and gathers those (activations move, never the
+    weight).  With no model axis, ``h @ w``."""
+    g = model_group()
+    if g is None:
+        return torch.matmul(h, w)
+    n, last = len(whole_shape), h.dim() - 1
+    if split_dim(w, whole_shape) == n - 1:
+        hw = coll.tp_copy(coll.tp_gather(h, last, g), g)
+        return coll.tp_gather(torch.matmul(hw, w), last, g)
+    return coll.tp_reduce(torch.matmul(h, block_of(w, whole_shape, n - 2)),
+                          g)
+
+
+def whole_proj(x, w, whole_shape):
+    """``x @ w`` whole on every rank, for replicated x and w (D, N): a w
+    cut on N projects x on this rank's columns and the blocks are
+    all-gathered; a w cut otherwise is read whole."""
+    g = model_group()
+    if g is not None and split_dim(w, whole_shape) == 1:
+        return coll.tp_gather(torch.matmul(coll.tp_copy(x, g), w),
+                              x.dim() - 1, g)
+    return torch.matmul(x, whole(w, whole_shape))
 
 
 # ---------------------------------------------------------------------------
@@ -487,39 +534,52 @@ def init_embedding(gen, vocab, d_model, dtype):
     return dense_init(gen, (vocab, d_model), dtype, fan_in=d_model)
 
 
-def _vocab_block(table):
-    """(model group, first row, table) when ``table`` (V, D) holds a
-    block of the vocab on the model axis, else (None, 0, table); a table
-    cut on another dim is all-gathered whole."""
+def _table_cut(table):
+    """(model group, cut dim, first row) of a (V, D) table on the model
+    axis: dim 0 (a block of the vocab, from row ``first row``), 1 (a
+    block of the d_model columns) or None (whole, or no model axis)."""
     g = model_group()
     if g is None:
-        return None, 0, table
-    whole_shape = (_ctx_cfg().vocab, table.shape[1])
-    d = split_dim(table, whole_shape)
-    if d is None:
-        return None, 0, table
-    if d != 0:
-        return None, 0, whole(table, whole_shape)
-    return g, table.shape[0] * torch.distributed.get_rank(g), table
+        return None, None, 0
+    cfg = _ctx_cfg()
+    d = split_dim(table, (cfg.vocab, cfg.d_model))
+    lo = table.shape[0] * torch.distributed.get_rank(g) if d == 0 else 0
+    return g, d, lo
 
 
 def embed(tokens, emb):
-    """On the model axis (a vocab block per rank) each rank looks up the
+    """On the model axis, a vocab block per rank: each rank looks up the
     tokens in its rows, zero elsewhere, and the rows are summed over the
-    group (one nonzero term per token: exact)."""
-    g, lo, emb = _vocab_block(emb)
-    if g is None:
+    group (one nonzero term per token: exact).  A block of the d_model
+    columns per rank: each rank looks up its columns and they are
+    all-gathered."""
+    g, d, lo = _table_cut(emb)
+    if d is None:
         return F.embedding(tokens, emb)
+    if d == 1:
+        return coll.tp_gather(F.embedding(tokens, emb), tokens.dim(), g)
     local = tokens.long() - lo
     inside = (local >= 0) & (local < emb.shape[0])
     rows = F.embedding(torch.where(inside, local, 0), emb)
     return coll.tp_reduce(torch.where(inside[..., None], rows, 0), g)
 
 
+def _column_logits(x, W, softcap, g):
+    """``unembed`` from this rank's d_model columns of W (V, D / M): this
+    rank's block of x times them, the partial logits added over the group
+    in f32 and rounded once to x's dtype, as the whole product rounds."""
+    xb = shard(x, *([None] * (x.dim() - 1)), "model")
+    part = torch.matmul(xb.float(), W.float().t())
+    return _softcap(coll.tp_reduce(part, g).to(x.dtype).float(), softcap)
+
+
 def unembed(x, emb_or_head, softcap: float = 0.0):
-    g, _, W = _vocab_block(emb_or_head)
-    if g is None:
+    W = emb_or_head
+    g, d, _ = _table_cut(W)
+    if d is None:
         return _softcap(torch.matmul(x, W.t()).float(), softcap)
+    if d == 1:
+        return _column_logits(x, W, softcap, g)
     logits = _softcap(torch.matmul(coll.tp_copy(x, g), W.t()).float(),
                       softcap)
     return coll.tp_gather(logits, logits.dim() - 1, g)
@@ -544,8 +604,9 @@ def chunked_lm_loss(h, labels, W, softcap: float = 0.0,
     if size * n_chunks != S:
         raise ValueError(f"sequence {S} does not split into {n_chunks} "
                          f"chunks of {size}")
-    g, lo, W = _vocab_block(W)
-    if g is None:
+    g, d, lo = _table_cut(W)
+    if d is None or d == 1:
+        # whole, or d_model columns: unembed adds the partial logits
         losses = [cross_entropy_loss(unembed(h[:, i:i + size], W, softcap),
                                      labels[:, i:i + size], W.shape[0])
                   for i in range(0, S, size)]

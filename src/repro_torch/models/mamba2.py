@@ -157,17 +157,7 @@ def gated_rms_norm(y, z, scale, eps, group=None):
     """``rms_norm(y * silu(z), scale)``; with ``group``, y, z and scale are
     this rank's blocks of d_inner and the mean of squares covers the
     whole d_inner (the blocks' sums of squares added over the group)."""
-    g = y * F.silu(z)
-    x32 = g.float()
-    if group is None:
-        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-    else:
-        ss = torch.sum(torch.square(x32), dim=-1, keepdim=True)
-        total = coll.tp_copy(coll.tp_reduce(ss, group), group)
-        var = total / (x32.shape[-1] * torch.distributed.get_world_size(
-            group))
-    out = x32 * torch.rsqrt(var + eps)
-    return (out * (1.0 + scale.float())).to(g.dtype)
+    return L.rms_norm(y * F.silu(z), scale, eps, group)
 
 
 def mamba2_forward(x, p, cfg, state=None):
@@ -186,12 +176,7 @@ def mamba2_forward(x, p, cfg, state=None):
     di, H, N, P = d_inner(cfg), n_heads_ssm(cfg), cfg.ssm_state, cfg.ssm_head_dim
     shapes = _shapes(cfg)
 
-    w_in = p["in_proj"]
-    if group is not None and L.split_dim(w_in, shapes["in_proj"]) == 1:
-        zxbcdt = coll.tp_gather(torch.matmul(coll.tp_copy(x, group), w_in),
-                                2, group)
-    else:
-        zxbcdt = torch.matmul(x, L.whole(w_in, shapes["in_proj"]))
+    zxbcdt = L.whole_proj(x, p["in_proj"], shapes["in_proj"])
     z, xs, Bm, Cm, dt = torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
 
     xBC_raw = torch.cat([xs, Bm, Cm], -1)

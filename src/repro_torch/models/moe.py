@@ -17,12 +17,23 @@ writes it, decision for decision:
 
 The attention, cache and decode attention are the dense family's; the
 expert math is plain PyTorch (no Pallas kernel in the JAX package).
+
+On the model axis (:mod:`repro_torch.models.layers`' mesh context) the
+leaf rule cuts the router on the experts, w_gate/w_up on d_expert and
+w_down on d_expert (qwen2-moe) or on d_model (olmoe, whose
+``2 * d_ff == d_model``).  The router is read whole, so the logits, the
+top-k, the capacity slots and the aux loss are computed whole on every
+rank, the W = 1 decisions exactly; the dispatch too.  The experts'
+hidden is this rank's block of d_expert and w_down is
+:func:`repro_torch.models.layers.down_proj`'s: activations move over the
+group, the expert weights never do.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import collectives as coll
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.base import Family, register_family
@@ -50,9 +61,12 @@ def route(xg, router, cfg):
     k), its slot among the group's tokens routed to that expert (flattened
     (s, K) order), whether the slot is below the capacity, and the
     load-balance loss."""
-    g, s, _ = xg.shape
+    g, s, D = xg.shape
     E, K = cfg.n_experts, cfg.top_k
-    logits = torch.matmul(xg.float(), router)                 # (g, s, E)
+    router = L.whole(router, (D, E))      # one small gather on a model axis
+    # the router is f32 at init; a bf16 round's client holds it in bf16,
+    # which the JAX package's product promotes to f32
+    logits = torch.matmul(xg.float(), router.float())         # (g, s, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, K, dim=-1)               # (g, s, K)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -95,14 +109,20 @@ def moe_mlp(x, p, cfg, *, group_size: int = 2048):
     xe = torch.matmul(disp.reshape(g, s, Ep * cap).transpose(1, 2), xg)
     xe = xe.reshape(g, Ep, cap, D).transpose(0, 1)             # (Ep,g,cap,D)
     xe = xe.reshape(Ep, g * cap, D)
-    h = F.silu(torch.matmul(xe, p["w_gate"])) * torch.matmul(xe, p["w_up"])
-    ye = torch.matmul(h, p["w_down"])                          # (Ep,g*cap,D)
+    # on a model axis: this rank's block of the experts' hidden
+    Fd = cfg.d_expert or cfg.d_ff
+    wide = (Ep, D, Fd)
+    xc = coll.tp_copy(xe, L.model_group())
+    h = (F.silu(torch.matmul(xc, L.block_of(p["w_gate"], wide, 2)))
+         * torch.matmul(xc, L.block_of(p["w_up"], wide, 2)))
+    ye = L.down_proj(h, p["w_down"], (Ep, Fd, D))              # (Ep,g*cap,D)
     ye = ye.reshape(Ep, g, cap, D).transpose(0, 1).reshape(g, Ep * cap, D)
     out = torch.matmul(comb.reshape(g, s, Ep * cap), ye)       # (g, s, D)
 
     out = out.reshape(B, S, D)
     if "shared" in p:
-        out = out + L.mlp(x, p["shared"], "swiglu")
+        out = out + L.mlp(x, p["shared"], "swiglu",
+                          d_ff=cfg.n_shared_experts * Fd)
     return out, aux
 
 

@@ -13,6 +13,13 @@ Decode runs ``flash_decode`` twice per decoder layer on the card: the
 self-attention over the decoder's KV cache, and the cross-attention over
 the encoder's cached K/V with ``pos = F - 1`` over S = F frames (every
 frame visible).
+
+On the model axis (:mod:`repro_torch.models.layers`' mesh context) the
+encoder, the decoder's self-attention and its cross-attention run
+:func:`repro_torch.models.layers.attention` and ``mlp`` on their blocks;
+the cross-attention's K/V come whole from the encoder's output on every
+rank, and a position table cut on its rows (``pos_dec`` at the reduced
+sizes, where ``max_seq`` equals the vocab) is read whole.
 """
 from __future__ import annotations
 
@@ -72,8 +79,9 @@ def encode(params, frames, cfg):
     B, Fr, D = frames.shape
     x = frames + _sinusoidal(Fr, D, frames.device).to(frames.dtype)
     positions = _positions(B, Fr, frames.device)
+    enc = L.whole_stack(params["enc"], (cfg.n_enc_layers,))
     for i in range(cfg.n_enc_layers):
-        blk = L.layer_slice(params["enc"], i)
+        blk = L.layer_slice(enc, i)
         h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
         x = x + L.attention(h, blk["attn"], cfg, positions, causal=False,
                             rope=False)
@@ -86,15 +94,15 @@ def _dec_trunk(params, x, cfg, positions, enc_out, enc_pos, cache=None):
     """The decoder layers; with ``cache``, each layer's self K/V (positions
     0..S-1) and cross K/V are written into it in place."""
     S = x.shape[1]
+    dec = L.whole_stack(params["dec"], (cfg.n_layers,))
     for i in range(cfg.n_layers):
-        blk = L.layer_slice(params["dec"], i)
+        blk = L.layer_slice(dec, i)
         h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
         _, k, v = L._qkv(h, blk["attn"], cfg, positions, rope=False)
         x = x + L.attention(h, blk["attn"], cfg, positions, causal=True,
                             rope=False, kv_override=(k, v, positions))
         h = L.rms_norm(x, blk["ln_xattn"], cfg.norm_eps)
-        xk = L._proj(enc_out, blk["xattn"]["wk"])
-        xv = L._proj(enc_out, blk["xattn"]["wv"])
+        xk, xv = L._in_projs(enc_out, blk["xattn"], cfg, ("wk", "wv"))
         x = x + L.attention(h, blk["xattn"], cfg, positions, causal=False,
                             rope=False, kv_override=(xk, xv, enc_pos))
         h = L.rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
@@ -112,7 +120,8 @@ def forward_hidden(params, batch, cfg, cache=None):
     B, S = tokens.shape
     enc_out = encode(params, frames, cfg)
     enc_pos = _positions(B, enc_out.shape[1], tokens.device)
-    x = L.embed(tokens, params["embedding"]) + params["pos_dec"][:S]
+    pos_dec = L.whole(params["pos_dec"], (cfg.max_seq, cfg.d_model))
+    x = L.embed(tokens, params["embedding"]) + pos_dec[:S]
     return _dec_trunk(params, x, cfg, _positions(B, S, tokens.device),
                       enc_out, enc_pos, cache)
 

@@ -20,6 +20,16 @@ recurrent matrices, as a Python loop over time (the JAX package's
 ``lax.scan``: sequential by construction, and the JAX package has no
 kernel for it).  The family attends nothing, so its decode launches no
 ``flash_decode``.
+
+On the model axis (:mod:`repro_torch.models.layers`' mesh context) the
+leaf rule cuts the mLSTM's w_up and q/k/v on their outputs, its gates on
+the heads, ln_inner and w_down's rows on d_inner, and the sLSTM's
+recurrent ``R*`` on their last dim.  An mLSTM block gathers w_up's
+output whole (its z/m split crosses the cut), runs q/k/v, the gates and
+the chunked recurrence on this rank's heads, normalizes over the whole
+d_inner and adds the ranks' rows of w_down; an sLSTM block gathers its
+``R*`` whole once, before the time loop, and runs the recurrence whole
+on every rank (no collective inside the loop).
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import collectives as coll
 from repro_torch.models import layers as L
 from repro_torch.models.base import Family, register_family
 from repro_torch.models.mamba2 import _segsum
@@ -112,18 +123,31 @@ def mlstm_chunked(q, k, v, logf, logi, chunk: int, init_state=None):
 
 
 def mlstm_block(x, p, cfg, state=None):
-    """x: (B,S,D).  state: C (B,H,dk,dv+1) for decode, or None."""
+    """x: (B,S,D).  state: C (B,H,dk,dv+1) for decode, or None.  On the
+    model axis H is this rank's heads, the state's too (module
+    docstring)."""
     B, S, D = x.shape
     di, H = d_inner(cfg), mlstm_heads(cfg)
     dh = di // H
+    g = L.model_group()
     h_in = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    z, m = torch.chunk(torch.matmul(h_in, p["w_up"]), 2, -1)
+    z, m = torch.chunk(L.whole_proj(h_in, p["w_up"], (D, 2 * di)), 2, -1)
 
-    q = torch.matmul(m, p["wq"]).reshape(B, S, H, dh)
-    k = torch.matmul(m, p["wk"]).reshape(B, S, H, dh) * (dh ** -0.5)
-    v = torch.matmul(m, p["wv"]).reshape(B, S, H, dh)
-    logi = torch.matmul(m.float(), p["w_i"]) + p["b_i"]
-    logf = F.logsigmoid(torch.matmul(m.float(), p["w_f"]) + p["b_f"])
+    mc = coll.tp_copy(m, g)
+
+    def heads(name):
+        return torch.matmul(mc, L.block_of(p[name], (di, di), 1)).reshape(
+            B, S, -1, dh)
+
+    q, v = heads("wq"), heads("wv")
+    k = heads("wk") * (dh ** -0.5)
+    # the gates' f32 weights are the compute dtype in a bf16 round's
+    # client; the JAX package's products promote them to f32
+    logi = (torch.matmul(mc.float(), L.block_of(p["w_i"], (di, H), 1).float())
+            + L.block_of(p["b_i"], (H,), 0))
+    logf = F.logsigmoid(
+        torch.matmul(mc.float(), L.block_of(p["w_f"], (di, H), 1).float())
+        + L.block_of(p["b_f"], (H,), 0))
     # stabilize the input gate (exp can overflow): subtract a running cap
     logi = torch.clamp(logi, max=10.0)
 
@@ -143,9 +167,11 @@ def mlstm_block(x, p, cfg, state=None):
         y = (yv / torch.clamp(torch.abs(norm), min=1.0))[:, None]
 
     # the chunked path mixes f32 decay factors in; pin back to residual dtype
-    y = y.reshape(B, S, di).to(x.dtype)
-    y = L.rms_norm(y, p["ln_inner"], cfg.norm_eps) * F.silu(z)
-    return x + torch.matmul(y, p["w_down"]), final
+    y = y.reshape(B, S, -1).to(x.dtype)
+    y = (L.rms_norm(y, L.block_of(p["ln_inner"], (di,), 0), cfg.norm_eps,
+                    group=g)
+         * F.silu(L.shard(z, None, None, "model")))
+    return x + L.down_proj(y, p["w_down"], (di, D)), final
 
 
 # ---------------------------------------------------------------------------
@@ -182,10 +208,14 @@ def slstm_scan(x, p, cfg, init=None):
     B, S, D = x.shape
     H = cfg.n_heads
     dh = D // H
-    W = torch.cat([p[f"W{g}"] for g in _GATES], -1)         # (D, 4D)
-    bias = torch.cat([p[f"b{g}"] for g in _GATES], -1)
+    W = torch.cat([L.whole(p[f"W{g}"], (D, D)) for g in _GATES],
+                  -1).float()   # f32, as the JAX package's product promotes
+    bias = torch.cat([L.whole(p[f"b{g}"], (D,)) for g in _GATES], -1)
     pre = (torch.matmul(x.float(), W) + bias).reshape(B, S, 4, H, dh)
-    R = torch.cat([p[f"R{g}"] for g in _GATES], -1)         # (H, dh, 4dh)
+    # on a model axis the four R* are gathered whole in one call, here,
+    # before the time loop
+    R = torch.cat(list(L.whole(torch.stack([p[f"R{g}"] for g in _GATES]),
+                               (4, H, dh, dh))), -1).float()  # (H, dh, 4dh)
 
     if init is None:
         zeros = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
@@ -215,7 +245,7 @@ def slstm_block(x, p, cfg, state=None):
     y, final = slstm_scan(h_in, p, cfg, init=state)
     x = x + y
     h2 = L.rms_norm(x, p["ln_ffn"], cfg.norm_eps)
-    return x + L.mlp(h2, p["ffn"], "swiglu"), final
+    return x + L.mlp(h2, p["ffn"], "swiglu", d_ff=slstm_ff(cfg)), final
 
 
 # ---------------------------------------------------------------------------
@@ -256,13 +286,16 @@ def _blocks(params, cfg):
     """(kind, cache index, layer params) in network order: kind "m_seg"
     (index (period, i)), "s_seg" (index (period,)) or "m_tail"."""
     n_per, m_per, trailing = layer_plan(cfg)
+    # a stack the model axis cuts on a stacking dim is gathered whole
+    seg = L.whole_stack(params["mlstm_seg"], (n_per, m_per))
+    slstm = L.whole_stack(params["slstm"], (n_per,))
+    tail = L.whole_stack(params["mlstm_tail"], (trailing,))
     for pi in range(n_per):
         for mi in range(m_per):
-            yield "m_seg", (pi, mi), L.layer_slice(params["mlstm_seg"],
-                                                   pi, mi)
-        yield "s_seg", (pi,), L.layer_slice(params["slstm"], pi)
+            yield "m_seg", (pi, mi), L.layer_slice(seg, pi, mi)
+        yield "s_seg", (pi,), L.layer_slice(slstm, pi)
     for ti in range(trailing):
-        yield "m_tail", (ti,), L.layer_slice(params["mlstm_tail"], ti)
+        yield "m_tail", (ti,), L.layer_slice(tail, ti)
 
 
 def _run(params, x, cfg, cache, decode):

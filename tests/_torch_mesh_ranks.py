@@ -138,15 +138,18 @@ def tiny_cfg(sigma=0.0):
         **kw)
 
 
-def session_spec_dict():
-    """A spec whose engine carries a (WORLD, 1) mesh, as JSON data: it
-    decodes to that mesh on WORLD ranks and to (1, 1) in one process."""
+def session_spec_dict(shape=(WORLD, 1)):
+    """A spec whose engine carries a ``shape`` (data, model) mesh (None: no
+    mesh), as JSON data: it decodes to that mesh on the ranks it spans
+    and to (1, 1) in one process."""
     from repro_torch.api import ExperimentSpec, RunBudget
     from repro_torch.engine import EngineConfig
     d = ExperimentSpec(
         testbed=tiny_cfg(1.0), run=RunBudget(max_updates=8, eval_every=4),
         engine=EngineConfig(staleness_window=1e9, max_cohort=4)).to_dict()
-    d["engine"]["mesh"] = {"__mesh__": {"data": WORLD, "model": 1}}
+    if shape is not None:
+        d["engine"]["mesh"] = {"__mesh__": dict(zip(("data", "model"),
+                                                    shape))}
     return d
 
 
@@ -186,22 +189,19 @@ def _mesh_again(mesh):
             and CohortSharding(again) == CohortSharding(mesh))
 
 
-def _model_axis_mesh():
-    """A (1, WORLD) mesh on the ranks: runnable for the production round
-    of the dense and hybrid families, refused for the cohort engine; one
-    tensor-parallel sum and gather over its model group."""
+def _model_axis_mesh(init):
+    """A (1, WORLD) mesh on the ranks: runnable (the production round of
+    any family, tests/test_torch_model_axis*.py) and for the cohort engine, which
+    runs the ``async_window`` case on it (its members replicated over the
+    model axis); one tensor-parallel sum and gather over its model
+    group."""
     import torch.distributed as dist
     from repro_torch.launch import collectives as coll
     from repro_torch.launch.mesh import make_host_mesh, require_runnable
     m = make_host_mesh(data=1, model=WORLD)
-    try:
-        require_runnable(m)
-        engine = "accepted"
-    except ValueError as e:
-        engine = str(e)
+    engine = summary(*run_case("async_window", init, m)[1:])
     g, r = m.model_group, m.model_rank
-    return {"runnable": [require_runnable(m, family=f) is m
-                         for f in ("dense", "hybrid")],
+    return {"runnable": require_runnable(m) is m,
             "coords": (m.rank, r),
             "sizes": (dist.get_world_size(m.group), dist.get_world_size(g)),
             "reduced": coll.tp_reduce(torch.tensor([1.0 + r]), g).tolist(),
@@ -239,7 +239,7 @@ def engine_ranks(rank, out, init):
                                  resume_from=str(ck))[1:])
 
     res["resume"] = _guard(crash_resume)
-    res["model_axis"] = _guard(_model_axis_mesh)
+    res["model_axis"] = _guard(lambda: _model_axis_mesh(init))
     res["partition"] = _guard(lambda: _partition_proof(mesh))
 
     def session():
@@ -258,19 +258,27 @@ def engine_ranks(rank, out, init):
 SEQ, G, N_MICRO, PER_MICRO = 16, 2, 2, 1
 
 
-def setup_arch(arch):
+def setup_arch(arch, overrides=None):
     """``tests/test_torch_train_zoo.py``'s port half of ``setup_arch``
-    (f32): the reduced config, the seeded params and the batch."""
+    (f32): the reduced config (with ``overrides``), the seeded params and
+    the batch (with the audio frames or the VLM patches)."""
     from repro_torch.configs import get_config
     from repro_torch.models.base import get_family
     cfg = get_config(arch).reduced().replace(param_dtype="float32",
-                                             ssm_chunk=SEQ)
+                                             ssm_chunk=SEQ,
+                                             **(overrides or {}))
     params = get_family(cfg.family).init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(1)
     b = G * N_MICRO * PER_MICRO
     toks = rng.integers(0, cfg.vocab, size=(b, SEQ + 1)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(toks[:, :SEQ]),
              "labels": torch.from_numpy(toks[:, 1:])}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_frames, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_patches, cfg.d_model)).astype(np.float32))
     return cfg, params, batch
 
 
@@ -341,7 +349,7 @@ def spmd_ranks(rank, out, rounds, noise):
 # ---------------------------------------------------------------------------
 
 def rounds_on(mesh, arch, granularity, server_opt, server_lr, noise,
-              n_rounds=2, sigma=0.5, start=None):
+              n_rounds=2, sigma=0.5, start=None, overrides=None):
     """``n_rounds`` rounds of the reduced ``arch`` on ``mesh`` (None: one
     process), each with the injected ``noise``, from the seeded params or
     the whole leaves ``start`` (numpy); on a model axis the layers' mesh
@@ -358,19 +366,18 @@ def rounds_on(mesh, arch, granularity, server_opt, server_lr, noise,
     from repro_torch.models.base import get_family
     from repro_torch.pytree import tree_global_norm, tree_map
     from repro_torch.pytree import tree_unflatten_like
-    cfg, params, batch = setup_arch(arch)
+    cfg, params, batch = setup_arch(arch, overrides)
     if start is not None:
         params = tree_unflatten_like(params,
                                      [torch.from_numpy(a) for a in start])
     fam = get_family(cfg.family)
     fl = fl_config(granularity, server_opt, server_lr, sigma)
-    client_sh = master_sh = family = None
+    client_sh = master_sh = None
     if mesh is not None:
         stacked = tree_map(lambda l: torch.empty(
             (G,) + tuple(l.shape), device="meta"), params)
         client_sh = tree_shardings(stacked, cfg, mesh, role="client")
         master_sh = tree_shardings(params, cfg, mesh, role="master")
-        family = cfg.family
         L.set_mesh_context(mesh, cfg=cfg)
     heads = []
     plain = ssd_ops.ssd_intra_chunk_ref
@@ -384,7 +391,7 @@ def rounds_on(mesh, arch, granularity, server_opt, server_lr, noise,
         local = shard_master(params, master_sh)
         step = make_fl_train_step(lambda p, b: fam.loss(p, b, cfg), fl,
                                   client_shardings=client_sh,
-                                  master_shardings=master_sh, family=family)
+                                  master_shardings=master_sh)
         opt = make_server_optimizer(fl).init(local)
         rounds = []
         for _ in range(n_rounds):
@@ -550,8 +557,7 @@ def model_axis_ranks(rank, out, data, rounds, noise):
     from repro_torch.launch.mesh import make_host_mesh, require_runnable
     mesh = make_host_mesh(data=data, model=dist.get_world_size() // data)
     res = {"mesh": mesh.shape, "coords": (mesh.rank, mesh.model_rank),
-           "runnable": _guard(lambda: [require_runnable(
-               mesh, family=f) is mesh for f in ("dense", "hybrid")])}
+           "runnable": _guard(lambda: require_runnable(mesh) is mesh)}
     res["layers"] = _guard(lambda: layer_cases(mesh))
     coll.reset_stats()
     for name, (arch, gran, opt, lr, sigma) in rounds.items():
@@ -559,4 +565,289 @@ def model_axis_ranks(rank, out, data, rounds, noise):
                            n=name: rounds_on(mesh, a, gr, o, l, noise[n],
                                              sigma=sg))
     res["collectives"] = coll.stats()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the rest of the model axis (tests/test_torch_model_axis_zoo.py)
+# ---------------------------------------------------------------------------
+
+
+def session_spec_on(shape):
+    """``session_spec_dict(shape)`` decoded on this rank."""
+    from repro_torch.api import ExperimentSpec
+    return ExperimentSpec.from_dict(session_spec_dict(shape))
+
+
+def engine_on_meshes(out, shapes, resume_shape=None):
+    """``Session.run`` of the spec on each mesh shape of ``shapes`` (None:
+    no mesh): the final params and RunLog, the decoded mesh, this rank's
+    coordinates and its ``dp_clip`` launches; with ``resume_shape``, the
+    same run on that mesh crashed after its first snapshot (every 4
+    updates) and resumed, counting the snapshot files each rank wrote."""
+    from repro_torch.api import Session
+    from repro_torch.engine import resilience
+    from repro_torch.engine.resilience import SimulatedCrash
+    from repro_torch.kernels.dp_clip import dp_clip
+    sess = Session("cpu")
+    res = {}
+    for shape in shapes:
+        spec = session_spec_on(shape)
+        dp_clip.reset_launches()
+        params, log = sess.run(spec)
+        mesh = spec.engine.mesh
+        res[shape] = dict(
+            summary(params, log, []),
+            mesh=None if mesh is None else mesh.shape,
+            coords=None if mesh is None else (mesh.rank, mesh.model_rank),
+            launches=(dp_clip.sqnorm_launches, dp_clip.scale_mean_launches))
+    if resume_shape is not None:
+        writes = []
+        save = resilience._ckpt.save
+
+        def counted(*a, **k):
+            writes.append(a[1])
+            return save(*a, **k)
+
+        resilience._ckpt.save = counted
+        ck = str(out / "ckpt")
+        try:
+            try:
+                sess.run(session_spec_on(resume_shape), checkpoint_every=4,
+                         checkpoint_dir=ck, crash_after_saves=1)
+            except SimulatedCrash:
+                pass
+            else:
+                raise AssertionError("no SimulatedCrash")
+            params, log = sess.run(session_spec_on(resume_shape),
+                                   resume_from=ck)
+        finally:
+            resilience._ckpt.save = save
+        res["resume"] = dict(summary(params, log, []), writes=writes)
+    return res
+
+
+def _stacked_cut(mesh, cfg, stacked, lead):
+    """A function cutting one layer of a stacked leaf (``lead`` stacking
+    dims; 0: an unstacked leaf) as the leaf rule cuts the stacked leaf in
+    a client's (1, ...) stack."""
+    from repro_torch.launch.shardings import NamedSharding, block, leaf_spec
+    spec = leaf_spec((1,) + tuple(stacked.shape), cfg, mesh,
+                     "client")[1 + lead:]
+    return lambda t: block(t, NamedSharding(mesh, spec), 0, mesh.model_rank)
+
+
+def _named(tree):
+    """The leaves of ``tree`` named by their flat index (sorted names keep
+    the flat order)."""
+    from repro_torch.pytree import tree_leaves
+    return {f"{j:03d}": l for j, l in enumerate(tree_leaves(tree))}
+
+
+def _tree(template, named):
+    from repro_torch.pytree import tree_unflatten_like
+    return tree_unflatten_like(template, [named[k] for k in sorted(named)])
+
+
+def _layer_cuts(mesh, cfg, stack, lead):
+    """Layer 0 of a stacked tree, named, and each leaf's cut."""
+    from repro_torch.pytree import tree_map
+    idx = (0,) * lead
+    layer = tree_map(lambda v: v[idx].clone(), stack)
+    cuts = {k: _stacked_cut(mesh, cfg, v, lead)
+            for k, v in _named(stack).items()}
+    return layer, _named(layer), cuts
+
+
+def blocks_vs_whole(mesh, cfg, fn, params, cuts, inputs, seed=7):
+    """``fn(params, *inputs)`` (a replicated tensor, or a tuple whose
+    first entry is one) on this rank's blocks of ``params`` (``cuts``:
+    per leaf name, a function cutting the whole leaf) under the mesh
+    context, against ``fn`` on the whole params with none: the largest
+    difference of the outputs, and of the gradients of
+    ``sum(out * w)`` (w random) with respect to the params (whole ones
+    on this rank's block) and the float inputs, each relative to its
+    largest entry.  Returns ``(value, grad, whole outputs, block
+    outputs)``."""
+    from repro_torch.models import layers as L
+    names = sorted(params)
+
+    def first(o):
+        return o[0] if isinstance(o, tuple) else o
+
+    def run(leaves, ctx):
+        ins = [t.clone().requires_grad_() if t.is_floating_point() else t
+               for t in inputs]
+        ps = [t.clone().requires_grad_() for t in leaves]
+        live = ps + [t for t in ins if t.requires_grad]
+        if ctx:
+            L.set_mesh_context(mesh, cfg=cfg)
+        try:
+            outs = fn(dict(zip(names, ps)), *ins)
+            w = torch.randn(first(outs).shape,
+                            generator=torch.Generator().manual_seed(seed))
+            grads = torch.autograd.grad((first(outs).float() * w).sum(),
+                                        live, allow_unused=True)
+        finally:
+            L.clear_mesh_context()
+        return outs, [torch.zeros_like(p) if g is None else g
+                      for p, g in zip(live, grads)]
+
+    whole_out, whole_g = run([params[k] for k in names], False)
+    got_out, got_g = run([cuts[k](params[k]) for k in names], True)
+    n = len(names)
+    want = [cuts[k](g) for k, g in zip(names, whole_g[:n])] + whole_g[n:]
+    a, b = first(got_out).detach().float(), first(whole_out).detach().float()
+    value = float((a - b).abs().max() / b.abs().max())
+    grad = max(float((x - y).abs().max() / max(float(y.abs().max()), 1e-30))
+               for x, y in zip(got_g, want))
+    return value, grad, whole_out, got_out
+
+
+def zoo_layer_cases(mesh):
+    """The new block functions on this rank's blocks against the whole
+    ones (:func:`blocks_vs_whole`): MoE routing (and its decisions
+    equal), ``moe_mlp`` with w_down cut on d_model (olmoe) and on
+    d_expert rows with a cut shared expert (qwen2-moe's full-width
+    placement, d_expert 128), the d_model-column-cut embedding and loss,
+    the mLSTM block, the sLSTM scan with its R* cut, and the VLM loss
+    over text positions with the norms cut on the layer dim."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, vlm, xlstm
+    out = {}
+    gen = torch.Generator().manual_seed(11)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def shapes(named, cuts):
+        return {k: tuple(cuts[k](v).shape) for k, v in named.items()}
+
+    cfg, params, _ = setup_arch("olmoe-1b-7b")
+    router = params["blocks"]["moe"]["router"]
+    cut = {"r": _stacked_cut(mesh, cfg, router, 1)}
+    value, grad, whole_o, got_o = blocks_vs_whole(
+        mesh, cfg, lambda p, x: (lambda r: (r[0] + r[5], r))(
+            moe.route(x, p["r"], cfg)),
+        {"r": router[0].clone()}, cut, [rand(2, 12, cfg.d_model)])
+    out["route"] = (value, grad)
+    out["route_decisions"] = all(torch.equal(whole_o[1][i], got_o[1][i])
+                                 for i in (1, 2, 3))
+    out["route_cut"] = tuple(cut["r"](router[0]).shape)
+
+    for name, arch, ov in (("moe_mlp", "olmoe-1b-7b", None),
+                           ("moe_mlp_rows", "qwen2-moe-a2.7b",
+                            {"d_expert": 128})):
+        cfg, params, _ = setup_arch(arch, ov)
+        layer, named, cuts = _layer_cuts(mesh, cfg, params["blocks"]["moe"],
+                                         1)
+        out[name] = blocks_vs_whole(
+            mesh, cfg, lambda p, x, c=cfg, t=layer: moe.moe_mlp(
+                x, _tree(t, p), c), named, cuts,
+            [rand(2, 8, cfg.d_model)])[:2]
+        out[name + "_shapes"] = shapes(named, cuts)
+
+    cfg, params, _ = setup_arch("olmoe-1b-7b")
+    tokens = torch.randint(0, cfg.vocab, (2, 8), generator=gen)
+    cut = {"t": _stacked_cut(mesh, cfg, params["embedding"], 0)}
+    h = rand(2, 8, cfg.d_model)
+    out["embed_cols"] = blocks_vs_whole(
+        mesh, cfg, lambda p, x: L.embed(tokens, p["t"]) * x,
+        {"t": params["embedding"]}, cut, [h])[:2]
+    out["loss_cols"] = blocks_vs_whole(
+        mesh, cfg, lambda p, x: L.chunked_lm_loss(x, tokens, p["t"],
+                                                  loss_chunk=4)[None],
+        {"t": params["lm_head"]}, cut, [h])[:2]
+    out["table_cut"] = tuple(cut["t"](params["embedding"]).shape)
+
+    cfg, params, _ = setup_arch("xlstm-350m")
+    for name, key, lead, fn in (
+            ("mlstm", "mlstm_seg", 2,
+             lambda p, x, c, t: xlstm.mlstm_block(x, _tree(t, p), c)[0]),
+            ("slstm", "slstm", 1,
+             lambda p, x, c, t: xlstm.slstm_scan(x, _tree(t, p), c)[0])):
+        stack = {k: v for k, v in params[key].items() if k != "ffn"}
+        layer, named, cuts = _layer_cuts(mesh, cfg, stack, lead)
+        out[name] = blocks_vs_whole(
+            mesh, cfg, lambda p, x, f=fn, c=cfg, t=layer: f(p, x, c, t),
+            named, cuts, [rand(2, SEQ, cfg.d_model)])[:2]
+        out[name + "_shapes"] = shapes(named, cuts)
+
+    cfg, params, batch = setup_arch("phi-3-vision-4.2b", PHI3_QUIRK)
+    named = _named(params)
+    cuts = {k: _stacked_cut(mesh, cfg, v, 0) for k, v in named.items()}
+    one = {k: v[:1] for k, v in batch.items()}
+    out["vlm_loss"] = blocks_vs_whole(
+        mesh, cfg, lambda p: vlm.loss(_tree(params, p), one, cfg,
+                                      loss_chunk=8)[None],
+        named, cuts, [])[:2]
+    out["vlm_shapes"] = shapes(named, cuts)
+    return out
+
+
+def _strided_sum(mesh):
+    """The model group's sum of a strided tensor (a column slice, as the
+    gradient of a chunk's view arrives in ``tp_copy``'s backward): its
+    values, and whether the result is contiguous."""
+    from repro_torch.launch import collectives as coll
+    x = torch.arange(12.0).reshape(3, 4)[:, 1:3] * (mesh.model_rank + 1)
+    got = coll.all_reduce_sum(x, mesh.model_group)
+    return {"sum": got.tolist(), "contiguous": got.is_contiguous()}
+
+
+# phi-3-vision's full-width quirk at a reduced size: n_layers == n_heads,
+# so the leaf rule cuts the stacked norms on the layer dim
+PHI3_QUIRK = {"n_heads": 2, "n_kv_heads": 2, "d_head": 128}
+
+
+# ``launch/train.py spmd`` for every zoo config at a small size
+LAUNCH_REDUCE = ("d_model=64,n_layers=2,vocab=256,n_heads=4,n_kv_heads=4,"
+                 "d_ff=128,n_experts=4,top_k=2,d_expert=64,enc_frames=16,"
+                 "n_patches=8,ssm_chunk=16")
+
+
+def launch_args(arch, devices=1):
+    from repro_torch.launch import train
+    return train.build_parser().parse_args([
+        "spmd", "--device", "cpu", "--arch", arch, "--steps", "2",
+        "--log-every", "2", "--seq", "16", "--data-axis", "2",
+        "--n-micro", "2", "--per-micro", "1", "--devices", str(devices),
+        "--reduce", LAUNCH_REDUCE])
+
+
+def launcher_runs(mesh):
+    """The launcher's rounds (``train._run_spmd``, what ``spmd --devices N
+    --data-axis 2`` runs on each rank) of every zoo config on ``mesh``:
+    the whole final master of each."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import train
+    return {arch: leaves_np(train._run_spmd(
+        launch_args(arch, mesh.size), mesh, "cpu", None))
+            for arch in ARCH_IDS}
+
+
+def model_axis_zoo_ranks(rank, out, data, rounds, noise, engine_shapes,
+                         resume_shape=None, launcher=False):
+    """Every case of tests/test_torch_model_axis_zoo.py on this rank, on a
+    ``data`` x ``WORLD / data`` mesh: ``rounds`` is ``{name: (arch,
+    overrides)}``, each two per-microbatch SGD rounds at ``server_lr=1``
+    with ``noise[name]`` injected; then the cohort engine's
+    ``Session.run`` on ``engine_shapes`` (:func:`engine_on_meshes`)."""
+    import torch.distributed as dist
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.mesh import make_host_mesh, require_runnable
+    mesh = make_host_mesh(data=data, model=dist.get_world_size() // data)
+    res = {"mesh": mesh.shape, "coords": (mesh.rank, mesh.model_rank),
+           "runnable": _guard(lambda: require_runnable(mesh) is mesh)}
+    res["layers"] = _guard(lambda: zoo_layer_cases(mesh))
+    for name, (arch, ov) in rounds.items():
+        coll.reset_stats()
+        res[name] = _guard(lambda a=arch, o=ov, n=name: rounds_on(
+            mesh, a, "per_microbatch", "sgd", 1.0, noise[n], overrides=o))
+        res[name + ":collectives"] = coll.stats()
+    res["engine"] = _guard(lambda: engine_on_meshes(out, engine_shapes,
+                                                    resume_shape))
+    res["strided"] = _guard(lambda: _strided_sum(mesh))
+    if launcher:
+        res["launcher"] = _guard(lambda: launcher_runs(mesh))
     return res

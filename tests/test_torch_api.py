@@ -109,8 +109,10 @@ def test_default_engine_config_still_round_trips(name):
     ("mesh", {"__mesh__": {"data": 1, "model": 2}}, 19)])
 def test_unported_engine_features_raise_at_decode(field, value, item):
     """A spec mesh decodes (clamped to the process group, as the
-    reference clamps it to its devices); one whose model axis is above 1
-    raises when the run starts, naming its ROADMAP.md item."""
+    reference clamps it to its devices).  A model axis above 1 runs
+    (``tests/test_torch_model_axis_zoo.py`` runs ``Session.run`` on (1, 2)
+    and (2, 2) gloo meshes); a mesh over ranks that the process group
+    does not have raises when the run starts."""
     from repro_torch.launch.mesh import HostMesh
     d = _ref_json(ref_spec.ExperimentSpec())
     d["engine"][field] = value
@@ -118,7 +120,7 @@ def test_unported_engine_features_raise_at_decode(field, value, item):
     assert spec.engine.mesh.shape == {"data": 1, "model": 1}
     spec = dataclasses.replace(spec, engine=dataclasses.replace(
         spec.engine, mesh=HostMesh(1, 2, world=1)))
-    with pytest.raises(ValueError, match=rf"ROADMAP\.md queue 1 item {item}"):
+    with pytest.raises(ValueError, match="spans 2 of the process group's 1"):
         Session(device="cpu").run(spec)
 
 

@@ -334,10 +334,11 @@ def test_client_axis_validated_in_one_place():
 
 
 def test_only_the_mesh_still_names_item_14():
-    """Every executor and a mesh are accepted; what is left refused is
-    a model axis above 1 (item 19), in the config and the loop's
-    ``mesh=``.  A mesh over no process group (W = 1) runs every executor
-    bit for bit as without one."""
+    """Every executor and a mesh are accepted, a model axis above 1 too
+    (``tests/test_torch_model_axis_zoo.py`` runs one on gloo ranks): the
+    loop's ``mesh=`` refuses only a mesh over ranks the process group
+    does not have.  A mesh over no process group (W = 1) runs every
+    executor bit for bit as without one."""
     from repro_torch.launch.mesh import HostMesh, make_host_mesh
     for axis in ("map", "vmap", "fl_step"):
         assert EngineConfig(client_axis=axis).client_axis == axis
@@ -345,7 +346,7 @@ def test_only_the_mesh_still_names_item_14():
         EngineConfig(), fl_cfg=FLStepConfig(num_clients=4)).fl_cfg
     assert EngineConfig(mesh=make_host_mesh()).mesh == make_host_mesh()
     clients, params, acc_fn, pooled = build_testbed(_cfg(0.0), device="cpu")
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 19"):
+    with pytest.raises(ValueError, match="spans 2 of the process group's 1"):
         run_async_engine(clients, params, acc_fn, pooled, FedAsync(),
                          max_updates=1, mesh=HostMesh(1, 2, world=1))
     cfg = _cfg(1.0)

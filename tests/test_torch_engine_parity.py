@@ -179,15 +179,16 @@ def test_each_runner_builds_one_step():
 
 @pytest.mark.parametrize("bad", [dict(mesh_model=2)], ids=["mesh"])
 def test_unported_engine_features_raise_naming_the_roadmap(bad):
-    """``EngineConfig`` takes a mesh; the runner refuses a model axis
-    above 1, naming its ROADMAP.md item."""
+    """``EngineConfig`` takes a mesh, and the runner a model axis above 1
+    (``tests/test_torch_model_axis_zoo.py`` runs one on gloo ranks); a
+    mesh over ranks that the process group does not have raises."""
     from repro_torch.engine.engine import CohortRunner
     from repro_torch.launch.mesh import HostMesh
     mesh = HostMesh(1, bad["mesh_model"], world=1)
     cfg = EngineConfig(mesh=mesh)
     assert cfg.mesh is mesh
     clients, _, _, _ = build_testbed(_cfg(0.0), device="cpu")
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 19"):
+    with pytest.raises(ValueError, match="spans 2 of the process group's 1"):
         CohortRunner(clients, cfg, "cpu")
 
 
@@ -270,8 +271,9 @@ def test_strategies_and_testbed_features_of_later_slices_raise(tmp_path):
     """The strategies, the legacy loop, the testbed features and
     checkpoint/resume build; a spec mesh decodes to the port's host mesh,
     a mesh in the frontends runs (on one process with no group, W = 1,
-    bit for bit the no-mesh run), and a model axis above 1 raises, naming
-    its ROADMAP.md item."""
+    bit for bit the no-mesh run), and so does a model axis above 1
+    (``tests/test_torch_model_axis_zoo.py`` on gloo ranks): here, with no
+    ranks, it raises for the ranks it lacks."""
     from repro_torch.api import ExperimentSpec, RunBudget, Session
     from repro_torch.api.spec import decode
     from repro_torch.core.aggregation import STRATEGY_NAMES, make_strategy
@@ -291,7 +293,6 @@ def test_strategies_and_testbed_features_of_later_slices_raise(tmp_path):
         _, log = run_experiment("fedasync", cfg, max_updates=3, eval_every=3,
                                 engine=engine, device="cpu")
         assert sum(log.update_counts.values()) == 3 and log.fault_events
-    roadmap = r"ROADMAP\.md queue 1 item"
     spec = ExperimentSpec(testbed=_cfg(0.0),
                           run=RunBudget(max_updates=2, eval_every=2))
     _, log_ck = Session(device="cpu").run(
@@ -310,6 +311,6 @@ def test_strategies_and_testbed_features_of_later_slices_raise(tmp_path):
     assert log_m.times == log_n.times
     for a, b in zip(tree_leaves(p_m), tree_leaves(p_n)):
         assert torch.equal(a, b)
-    with pytest.raises(ValueError, match=roadmap + " 19"):
+    with pytest.raises(ValueError, match="spans 2 of the process group's 1"):
         run_experiment("fedasync", _cfg(0.0), mesh=HostMesh(1, 2, world=1),
                        **kw)

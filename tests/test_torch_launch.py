@@ -83,11 +83,12 @@ def test_spmd_more_devices_is_the_distributed_half(tmp_path, capfd):
     """``--devices`` above ``--data-axis`` is a model axis: ``--devices 2
     --data-axis 1`` spawns two gloo ranks that train one client's model
     tensor-parallel, and its checkpoint (the master gathered whole) equals
-    the one-process run's within 1e-5.  A model axis for a family the
-    port does not carry on one raises before any rank starts, naming
-    ROADMAP.md queue 1 item 19, as does a ``--devices`` that ``--data-axis``
-    does not divide (``tests/test_torch_spmd.py`` runs ``--devices 2
-    --data-axis 2``)."""
+    the one-process run's within 1e-5.  The MoE family runs on the JAX
+    launcher's mesh shape, 2 clients x a model axis of 2 (olmoe at a size
+    where ``2 * d_ff == d_model``, as at full width), and equals its
+    one-process run within 1e-5 too.  A ``--devices`` that ``--data-axis``
+    does not divide raises before any rank starts
+    (``tests/test_torch_spmd.py`` runs ``--devices 2 --data-axis 2``)."""
     one_client = [a if a != "2" or SPMD[i - 1] != "--data-axis" else "1"
                   for i, a in enumerate(SPMD)]
     assert train.main(one_client + ["--devices", "2",
@@ -108,10 +109,24 @@ def test_spmd_more_devices_is_the_distributed_half(tmp_path, capfd):
     for k in one:
         np.testing.assert_allclose(tp[k], one[k], rtol=0, atol=1e-5)
     assert meta_tp["loss"] == pytest.approx(meta_one["loss"], abs=1e-5)
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 19") as e:
-        train.run_spmd(train.build_parser().parse_args(
-            SPMD + ["--arch", "olmoe-1b-7b", "--devices", "4"]))
-    assert "'moe' family" in str(e.value)
+    moe = SPMD[:-1] + ["d_model=64,n_layers=2,vocab=256,n_heads=4,"
+                       "n_kv_heads=4,d_ff=32,n_experts=8,top_k=2,"
+                       "d_expert=32", "--arch", "olmoe-1b-7b"]
+    capfd.readouterr()
+    assert train.main(moe + ["--devices", "4",
+                             "--ckpt-dir", str(tmp_path / "moe_tp")]) == 0
+    assert _lines(capfd.readouterr().out)[0].startswith(
+        "[train:spmd] mesh {'data': 2, 'model': 2} over 4 ranks")
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        train.main(moe + ["--ckpt-dir", str(tmp_path / "moe_one")])
+    finally:
+        torch.set_num_threads(1)
+    tp, _ = ckpt.load_flat(str(tmp_path / "moe_tp"))
+    one, _ = ckpt.load_flat(str(tmp_path / "moe_one"))
+    assert sorted(tp) == sorted(one) and len(one) > 5
+    for k in one:
+        np.testing.assert_allclose(tp[k], one[k], rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="not a multiple of --data-axis 2"):
         train.run_spmd(train.build_parser().parse_args(
             SPMD + ["--devices", "3"]))

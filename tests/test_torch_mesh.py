@@ -239,8 +239,9 @@ def test_make_host_mesh_clamps_on_a_six_rank_group(six_rank_group):
     assert t_mb.cohort_mesh(max_cohort=4).shape == {"data": 3, "model": 1}
     with pytest.raises(ValueError, match="spans 3 of the process group's 6"):
         t_mesh.require_runnable(t_mesh.make_host_mesh(data=4))
-    with pytest.raises(ValueError, match=ROADMAP_19):
-        t_mesh.require_runnable(t_mesh.make_host_mesh(data=2, model=3))
+    # a model axis runs (the cohort engine and every family's round)
+    m = t_mesh.make_host_mesh(data=2, model=3)
+    assert t_mesh.require_runnable(m) is m
 
 
 def test_make_host_mesh_without_a_group_is_one_by_one():
@@ -255,7 +256,8 @@ def test_make_host_mesh_without_a_group_is_one_by_one():
 
 
 # ---------------------------------------------------------------------------
-# ROADMAP.md queue 1 item 19: the model axis
+# ROADMAP.md queue 1 item 19: the model axis (only its third part,
+# serving on a mesh, still raises)
 # ---------------------------------------------------------------------------
 
 def test_the_model_axis_raises_naming_item_19():
@@ -271,17 +273,12 @@ def test_the_model_axis_raises_naming_item_19():
         dryrun.main([])
     with pytest.raises(ValueError, match=ROADMAP_19):
         dryrun.run_one("gemma2-2b", "train_4k", "single")
-    with pytest.raises(ValueError, match=ROADMAP_19):
+    # a model axis passes, and then wants the mesh's ranks
+    # (test_torch_model_axis, test_torch_model_axis_zoo run on them)
+    with pytest.raises(ValueError,
+                       match="spans 2 of the process group's 1") as e:
         t_mesh.require_runnable(t_mesh.HostMesh(1, 2, world=2))
-    with pytest.raises(ValueError, match=ROADMAP_19) as e:
-        t_mesh.require_runnable(t_mesh.HostMesh(1, 2, world=2),
-                                family="moe")
-    assert "'moe' family" in str(e.value)
-    # the production round of the dense and hybrid families passes the
-    # model axis (and then wants the mesh's ranks: test_torch_model_axis)
-    with pytest.raises(ValueError, match="spans 2 of the process group's 1"):
-        t_mesh.require_runnable(t_mesh.HostMesh(1, 2, world=2),
-                                family="hybrid")
+    assert not re.search(ROADMAP_19, str(e.value))
     sh = t_sh.NamedSharding(t_mesh.HostMesh.abstract(1, 2), ("model", None))
     assert t_sh.data_dim(sh) is None and t_sh.model_dim(sh) == 0
     one = t_sh.NamedSharding(t_mesh.HostMesh.abstract(2, 1),
@@ -340,18 +337,22 @@ def _max_diff(a, b):
     return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
 
 
-def test_a_model_axis_runs_for_the_production_families(ranks):
-    """On the two ranks a (1, 2) mesh is runnable for the dense and hybrid
-    production rounds: rank r is model coordinate r of one model group,
-    whose tensor-parallel collectives sum and gather over both ranks; the
-    cohort engine still refuses it (item 19)."""
+def test_a_model_axis_runs_for_the_production_families(ranks, ref_runs):
+    """On the two ranks a (1, 2) mesh is runnable: rank r is model coordinate r of one model group,
+    whose tensor-parallel collectives sum and gather over both ranks.
+    The cohort engine runs on it too, its members replicated over the
+    model axis: on each rank bit for bit the one-process run (a data axis
+    of 1)."""
+    one = _one_process(ref_runs, "async_window")
     for r in range(M.WORLD):
         res = _result(ranks, "model_axis", r)
-        assert res["runnable"] == [True, True]
+        assert res["runnable"] is True
         assert res["coords"] == (0, r) and res["sizes"] == (1, 2)
         assert res["reduced"] == [3.0]
         assert res["gathered"] == [[0.0, 1.0]]
-        assert re.search(ROADMAP_19, res["engine"])
+        _same_logs(res["engine"]["log"], one["log"], mesh_vs_one=True)
+        for a, b in zip(res["engine"]["params"], one["params"]):
+            assert np.array_equal(a, b)
 
 
 def test_ranks_ran_on_a_two_rank_mesh(ranks):

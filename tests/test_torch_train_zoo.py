@@ -50,11 +50,11 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
-def setup_arch(arch, dtype="float32"):
-    """The reduced config in both packages at ``dtype``, the port's seeded
-    f32 params in both, and one global batch of G x N_MICRO x PER_MICRO
-    sequences."""
-    kw = dict(param_dtype=dtype, ssm_chunk=SEQ)
+def setup_arch(arch, dtype="float32", overrides=None):
+    """The reduced config (with ``overrides``) in both packages at
+    ``dtype``, the port's seeded f32 params in both, and one global batch
+    of G x N_MICRO x PER_MICRO sequences."""
+    kw = dict(param_dtype=dtype, ssm_chunk=SEQ, **(overrides or {}))
     r_cfg = r_get_config(arch).reduced().replace(**kw)
     t_cfg = t_get_config(arch).reduced().replace(**kw)
     t_params = t_get_family(t_cfg.family).init_params(
@@ -71,9 +71,13 @@ def setup_arch(arch, dtype="float32"):
     if r_cfg.family == "vlm":
         arrays["patches"] = rng.standard_normal(
             (b, r_cfg.n_patches, r_cfg.d_model)).astype(np.float32)
+    # the stub inputs in the compute dtype, as the launcher feeds them
+    stub = [k for k in arrays if k in ("frames", "patches")]
     return (r_cfg, t_cfg, r_params, t_params,
-            {k: jnp.asarray(v) for k, v in arrays.items()},
-            {k: torch.from_numpy(v) for k, v in arrays.items()})
+            {k: jnp.asarray(v, dtype if k in stub else None)
+             for k, v in arrays.items()},
+            {k: torch.from_numpy(v).to(getattr(torch, dtype)) if k in stub
+             else torch.from_numpy(v) for k, v in arrays.items()})
 
 
 def reference_noise(key, n_clients, n_local, params):
@@ -95,12 +99,14 @@ def reference_noise(key, n_clients, n_local, params):
     return source
 
 
-def run_both(arch, granularity, server_opt, server_lr, dtype="float32"):
+def run_both(arch, granularity, server_opt, server_lr, dtype="float32",
+             overrides=None):
     """One round of each package from the same f32 master, batch and
-    noise, its clients in ``dtype``: ``(reference master, port master,
-    reference metrics, port metrics, initial params)``."""
+    noise, its clients in ``dtype`` (the reduced config with
+    ``overrides``): ``(reference master, port master, reference metrics,
+    port metrics, initial params)``."""
     r_cfg, t_cfg, r_params, t_params, r_batch, t_batch = setup_arch(
-        arch, dtype)
+        arch, dtype, overrides)
     kw = dict(num_clients=G, n_local=1, n_micro=N_MICRO, local_lr=0.05,
               server_lr=server_lr, server_opt=server_opt,
               compute_dtype=dtype)
