@@ -1587,6 +1587,10 @@ ZOO_FLASH_CASES = [(4, 4640, 8, 4, 256, 4096, 50.0, (4200, 4640)),
                    (3, 131, 6, 2, 96, 0, 0.0, (0, 131)),
                    (2, 256, 8, 4, 96, 0, 50.0, (100, 256)),
                    (2, 70, 4, 4, 96, 0, 0.0, (0, 1))]
+# zamba2-1.2b's decode on one rank of a model axis of 2 ([serve-mesh]):
+# 16 of its 32 kv heads and their 16 query heads
+FLASH_HEAD_SHARD = (8, 2112, 16, 16, 64, 0, 0.0, (2048, 2112))
+ZOO_FLASH_CASES.append(FLASH_HEAD_SHARD)
 
 
 def _ssd_inputs(shape, dtype, dev, seed=0):
@@ -1798,11 +1802,13 @@ def phase_times_zoo(dev, smi):
     return out
 
 
-# flash_decode timed at two zoo shapes, pos = S - 1: gemma2-2b's local
+# flash_decode timed at three zoo shapes, pos = S - 1: gemma2-2b's local
 # layer (its 4096 window admits 4096 of 4640 keys; softcap 50, so no
-# library call computes it) and phi-3-vision's Dh = 96
+# library call computes it), phi-3-vision's Dh = 96 and zamba2-1.2b's
+# head shard on a model axis of 2
 ZOO_TIMED = {"gemma2-2b local": (4, 4640, 8, 4, 256, 4096, 50.0),
-             "phi-3-vision-4.2b": (8, 2064, 32, 32, 96, 0, 0.0)}
+             "phi-3-vision-4.2b": (8, 2064, 32, 32, 96, 0, 0.0),
+             "zamba2-1.2b head shard": FLASH_HEAD_SHARD[:5] + (0, 0.0)}
 
 
 def _time_zoo_flash(name, case, dev, smi):
@@ -3440,15 +3446,17 @@ def _full_width_bounds(arch, args, cfg, got, ref, grad, grad_ref):
 
 
 def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
-                     rerun_port, small_port, grad=True):
+                     rerun_port, small_port, grad=True, serve=None):
     """One rank of [mesh-model]: ``run_spmd`` on a data x model mesh through
     ``launch.train.spmd_rank`` (gloo, every rank on cuda:0), recording
     each ssd_intra_chunk launch's head count and holding the first launch
     against the plain version on the same inputs; then, with
     ``rerun_port``, round 0 again in this process; then the f32
     reduced round of the same family on the same mesh shape and the f32
-    gradient of one microbatch at full width (``_full_grad``).  Saves
-    what it measured to ``out/rank<r>.pt``."""
+    gradient of one microbatch at full width (``_full_grad``); with
+    ``serve`` (W = 1's tokens of each ``SERVE_MESH`` entry), [serve-mesh]
+    on the same mesh (``_serve_mesh_ranks``).  Saves what it measured to
+    ``out/rank<r>.pt``."""
     device = _rank_setup(rank, world, port, backend, join=False)
     import torch
     import torch.distributed as dist
@@ -3521,13 +3529,18 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
         torch.cuda.empty_cache()
         if grad:
             res["grad"] = _full_grad(arch, flags, world, data, device, mesh)
+        if serve is not None:
+            _free_card()
+            t0 = time.perf_counter()
+            res["serve"] = _serve_mesh_ranks(mesh, device, serve)
+            res["serve_wall"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     torch.save(res, out / f"rank{rank}.pt")
 
 
 def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
-                     reference=True):
+                     reference=True, serve=False):
     """[mesh-model]: ``launch/train.py spmd --devices N --data-axis G`` with
     a model axis of N / G = 2 at full width (``MESH_MODEL``: full depth,
     or the depth cut the entry's ``DEPTH`` makes, logged), every rank
@@ -3550,8 +3563,10 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
     W = 1 run at full width (for a model whose W = 1 round does not fit
     one card; dense families only), and then all it checks is the ranks'
     equal delta norms, the whole leaves bit-identical across each model
-    group, a finite master and the reduced f32 round.  Returns the ssd_intra_chunk launches of
-    the ranks' main runs."""
+    group, a finite master and the reduced f32 round.  With ``serve``,
+    the zamba2-1.2b entry's ranks also run [serve-mesh] (W = 1's runs in
+    this process first; ``_serve_mesh_check``).  Returns the launches of
+    the ranks' main runs, per kernel."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.collectives import free_port
@@ -3560,7 +3575,7 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
     from repro_torch.models.base import get_family
     from repro_torch.models.mamba2 import n_heads_ssm
     from repro_torch.pytree import tree_leaves
-    launches = 0
+    launches = {"ssd_intra_chunk": 0, "flash_decode": 0}
     out = ROOT / "build" / "mesh_model"
     out.mkdir(parents=True, exist_ok=True)
     for arch, flags, world, data, rerun in configs:
@@ -3583,11 +3598,17 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
         small_ref, small_dn, small_n = _small_tp_round(arch, "cuda")
         grad_ref = (_full_grad(arch, flags, world, data, "cuda")
                     if reference else None)
+        serve_refs = None
+        if serve and arch == "zamba2-1.2b":
+            t0 = time.perf_counter()
+            serve_refs = _serve_mesh_refs()
+            log(f"[serve-mesh] W=1 runs {time.perf_counter() - t0:.1f} s")
         _free_card()
         t0 = time.perf_counter()
         _mesh_spawn(_mesh_model_rank, world, world, backend, arch, flags,
                     data, out, free_port() if rerun else None, free_port(),
-                    reference)
+                    reference, None if serve_refs is None
+                    else [r["tokens"] for r in serve_refs])
         ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
                  for r in range(world)]
         wall = time.perf_counter() - t0
@@ -3629,7 +3650,7 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
                 err, top, shape, ok = res["kernel_err"]
                 require(ok, f"[mesh-model] {arch} rank {r}: ssd_intra_chunk "
                         f"{shape} max |err| {err} vs plain (max {top})")
-                launches += res["total"]
+                launches["ssd_intra_chunk"] += res["total"]
             if rerun:
                 require(res["rerun"]["prints"][0] == res["prints"][0]
                         and res["rerun"]["norms"][0] == res["norms"][0],
@@ -3697,9 +3718,237 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
                 f"{coll_s:.1f} s in collectives (host clock), peak memory "
                 f"{res['peak'] / 2**30:.2f} GiB, collectives (calls, "
                 f"bytes) {calls}")
-        del ranks, ref, grad_ref
+        if serve_refs is not None:
+            launches["flash_decode"] += _serve_mesh_check(
+                smi, serve_refs, ranks, max(r["serve_wall"] for r in ranks))
+            for r, res in enumerate(ranks):
+                launches["ssd_intra_chunk"] += sum(
+                    e["ssd"] for e in res["serve"])
+        del ranks, ref, grad_ref, serve_refs
         _free_card()
     return launches
+
+
+# [serve-mesh]: serving on a model axis of 2 (``launch/serve.py``) in the
+# two gloo ranks of [mesh-model]'s zamba2-1.2b entry (data 1 x model 2,
+# both on the one card), against W = 1 in this process, full width and
+# depth, seeded weights.  (arch, dtype, batch, prompt length, decode
+# steps, held to W = 1's logits): zamba2 in f32 runs ssd_intra_chunk on 32
+# of its 64 SSM heads in the prefill and flash_decode on 16 of its 32 kv
+# heads; smollm-360m's 5 kv heads do not divide 2, so its K/V blocks are
+# cut on head_dim and gathered whole for each step; zamba2 in bf16 at
+# [serve]'s batch gives the numbers (bf16 rounding moves a deep random
+# model far from f32: PERF.md section 6), so only finite logits,
+# launches and cache bytes are required of it
+SERVE_MESH = (("zamba2-1.2b", "float32", 2, 2048, 16, True),
+              ("smollm-360m", "float32", 2, 2048, 16, True),
+              ("zamba2-1.2b", "bfloat16", 8, 2048, 16, False))
+SERVE_MESH_TOL = 1e-3            # [serve-zoo-small]'s bound
+SERVE_MESH_SEED = 5
+
+
+def _attn_applications(cfg):
+    """flash_decode launches per decode step of ``cfg``."""
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import segment_plan
+        return segment_plan(cfg)[0]
+    return _attn_per_step(cfg)
+
+
+def _serve_mesh_one(arch, dtype, B, S, steps, forced=None, mesh=None,
+                    device="cuda"):
+    """A prefill of B x S prompt tokens and ``steps`` decode steps of the
+    full-width ``arch`` in ``dtype``: W = 1 (``mesh`` None) or this rank
+    of ``mesh`` (``launch/serve.py``).  The tokens fed are ``forced``
+    ((B, steps), teacher forcing) or the greedy ones.  The kernels'
+    counters are read just before the prefill and after the last step;
+    the first flash_decode launch is held against the plain version on
+    the same inputs (that call launches nothing).  Returns the logits of
+    every step (CPU, f32), the launches, the heads each kernel saw, the
+    cache's bytes and the wall times."""
+    import contextlib
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attn, ref as fref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import serve
+    from repro_torch.models.base import get_family
+    from repro_torch.pytree import tree_leaves
+    cfg = get_config(arch).replace(param_dtype=dtype)
+    fam = get_family(cfg.family)
+    params = fam.init_params(cfg, 0, device)
+    prompt = _prompts(cfg, B, S, SERVE_MESH_SEED).to(device)
+    if mesh is None:
+        cache = fam.init_cache(cfg, B, S + steps, device)
+        ctx = contextlib.nullcontext()
+    else:
+        params = serve.place_params(params, cfg, mesh)
+        cache = serve.init_cache(cfg, B, S + steps, mesh, device)
+        ctx = serve.context(mesh, cfg, B)
+    seen = {"ssd": set(), "flash": set(), "flash_err": None}
+    ssd_launch, flash_launch = ssd_scan.ssd_intra_chunk, flash_attn.flash_decode
+
+    def ssd(xr, *rest):
+        seen["ssd"].add(int(xr.shape[3]))
+        return ssd_launch(xr, *rest)
+
+    def flash(q, k, v, pos, **kw):
+        out = flash_launch(q, k, v, pos, **kw)
+        seen["flash"].add((int(q.shape[1]), int(k.shape[2]),
+                           int(k.shape[3])))
+        if seen["flash_err"] is None:
+            # [kernels-zoo]'s tolerances
+            want = fref.flash_decode_ref(q, k, v, pos, **kw).float()
+            tol = 1e-5 if q.dtype == torch.float32 else 2e-2
+            seen["flash_err"] = (float((out.float() - want).abs().max()),
+                                 bool(torch.allclose(out.float(), want,
+                                                     rtol=tol, atol=tol)))
+        return out
+
+    ssd_scan.ssd_intra_chunk, flash_attn.flash_decode = ssd, flash
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    coll.reset_stats()
+    n_ssd, n_flash = ssd_scan.launches(), flash_attn.launches()
+    logits, walls = [], []
+    try:
+        with ctx, torch.no_grad():
+            t0 = time.perf_counter()
+            lg, cache = fam.prefill(params, {"tokens": prompt}, cfg, cache)
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            ssd_prefill = ssd_scan.launches() - n_ssd
+            logits.append(lg.float().cpu())
+            for t in range(steps):
+                feed = (lg.argmax(-1) if forced is None
+                        else forced[:, t].to(device))
+                pos = torch.full((B,), S + t, dtype=torch.int32,
+                                 device=device)
+                t0 = time.perf_counter()
+                lg, cache = fam.decode_step(
+                    params, cache, feed[:, None].to(torch.int32), pos, cfg)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                logits.append(lg.float().cpu())
+    finally:
+        ssd_scan.ssd_intra_chunk, flash_attn.flash_decode = (ssd_launch,
+                                                             flash_launch)
+    logits = torch.stack(logits)                    # (steps + 1, B, V)
+    return {"logits": logits, "tokens": logits.argmax(-1),
+            "ssd": ssd_prefill, "flash": flash_attn.launches() - n_flash,
+            "ssd_heads": sorted(seen["ssd"]),
+            "flash_shapes": sorted(seen["flash"]),
+            "flash_err": seen["flash_err"],
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(cache)),
+            "prefill_s": t_prefill, "step_s": walls,
+            "peak": torch.cuda.max_memory_allocated(),
+            "collectives": coll.stats(), "attn": _attn_applications(cfg),
+            "n_layers": cfg.n_layers, "family": cfg.family,
+            "heads": (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)}
+
+
+def _serve_mesh_ranks(mesh, device, forced, entries=SERVE_MESH):
+    """[serve-mesh] on this rank: every ``SERVE_MESH`` entry, teacher-forced
+    with W = 1's greedy tokens ``forced[i]`` ((steps + 1, B): the prefill's
+    and each step's; the last is never fed)."""
+    out = []
+    for (arch, dtype, B, S, steps, _), toks in zip(entries, forced):
+        out.append(_serve_mesh_one(arch, dtype, B, S, steps,
+                                   toks[:-1].t(), mesh, device))
+        _free_card()
+    return out
+
+
+def _serve_mesh_refs(entries=SERVE_MESH):
+    """W = 1 of every entry in this process (greedy)."""
+    refs = []
+    for arch, dtype, B, S, steps, _ in entries:
+        refs.append(_serve_mesh_one(arch, dtype, B, S, steps))
+        _free_card()
+    return refs
+
+
+def _serve_mesh_check(smi, refs, ranks, wall, entries=SERVE_MESH,
+                      where="gloo, one card"):
+    """Hold each rank's [serve-mesh] entries to W = 1; log the numbers.
+    Returns the flash_decode launches of the ranks."""
+    import torch
+    launches = 0
+    for i, (arch, dtype, B, S, steps, checked) in enumerate(entries):
+        ref = refs[i]
+        H, Hkv, Dh = ref["heads"]
+        m = len(ranks)
+        kv_cut = Hkv % m == 0
+        want_flash = ([(H // m, Hkv // m, Dh)] if kv_cut
+                      else [(H, Hkv, Dh)])
+        name = f"[serve-mesh] {arch} {dtype} B={B} S={S} x {steps} steps"
+        for r, res in enumerate(ranks):
+            got = res["serve"][i]
+            d = float((got["logits"] - ref["logits"]).abs().max())
+            require(bool(torch.isfinite(got["logits"]).all()),
+                    f"{name} rank {r}: nonfinite logits")
+            if checked:
+                require(d <= SERVE_MESH_TOL, f"{name} rank {r}: logits "
+                        f"{d:.3e} from W=1 (bound {SERVE_MESH_TOL})")
+                require(torch.equal(got["tokens"], ref["tokens"]),
+                        f"{name} rank {r}: greedy tokens differ from W=1")
+            require(got["cache_bytes"] * m == ref["cache_bytes"],
+                    f"{name} rank {r}: cache {got['cache_bytes']} bytes, "
+                    f"W=1 {ref['cache_bytes']}")
+            require(got["flash"] == got["attn"] * steps == ref["flash"],
+                    f"{name} rank {r}: flash_decode {got['flash']} launches,"
+                    f" W=1 {ref['flash']}, expected {got['attn']} per step")
+            require(got["flash_shapes"] == want_flash,
+                    f"{name} rank {r}: flash_decode (heads, kv heads, "
+                    f"head_dim) {got['flash_shapes']}, expected {want_flash}")
+            require(got["flash_err"][1], f"{name} rank {r}: flash_decode "
+                    f"{got['flash_err'][0]:.3e} from the plain version")
+            hybrid = got["family"] == "hybrid"
+            want_ssd = got["n_layers"] if hybrid else 0
+            require(got["ssd"] == want_ssd == ref["ssd"]
+                    and got["ssd_heads"] == ([ref["ssd_heads"][0] // m]
+                                             if hybrid else []),
+                    f"{name} rank {r}: ssd_intra_chunk {got['ssd']} launches "
+                    f"at {got['ssd_heads']} heads, W=1 {ref['ssd']} at "
+                    f"{ref['ssd_heads']}")
+            launches += got["flash"]
+            st = got["collectives"]
+            log(f"[serve-mesh] {smi}; {arch} {dtype} rank {r} of a model "
+                f"axis of {m} ({where}): B={B} prompt {S}, prefill "
+                f"{got['prefill_s'] * 1e3:.1f} ms (W=1 "
+                f"{ref['prefill_s'] * 1e3:.1f}), decode "
+                f"{sum(got['step_s']) / steps * 1e3:.1f} ms per step (W=1 "
+                f"{sum(ref['step_s']) / steps * 1e3:.1f}), peak "
+                f"{got['peak'] / 2**30:.2f} GiB (W=1 "
+                f"{ref['peak'] / 2**30:.2f}), cache {got['cache_bytes']} "
+                f"bytes = W=1's / {m}; logits {d:.3e} from W=1"
+                f"{'' if checked else ' (not bounded: bf16)'}; tokens "
+                f"{'equal' if torch.equal(got['tokens'], ref['tokens']) else 'differ'}"
+                f"; flash_decode {got['flash']} launches "
+                f"({got['attn']} per step) at (heads, kv heads, Dh) "
+                f"{got['flash_shapes']}, first within "
+                f"{got['flash_err'][0]:.2e} of plain; ssd_intra_chunk "
+                f"{got['ssd']} per prefill at {got['ssd_heads']} heads; "
+                f"collectives (calls, bytes, host s) "
+                f"{ {k: (v['calls'], v['bytes'], round(v['seconds'], 3)) for k, v in st.items()} }")
+    log(f"[serve-mesh] the ranks' serving took {wall:.1f} s")
+    return launches
+
+
+def phase_dryrun(smi):
+    """[dryrun]: ``launch/dryrun.py``'s one combination on the host: the
+    card machine's torch has the fake process group; the JSON's memory,
+    FLOPs and collectives."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    res = dryrun.run_one("zamba2-1.2b", "decode_32k", "single")
+    require(res["status"] == "ok", f"[dryrun] {res.get('error')}")
+    log(f"[dryrun] zamba2-1.2b x decode_32k x single (rank 0 of a fake "
+        f"group of 256, meta tensors): memory {res['memory']}, flops "
+        f"{res['cost']['flops']}, collectives {res['collectives']}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -3762,15 +4011,19 @@ def main():
     del train_refs
     launches["ssd_intra_chunk"] += mesh_train_launches
     t4 = time.perf_counter()
-    mesh_model_launches = phase_mesh_model(smi)
-    launches["ssd_intra_chunk"] += mesh_model_launches
+    mesh_model_launches = phase_mesh_model(smi, serve=True)
+    for name, n in mesh_model_launches.items():
+        launches[name] += n
+    t5 = time.perf_counter()
+    phase_dryrun(smi)
     log(f"[train-zoo] phase walls: [train-zoo] {t1 - t0:.1f} s, "
         f"[train-zoo-small] {t2 - t1:.1f} s, [axes] {t3 - t2:.1f} s, "
-        f"[mesh-train] {t4 - t3:.1f} s, [mesh-model] "
-        f"{time.perf_counter() - t4:.1f} s; ssd_intra_chunk launches: "
-        f"serving {serve_launches['ssd_intra_chunk']}, training "
-        f"{train_launches}, the mesh's ranks {mesh_train_launches}, the "
-        f"model axis's ranks {mesh_model_launches}")
+        f"[mesh-train] {t4 - t3:.1f} s, [mesh-model] with [serve-mesh] "
+        f"{t5 - t4:.1f} s, [dryrun] {time.perf_counter() - t5:.1f} s; "
+        f"ssd_intra_chunk launches: serving "
+        f"{serve_launches['ssd_intra_chunk']}, training {train_launches}, "
+        f"the mesh's ranks {mesh_train_launches}, the model axis's ranks "
+        f"(with [serve-mesh]) {mesh_model_launches}")
     from repro_torch.kernels.dp_clip import dp_clip
     from repro_torch.kernels.flash_attn import flash_attn
     from repro_torch.kernels.ssd_scan import ssd_scan

@@ -7,7 +7,12 @@ The rule has no override and no environment switch:
 * a tensor on the CPU goes to the kernel's plain PyTorch version (the
   CPU tests run it against the JAX reference);
 * a CUDA tensor launches the hand-written kernel — or the wrapper raises.
-  There is no fallback that silently runs the plain version on the card.
+  There is no fallback that silently runs the plain version on the card;
+* a ``meta`` tensor (shapes only, as ``launch/dryrun.py`` traces a
+  program) goes to the plain version too: nothing is computed on meta,
+  so no kernel is stood in for, and a FLOP counter then counts the plain
+  version's products, which for ``flash_decode`` and ``ssd_intra_chunk``
+  are the kernels' own contractions.
 
 :func:`kernel_info` is the record the engine writes into
 ``RunLog.engine_stats["pallas_interpret"]`` (the slot name is kept so the
@@ -24,11 +29,11 @@ def uses_kernel(t: torch.Tensor) -> bool:
     """True when ``t`` must go through the hand-written kernel."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(
         f"no kernel or plain route for device {t.device} "
-        "(expected cpu or cuda)")
+        "(expected cpu, cuda or meta)")
 
 
 def kernel_info(device: torch.device, kernel, launches: int) -> dict:

@@ -18,6 +18,13 @@ The backend is the caller's choice, made by one stated rule
 Nothing here picks a backend or a device behind the caller's back, and a
 collective that fails raises.
 
+A ``meta`` tensor (shapes only: ``launch/dryrun.py`` traces one rank's
+program) is taken only on a fake process group
+(``torch.testing._internal.distributed.fake_pg``, backend ``"fake"``):
+the collective returns an output of the shape it would have, moves
+nothing, stages nothing, and is counted in :func:`stats` exactly as a
+real call is.
+
 Every function takes the process group of one mesh axis (``mesh.group``
 for the data axis, ``mesh.model_group`` for the model axis).
 Trees are moved in buckets: consecutive leaves of one dtype are packed
@@ -131,6 +138,18 @@ def _staged(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def _meta(x: torch.Tensor, group) -> bool:
+    """Whether ``x`` is a ``meta`` tensor, whose collective only takes
+    its output's shape: on a fake group, else a ValueError (the ranks of
+    a real group would wait for a call that never comes)."""
+    if x.device.type != "meta":
+        return False
+    if dist.get_backend(group) != "fake":
+        raise ValueError("a meta tensor's collective runs only on a fake "
+                         f"process group, not {dist.get_backend(group)}")
+    return True
+
+
 def _host(x: torch.Tensor, staged: bool) -> torch.Tensor:
     return x.cpu() if staged else x
 
@@ -165,10 +184,11 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     src = _host(x.contiguous(), staged)
     out = torch.empty((w * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=src.device)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        _call("all_gather_single", "all_gather_into_tensor")(
-            out, src, group=group)
+    if not _meta(x, group):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            _call("all_gather_single", "all_gather_into_tensor")(
+                out, src, group=group)
     out = _back(out, x, staged)
     _note("all_gather", x.numel() * x.element_size(), staged, t0)
     return out
@@ -184,10 +204,11 @@ def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
     src = _host(x.contiguous(), staged)
     out = torch.empty((x.shape[0] // w,) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=src.device)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        _call("reduce_scatter_single", "reduce_scatter_tensor")(
-            out, src, group=group)
+    if not _meta(x, group):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            _call("reduce_scatter_single", "reduce_scatter_tensor")(
+                out, src, group=group)
     out = _back(out, x, staged)
     _note("reduce_scatter", x.numel() * x.element_size(), staged, t0)
     return out
@@ -199,7 +220,8 @@ def all_reduce_sum(x: torch.Tensor, group, op=None) -> torch.Tensor:
     t0 = time.perf_counter()
     staged = _staged(x, group)
     buf = _buffer(x, staged)
-    dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=group)
+    if not _meta(x, group):
+        dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=group)
     buf = _back(buf, x, staged)
     _note("all_reduce", x.numel() * x.element_size(), staged, t0)
     return buf
@@ -210,7 +232,9 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
     t0 = time.perf_counter()
     staged = _staged(x, group)
     buf = _buffer(x, staged)
-    dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+    if not _meta(x, group):
+        dist.broadcast(buf, src=dist.get_global_rank(group, src),
+                       group=group)
     buf = _back(buf, x, staged)
     _note("broadcast", x.numel() * x.element_size(), staged, t0)
     return buf

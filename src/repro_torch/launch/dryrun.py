@@ -1,28 +1,354 @@
-"""The JAX package's multi-pod dry run (``repro/launch/dryrun.py``) lowers
-and compiles every (architecture x input shape x production mesh)
-program with XLA and reads memory, FLOPs and collective bytes from the
-compiled artifact.  Its meshes are the 16x16 and 2x16x16 production
-meshes, and it lowers the serving programs (prefill, decode) on them,
-which the port does not run on a mesh; PyTorch has no ahead-of-time
-compiled artifact to read.  Each entry point raises, naming ROADMAP.md
-queue 1 item 19 (its third part).
+"""The production meshes' dry run (port of ``repro/launch/dryrun.py``):
+trace one rank's program of every (architecture x input shape x
+production mesh) combination on ``meta`` tensors, and read its memory,
+FLOPs and collectives.
 
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \\
+        --shape train_4k --mesh single            # one combination
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all  # the matrix
+
+Results land in ``results/dryrun_torch/<arch>__<shape>__<mesh>.json``.
+
+The JAX package lowers and compiles each program with XLA for 256 or 512
+forced host devices and reads the compiled artifact.  PyTorch has no
+such artifact, so the port runs the program itself, on one rank:
+:func:`run_one` starts a fake process group of the mesh's size
+(``torch.testing._internal.distributed.fake_pg``, backend ``"fake"``) at
+one rank (``--rank``, default 0), builds that rank's params, optimizer
+state, caches and batch on ``meta`` (their blocks under
+``launch/shardings.py``'s rules and ``launch/serve.py``'s placement) and
+runs the step.  Nothing is computed on meta: every op makes only its
+output's shape, the kernels take their plain versions
+(``kernels/common.py``) and every collective its output shape
+(``launch/collectives.py``).  What the JSON holds, beside the
+reference's:
+
+* ``memory.argument_size_bytes``: the rank's input blocks, exact;
+  ``output_size_bytes``: its outputs (a decode step's cache, updated in
+  place, counts as an output, as XLA's donated cache does);
+  ``temp_size_bytes``: the peak of live storage made during the step
+  (``torch.distributed._tools.mem_tracker.MemTracker``), the eager peak
+  with no buffer reuse, where XLA's is the compiled program's;
+* ``cost.flops``: ``torch.utils.flop_counter.FlopCounterMode``'s count
+  of the rank's matrix products (the plain kernels' products counted as
+  the kernels' own contractions); XLA's also counts elementwise work;
+* ``collectives``: ``{"bytes", "counts"}`` per kind, from
+  ``collectives.stats()``: every call the rank makes, each one's input
+  bytes (XLA's parse sums each op's output bytes, once per static op);
+* ``walk``, ``hlo_ops``: None; the HLO walker (``analysis/hlo.py``) is
+  ROADMAP.md queue 1 item 15.
+
+The reference's knobs the port lacks (``--remat-policy dots``,
+``--client-placement dp``, ``--attn-shard heads_padded``) raise, naming
+ROADMAP.md queue 1 item 19, part 4.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
+import json
+import os
 import sys
+import time
 
-from repro_torch.launch.mesh import not_ported
+RESULTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "..", "..", "..", "results", "dryrun_torch")
+
+# collectives.stats() names -> the reference's collective kinds
+KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+         "reduce_scatter": "reduce-scatter"}
+NOTES = {
+    "memory": "argument: this rank's input blocks; output: its outputs; "
+              "temp: peak live storage made during the eager step (no "
+              "buffer reuse; the plain kernels' temporaries count, which "
+              "the CUDA kernels do not make), not XLA's compiled temp",
+    "flops": "FlopCounterMode: matrix products only (plain kernels' "
+             "products counted as the kernels' contractions)",
+    "collectives": "every call this rank makes, bytes of its input "
+                   "buffers per call",
+}
+NOT_PORTED = {"walk": "analysis/hlo.py (ROADMAP.md queue 1 item 15)",
+              "hlo_ops": "no HLO in the port"}
 
 
-def run_one(arch_id: str, shape_name: str, mesh_kind: str, **kw):
-    raise not_ported(f"the dry run of {arch_id} x {shape_name} on the "
-                     f"{mesh_kind} production mesh")
+def applicable(arch_id: str, shape_name: str) -> bool:
+    from repro_torch.configs import LONG_CONTEXT_ARCHS
+    if shape_name == "long_500k":
+        return arch_id in LONG_CONTEXT_ARCHS
+    return True
+
+
+@contextlib.contextmanager
+def fake_group(world: int, rank: int = 0):
+    """A fake process group of ``world`` ranks, this process at ``rank``
+    (collectives move nothing); destroyed on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise ValueError("the dry run starts its own fake process group, "
+                         "and one is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _nbytes(tree) -> int:
+    import torch
+    from repro_torch.pytree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _meta_noise(client, step, leaf, shape):
+    import torch
+    return torch.empty(tuple(shape), device="meta")
+
+
+def build_train(arch_id, cfg, shape, mesh, n_micro: int = 4):
+    """The production round (``core/fl_step.py``) on ``mesh``: -> (step,
+    its arguments, the bytes of this rank's input blocks)."""
+    import torch
+    from repro_torch.core.dp import DPConfig
+    from repro_torch.core.fl_step import (
+        FLStepConfig, make_fl_train_step, make_server_optimizer,
+        shard_master)
+    from repro_torch.launch.mesh import num_client_groups
+    from repro_torch.launch.shardings import tree_shardings
+    from repro_torch.models.base import get_family, input_specs
+    from repro_torch.pytree import tree_map
+    fam = get_family(cfg.family)
+    G = num_client_groups(mesh)
+    fl = FLStepConfig(num_clients=G, n_local=1, n_micro=n_micro,
+                      dp=DPConfig(clip_norm=1.0, noise_multiplier=1.0,
+                                  granularity="per_microbatch"),
+                      compute_dtype=cfg.param_dtype)
+    # master params are f32
+    master = tree_map(lambda l: torch.empty(
+        tuple(l.shape), dtype=torch.float32, device="meta"),
+        fam.init_params(cfg, 0, device="meta"))
+    stacked = tree_map(lambda l: torch.empty(
+        (G,) + tuple(l.shape), dtype=l.dtype, device="meta"), master)
+    client_sh = tree_shardings(stacked, cfg, mesh, role="client")
+    master_sh = tree_shardings(master, cfg, mesh, role="master")
+    local = shard_master(master, master_sh)
+    step = make_fl_train_step(lambda p, b: fam.loss(p, b, cfg), fl,
+                              client_shardings=client_sh,
+                              master_shardings=master_sh)
+    opt = make_server_optimizer(fl).init(local)
+    batch = input_specs(cfg, shape)        # the global batch
+    weights = torch.empty((G,), device="meta")
+    arg_bytes = (_nbytes(local) + _nbytes(opt) + _nbytes(weights)
+                 + _nbytes(batch) // G)    # this rank's rows of the batch
+    return step, (local, opt, batch, weights, _meta_noise), arg_bytes
+
+
+def _serve_inputs(cfg, shape, mesh):
+    from repro_torch.launch import serve
+    from repro_torch.models.base import get_family, input_specs
+    params = serve.place_params(
+        get_family(cfg.family).init_params(cfg, 0, device="meta"), cfg,
+        mesh)
+    return params, serve.rows(input_specs(cfg, shape), mesh,
+                              shape.global_batch)
+
+
+def build_prefill(arch_id, cfg, shape, mesh):
+    """A prefill of the shape's batch into a fresh cache, as served on
+    ``mesh`` (``launch/serve.py``)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.base import get_family
+    fam = get_family(cfg.family)
+    B, S = shape.global_batch, shape.seq_len
+    params, batch = _serve_inputs(cfg, shape, mesh)
+
+    def step(params, batch):
+        cache = serve.init_cache(cfg, B, S, mesh, device="meta")
+        return fam.prefill(params, batch, cfg, cache)
+
+    return step, (params, batch), _nbytes(params) + _nbytes(batch)
+
+
+def build_decode(arch_id, cfg, shape, mesh):
+    """One decode step over a cache of the shape's length, as served on
+    ``mesh``."""
+    from repro_torch.launch import serve
+    from repro_torch.models.base import get_family
+    fam = get_family(cfg.family)
+    B, S = shape.global_batch, shape.seq_len
+    params, specs = _serve_inputs(cfg, shape, mesh)
+    cache = serve.init_cache(cfg, B, S, mesh, device="meta")
+
+    def step(params, cache, token, pos):
+        return fam.decode_step(params, cache, token, pos, cfg)
+
+    args = (params, cache, specs["token"], specs["pos"])
+    return step, args, sum(_nbytes(a) for a in args)
+
+
+def refuse_knobs(attn_shard="even", remat_policy="", client_placement="tp"):
+    """The reference's dry-run knobs the port does not have."""
+    from repro_torch.launch.mesh import not_ported
+    if remat_policy:
+        raise not_ported(f"--remat-policy {remat_policy} (the port has no "
+                         "rematerialization)")
+    if client_placement != "tp":
+        raise not_ported(f"--client-placement {client_placement} (one "
+                         "client per chip)")
+    if attn_shard != "even":
+        raise not_ported(f"--attn-shard {attn_shard} (padded uneven "
+                         "heads)")
+
+
+def _collectives(st) -> dict:
+    return {"bytes": {KINDS.get(k, k): v["bytes"] for k, v in st.items()},
+            "counts": {KINDS.get(k, k): v["calls"] for k, v in st.items()}}
+
+
+def run_one(arch_id: str, shape_name: str, mesh_kind: str,
+            n_micro: int = 4, tag: str = "", attn_shard: str = "even",
+            expert_pad: int = 0, remat_policy: str = "",
+            train_batch_constraints: bool = True,
+            client_placement: str = "tp", rank: int = 0) -> dict:
+    """One combination on rank ``rank`` of a fake group of the mesh's
+    size.  ``train_batch_constraints`` changes nothing: the port never
+    splits a client's microbatch over the data axes.  A failure of the
+    step is recorded (``"status": "error"``), as the reference records
+    its lowering's."""
+    import torch
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.base import INPUT_SHAPES
+
+    refuse_knobs(attn_shard, remat_policy, client_placement)
+    shape = INPUT_SHAPES[shape_name]
+    cfg = get_config(arch_id, long_variant=(shape_name == "long_500k"))
+    if expert_pad and cfg.n_experts:
+        cfg = cfg.replace(expert_pad=expert_pad)
+    multi = mesh_kind == "multipod"
+    head = {"arch": arch_id, "shape": shape_name, "mesh": mesh_kind,
+            "tag": tag, "rank": rank}
+    t0 = time.time()
+    with fake_group(512 if multi else 256, rank):
+        mesh = make_production_mesh(multi_pod=multi)
+        try:
+            if shape.kind == "train":
+                L.set_mesh_context(mesh, cfg=cfg)
+                ctx = contextlib.nullcontext()
+                build = build_train
+            else:
+                ctx = serve.context(mesh, cfg, shape.global_batch)
+                build = (build_prefill if shape.kind == "prefill"
+                         else build_decode)
+            with ctx:
+                kw = {"n_micro": n_micro} if shape.kind == "train" else {}
+                step, args, arg_bytes = build(arch_id, cfg, shape, mesh,
+                                              **kw)
+                coll.reset_stats()
+                tracker = MemTracker()
+                t1 = time.time()
+                with FlopCounterMode(display=False) as flops, tracker, \
+                        torch.no_grad() if shape.kind != "train" else \
+                        contextlib.nullcontext():
+                    out = step(*args)
+                t_run = time.time() - t1
+                peak = sum(d.get("Total", 0) for d in
+                           tracker.get_tracker_snapshot("peak").values())
+                result = dict(head, **{
+                    "status": "ok", "mesh_shape": mesh.shape,
+                    "trace_s": round(t_run, 1),
+                    "memory": {"argument_size_bytes": int(arg_bytes),
+                               "output_size_bytes": _nbytes(out),
+                               "temp_size_bytes": int(peak),
+                               "generated_code_size_bytes": None},
+                    "cost": {"flops": int(flops.get_total_flops())},
+                    "collectives": _collectives(coll.stats()),
+                    "walk": None, "hlo_ops": None,
+                    "not_ported": NOT_PORTED, "notes": NOTES})
+        except Exception as e:  # noqa: BLE001 — recorded, as the reference
+            result = dict(head, **{
+                "status": "error",
+                "error": f"{type(e).__name__}: {str(e)[:2000]}",
+                "elapsed_s": round(time.time() - t0, 1)})
+        finally:
+            L.clear_mesh_context()
+    return result
+
+
+def build_parser():
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.base import INPUT_SHAPES
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", choices=ARCH_IDS)
+    ap.add_argument("--shape", choices=tuple(INPUT_SHAPES))
+    ap.add_argument("--mesh", choices=("single", "multipod"),
+                    default="single")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="skip combos with an existing ok result")
+    ap.add_argument("--n-micro", type=int, default=4)
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--attn-shard", choices=("even", "heads_padded"),
+                    default="even",
+                    help="heads_padded raises (ROADMAP.md item 19, part 4)")
+    ap.add_argument("--expert-pad", type=int, default=0)
+    ap.add_argument("--remat-policy", choices=("", "dots"), default="",
+                    help="dots raises (ROADMAP.md item 19, part 4)")
+    ap.add_argument("--no-batch-constraints", action="store_true",
+                    help="accepted; changes nothing (the port never splits "
+                         "a client's microbatch over the data axes)")
+    ap.add_argument("--client-placement", choices=("tp", "dp"),
+                    default="tp",
+                    help="dp raises (ROADMAP.md item 19, part 4)")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="the rank of the fake group whose program is traced")
+    return ap
 
 
 def main(argv=None):
-    raise not_ported("launch/dryrun.py (the production meshes' dry run)")
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.base import INPUT_SHAPES
+    args = build_parser().parse_args(argv)
+    refuse_knobs(args.attn_shard, args.remat_policy, args.client_placement)
+    if args.all:
+        combos = [(arch, shp, mk) for arch in ARCH_IDS for shp in INPUT_SHAPES
+                  if applicable(arch, shp) for mk in ("single", "multipod")]
+    elif args.arch and args.shape:
+        combos = [(args.arch, args.shape, args.mesh)]
+    else:
+        raise SystemExit("give --arch and --shape, or --all")
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    for arch, shp, mk in combos:
+        suffix = f"__{args.tag}" if args.tag else ""
+        fn = os.path.join(RESULTS_DIR, f"{arch}__{shp}__{mk}{suffix}.json")
+        if args.resume and os.path.exists(fn):
+            with open(fn) as f:
+                if json.load(f).get("status") == "ok":
+                    print(f"[dryrun] {arch} x {shp} x {mk}: skip (done)",
+                          flush=True)
+                    continue
+        res = run_one(arch, shp, mk, n_micro=args.n_micro, tag=args.tag,
+                      attn_shard=args.attn_shard,
+                      expert_pad=args.expert_pad,
+                      remat_policy=args.remat_policy,
+                      train_batch_constraints=not args.no_batch_constraints,
+                      client_placement=args.client_placement,
+                      rank=args.rank)
+        with open(fn, "w") as f:
+            json.dump(res, f, indent=1)
+        extra = (f"trace={res['trace_s']}s flops={res['cost']['flops']:.3e}"
+                 if res["status"] == "ok" else res["error"][:120])
+        print(f"[dryrun] {arch} x {shp} x {mk}: {res['status']} {extra}",
+              flush=True)
+    return 0
 
 
 if __name__ == "__main__":

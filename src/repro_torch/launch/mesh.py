@@ -18,9 +18,16 @@ production round (``core/fl_step.py``) of every family of the zoo, and
 for the cohort engine, whose members
 (the SER CNN, which the leaf rule does not cut) are replicated over the
 model axis: every model rank of a data coordinate runs that
-coordinate's members, as the JAX package's engine does.  Serving on a
-mesh (the caches' shardings, the production meshes and their dry run)
-raises: ROADMAP.md queue 1 item 19, its third part.
+coordinate's members, as the JAX package's engine does, and for serving
+(``launch/serve.py``).
+
+:func:`make_production_mesh` gives the JAX package's 16x16 and 2x16x16
+production meshes; the second adds a leading ``"pod"`` axis, which joins
+``"data"`` as one more data axis (:func:`data_axes`).  Inside a process
+group of their size (the fake group of ``launch/dryrun.py``, or a real
+one) they are concrete, else abstract.  What the port still leaves of
+the reference's dry run raises :func:`not_ported`, naming ROADMAP.md
+queue 1 item 19, its fourth part.
 """
 from __future__ import annotations
 
@@ -28,20 +35,30 @@ import numpy as np
 import torch.distributed as dist
 
 AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
 
 # the ROADMAP.md queue 1 item that brings what the port refuses here
 _MODEL_AXIS_ITEM = 19
 
+
 def not_ported(what: str) -> ValueError:
     return ValueError(
         f"{what} is not ported yet (ROADMAP.md queue 1 item "
-        f"{_MODEL_AXIS_ITEM}, part 3: serving on a mesh)")
+        f"{_MODEL_AXIS_ITEM}, part 4: the dry run's knobs the port lacks)")
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The JAX package's 16x16 (or 2x16x16) production mesh, which only
-    its dry run uses: not ported."""
-    raise not_ported(f"make_production_mesh(multi_pod={multi_pod})")
+def make_production_mesh(*, multi_pod: bool = False) -> "HostMesh":
+    """16x16 single pod (256 ranks) or 2x16x16 (2 pods, 512 ranks): over
+    the current process group when it has exactly that many ranks (every
+    rank must call this then: it builds the axis groups), else
+    abstract."""
+    pod, data, model = (2, 16, 16) if multi_pod else (1, 16, 16)
+    n = pod * data * model
+    if dist.is_initialized() and world_size() == n:
+        return HostMesh(data, model, world=n,
+                        device_mesh=_device_mesh(pod * data, model),
+                        pod=pod if multi_pod else None)
+    return HostMesh(data, model, pod=pod if multi_pod else None)
 
 
 def largest_divisor(n: int, k: int) -> int:
@@ -59,9 +76,12 @@ def world_size() -> int:
 
 class HostMesh:
     """A ``("data", "model")`` mesh over ranks ``0 .. data * model - 1`` of
-    the process group.
+    the process group, or with ``pod`` a ``("pod", "data", "model")``
+    mesh over ``pod * data * model`` ranks (rank ``(p * data + d) * model
+    + m`` at coordinate (p, d, m)).
 
-    ``shape`` is ``{"data": d, "model": m}`` as on a JAX mesh.  ``group``
+    ``shape`` is ``{"data": d, "model": m}`` (with ``"pod"`` first) as on
+    a JAX mesh.  ``group``
     is the data axis's process group (None without a process group, and
     on an abstract mesh).  Meshes hash and compare by their axis sizes and
     that group, so a mesh can key the step cache, as in the reference.
@@ -70,29 +90,34 @@ class HostMesh:
     the sharding rules read and nothing runs on.
     """
 
-    axis_names = AXES
-
-    def __init__(self, data: int, model: int, world=None, device_mesh=None):
-        self._sizes = (int(data), int(model))
+    def __init__(self, data: int, model: int, world=None, device_mesh=None,
+                 pod=None):
+        self._sizes = ((int(data), int(model)) if pod is None
+                       else (int(pod), int(data), int(model)))
         self.world = world
         self.device_mesh = device_mesh
 
     @classmethod
-    def abstract(cls, data: int, model: int) -> "HostMesh":
-        return cls(data, model)
+    def abstract(cls, data: int, model: int, pod=None) -> "HostMesh":
+        return cls(data, model, pod=pod)
+
+    @property
+    def axis_names(self) -> tuple:
+        return AXES if len(self._sizes) == 2 else POD_AXES
 
     @property
     def shape(self) -> dict:
-        return dict(zip(AXES, self._sizes))
+        return dict(zip(self.axis_names, self._sizes))
 
     @property
     def size(self) -> int:
-        return self._sizes[0] * self._sizes[1]
+        return int(np.prod(self._sizes))
 
     @property
     def group(self):
-        """The data axis's process group of this rank (its model
-        coordinate's ranks); None without a process group."""
+        """The data axes' process group of this rank (its model
+        coordinate's ranks, over the pods too); None without a process
+        group."""
         if self.device_mesh is None:
             return None
         return self.device_mesh.get_group("data")

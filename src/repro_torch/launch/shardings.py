@@ -22,8 +22,9 @@ Executing a spec is the callers' job (:func:`data_dim` and
 one dim into equal blocks, or replicated; :func:`block` cuts a rank's
 block out of a whole leaf.  A ``"model"`` entry is a no-op on a model
 axis of 1 (the rule names ``"model"`` wherever a candidate divides by
-1).  :func:`cache_shardings` (the serving caches on the model axis)
-raises: ROADMAP.md queue 1 item 19, its third part (serving on a mesh).
+1).  :func:`cache_shardings` is the reference's rule for the serving
+caches; ``launch/serve.py`` places the caches it serves from, and says
+where that differs from this rule.
 """
 from __future__ import annotations
 
@@ -32,7 +33,6 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.launch.mesh import data_axes as _data_axes
-from repro_torch.launch.mesh import not_ported
 from repro_torch.pytree import tree_map
 
 # global sharding options (the reference's hillclimb knobs)
@@ -161,9 +161,48 @@ def batch_spec(mesh, extra_dims: int = 1) -> tuple:
 
 
 def cache_shardings(cache_tree, cfg, mesh, batch_size: int):
-    """The serving caches' shardings put a head/state/channel dim on the
-    model axis, which the port does not have."""
-    raise not_ported("cache_shardings (serving on a mesh)")
+    """KV/SSM caches -- the batch dim (identified by size) goes over the
+    data axes when evenly divisible; one head/state/channel dim goes over
+    ``model`` when even.  batch=1 (long_500k) stays replicated over data."""
+    model_size = mesh.shape["model"]
+    daxes = _data_axes(mesh)
+    d_ax = daxes if len(daxes) > 1 else daxes[0]
+    data_size = int(np.prod([mesh.shape[a] for a in daxes]))
+
+    cand = [cfg.n_kv_heads, cfg.n_heads, cfg.head_dim]
+    if cfg.family in ("ssm", "hybrid"):
+        from repro_torch.models.mamba2 import (
+            conv_channels, d_inner, n_heads_ssm)
+        cand = [n_heads_ssm(cfg), conv_channels(cfg), d_inner(cfg),
+                2 * cfg.d_model] + cand
+    if cfg.family == "ssm":
+        from repro_torch.models.xlstm import d_inner as xdi, mlstm_heads
+        cand = [mlstm_heads(cfg), xdi(cfg) // mlstm_heads(cfg)] + cand
+
+    def spec_for(l):
+        shape = tuple(l.shape)
+        spec = [None] * len(shape)
+        # batch dim: prefer dim 1 (convention: [stack, B, ...]), else first
+        # match; only shard when evenly divisible by the data-axis product
+        batch_dim = None
+        if batch_size % data_size == 0:
+            if len(shape) > 1 and shape[1] == batch_size:
+                batch_dim = 1
+            else:
+                batch_dim = next((i for i, s in enumerate(shape)
+                                  if s == batch_size), None)
+        if batch_dim is not None:
+            spec[batch_dim] = d_ax
+        # model dim: search from the right
+        for i in range(len(shape) - 1,
+                       (batch_dim if batch_dim is not None else 0), -1):
+            if (spec[i] is None and shape[i] % model_size == 0
+                    and shape[i] in cand):
+                spec[i] = "model"
+                break
+        return NamedSharding(mesh, tuple(spec))
+
+    return tree_map(spec_for, cache_tree)
 
 
 def _axis_dim(sharding, names) -> "int | None":

@@ -13,7 +13,11 @@ Decode carries per-layer (conv_state, ssm_state) plus a KV cache for the
 shared attention block applications (one cache slot per application).
 Serving runs both of the port's CUDA kernels: every Mamba2 layer of
 ``prefill`` launches ``ssd_intra_chunk`` once, and every shared-block
-application of ``decode_step`` launches ``flash_decode`` once.
+application of ``decode_step`` launches ``flash_decode`` once.  On the
+model axis (``launch/serve.py``) the cache holds this rank's blocks:
+prefill writes this rank's block of each state and K/V it computes, and
+decode steps them where they lie (``mamba2.mamba2_decode``,
+``layers.decode_attention``).
 """
 from __future__ import annotations
 
@@ -182,12 +186,12 @@ def prefill(params, batch, cfg, cache):
     for si, li, mix, ln in _mamba_layers(params, cfg):
         x, (conv, ssm) = _mamba_layer(x, mix, ln, cfg)
         for slot, new in zip(_state_slots(cache, si, li), (conv, ssm)):
-            slot.copy_(new)
+            slot.copy_(L.cache_block(new, slot))
         if si is not None and li == seg_len - 1:
             h = L.rms_norm(x, sp["ln_attn"], cfg.norm_eps)
             _, k, v = L._qkv(h, sp["attn"], cfg, positions)
-            cache["attn_k"][si, :, :S] = k
-            cache["attn_v"][si, :, :S] = v
+            cache["attn_k"][si, :, :S] = L.cache_block(k, cache["attn_k"])
+            cache["attn_v"][si, :, :S] = L.cache_block(v, cache["attn_v"])
             x = _shared_block(x, params, cfg, positions,
                               kv=(k, v, positions))
 
@@ -219,8 +223,7 @@ def decode_step(params, cache, token, pos, cfg):
             h = L.rms_norm(x, sp["ln_attn"], cfg.norm_eps)
             q, k, v = L._qkv(h, sp["attn"], cfg, positions)
             ck, cv = cache["attn_k"][si], cache["attn_v"][si]
-            ck.index_put_((batch_idx, pos_idx), k[:, 0])
-            cv.index_put_((batch_idx, pos_idx), v[:, 0])
+            L.cache_write(ck, cv, k, v, (batch_idx, pos_idx))
             x = x + L.decode_attention(q, sp["attn"], ck, cv, pos, cfg)
             h = L.rms_norm(x, sp["ln_mlp"], cfg.norm_eps)
             x = x + L.mlp(h, sp["mlp"], cfg.mlp_variant)

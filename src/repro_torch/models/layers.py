@@ -30,7 +30,10 @@ Conventions (the JAX package's, kept at the public surface)
   no context the helpers (:func:`whole`, :func:`block_of`,
   :func:`shard` and the collectives) return their input and every layer
   is the one-device code; attention, the MLP and the vocab functions
-  run it with whole params too.
+  run it with whole params too.  Serving on the model axis
+  (``launch/serve.py``) hands the families a rank's blocks of the
+  caches: :func:`cache_block` and :func:`cache_write` write into them,
+  and :func:`decode_attention` attends where they lie.
 """
 from __future__ import annotations
 
@@ -48,23 +51,32 @@ from repro_torch.pytree import tree_map
 # the mesh context: the model axis (installed by the launcher)
 # ---------------------------------------------------------------------------
 
-_MESH_CTX = {"mesh": None, "cfg": None}
+_MESH_CTX = {"mesh": None, "cfg": None, "rows": False}
 
 
-def set_mesh_context(mesh, *, cfg):
+def set_mesh_context(mesh, *, cfg, rows: bool = False):
     """Install ``mesh`` (a :class:`repro_torch.launch.mesh.HostMesh`) for
     the layers: its ``"model"`` axis carries tensor parallelism.  ``cfg``
     gives the whole shapes that blocks are read against (the JAX package
-    reads them from its global arrays).  The reference's ``data_axes``,
-    ``model_axis`` and ``attn_axis`` have no counterpart: the data axes
-    play no part inside a client's model (the JAX launcher passes None),
-    the model axis is the mesh's ``"model"``, and attention's activations
-    are cut on the dim its weights are cut on."""
-    _MESH_CTX.update(mesh=mesh, cfg=cfg)
+    reads them from its global arrays).  ``rows``: the batch's rows are
+    split over the data axes (serving, ``launch/serve.py``); a layer that
+    mixes rows (MoE routing's token groups) then reads the whole batch
+    (:func:`rows_group`).  The reference's ``data_axes``, ``model_axis``
+    and ``attn_axis`` have no counterpart: inside a client's model the
+    data axes play no part (the JAX launcher passes None), the model axis
+    is the mesh's ``"model"``, and attention's activations are cut on the
+    dim its weights are cut on."""
+    _MESH_CTX.update(mesh=mesh, cfg=cfg, rows=bool(rows))
 
 
 def clear_mesh_context():
-    _MESH_CTX.update(mesh=None, cfg=None)
+    _MESH_CTX.update(mesh=None, cfg=None, rows=False)
+
+
+def rows_group():
+    """The data axes' process group when the batch's rows are split over
+    them (serving), else None."""
+    return _MESH_CTX["mesh"].group if _MESH_CTX["rows"] else None
 
 
 def model_group():
@@ -434,6 +446,24 @@ def attend(q, k, v, positions, kv_pos, cfg, *, window: int = 0,
                       for i in range(0, S, eff_chunk)], dim=1)
 
 
+def cache_block(t, cache):
+    """This rank's block of a whole cache entry ``t``, cut as the cache
+    leaf ``cache`` holds it on one of its last two dims (a K or V
+    (..., Hkv, Dh) on its kv heads or head_dim, a conv state on its
+    channels), or ``t`` itself (a whole leaf, or no model axis)."""
+    for d in (-2, -1):
+        if t.shape[d] != cache.shape[d]:
+            return coll.tp_scatter(t, t.dim() + d, model_group())
+    return t
+
+
+def cache_write(ck, cv, k, v, idx):
+    """Write one new token's whole ``k``/``v`` (B, 1, Hkv, Dh) at ``idx``
+    (rows, positions) into one layer's K/V cache blocks in place."""
+    ck.index_put_(idx, cache_block(k, ck)[:, 0])
+    cv.index_put_(idx, cache_block(v, cv)[:, 0])
+
+
 def decode_attention(q, p, cache_k, cache_v, pos, cfg, *, window: int = 0):
     """One-token decode: q (B, 1, H, Dh) against cache (B, L, Hkv, Dh).
 
@@ -442,10 +472,28 @@ def decode_attention(q, p, cache_k, cache_v, pos, cfg, *, window: int = 0):
     attention itself is :func:`repro_torch.kernels.flash_attn.ops.
     flash_decode`: the ``flash_decode`` CUDA kernel on the card, its plain
     version on the CPU.
+
+    On the model axis q is whole (from :func:`_qkv`) and the cache holds
+    this rank's block (``launch/serve.py``): cut on the kv heads,
+    ``flash_decode`` runs on this rank's kv heads and their query heads,
+    and o goes through wo's rows when wo is cut on the heads, else it is
+    all-gathered whole over the heads for :func:`_o_proj`; cut on
+    head_dim (kv heads that do not divide the model axis), the layer's
+    K/V blocks are all-gathered whole and every rank attends all heads.
     """
-    o = flash_ops.flash_decode(q[:, 0], cache_k, cache_v, pos, window=window,
-                               softcap=cfg.attn_logit_softcap)
-    return _out_proj(o[:, None], p["wo"])
+    g = model_group()
+    heads_cut = cache_k.shape[-2] != cfg.n_kv_heads
+    if cache_k.shape[-1] != q.shape[-1]:
+        cache_k, cache_v = (coll.tp_gather(c, c.dim() - 1, g).contiguous()
+                            for c in (cache_k, cache_v))
+    q1 = coll.tp_scatter(q[:, 0], 1, g) if heads_cut else q[:, 0]
+    o = flash_ops.flash_decode(q1, cache_k, cache_v, pos, window=window,
+                               softcap=cfg.attn_logit_softcap)[:, None]
+    if heads_cut:
+        if split_dim(p["wo"], _attn_shapes(cfg)["wo"]) == 0:
+            return coll.tp_reduce(_out_proj(o, p["wo"]), g)
+        o = coll.tp_gather(o, 2, g)
+    return _o_proj(o, p["wo"], cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ On the model axis (:func:`repro_torch.models.layers.set_mesh_context`,
 params cut by the leaf rule) :func:`mamba2_forward` runs the SSM heads
 split over the model group: each rank scans its H/M heads (the
 ``ssd_intra_chunk`` kernel launches on them) and its d_inner block goes
-through the gated norm and out_proj's rows.
+through the gated norm and out_proj's rows; :func:`mamba2_decode` steps
+the same heads, with their state.
 """
 from __future__ import annotations
 
@@ -218,34 +219,61 @@ def mamba2_forward(x, p, cfg, state=None):
 
 
 def mamba2_decode(x, p, cfg, state):
-    """One-step recurrent decode. x: (B, 1, D); state=(conv_state, ssm_state)."""
+    """One-step recurrent decode. x: (B, 1, D); state=(conv_state, ssm_state).
+
+    On the model axis this follows :func:`mamba2_forward`'s placement:
+    in_proj's output on this rank's columns, all-gathered whole; the
+    step of the SSM on this rank's H/M heads, whose state the rank holds;
+    the gated norm's sums of squares added over the group and out_proj's
+    rows summed (``tp_reduce``).  A conv state cut on its channels (as
+    ``launch/serve.py`` places it) convolves this rank's channels, and
+    the conv's output is all-gathered whole; a whole one convolves all
+    of them."""
+    group = L.model_group()
     conv_state, ssm_state = state
     Bsz = x.shape[0]
     di, H, N, P = d_inner(cfg), n_heads_ssm(cfg), cfg.ssm_state, cfg.ssm_head_dim
+    shapes = _shapes(cfg)
 
-    zxbcdt = torch.matmul(x, p["in_proj"])
+    zxbcdt = L.whole_proj(x, p["in_proj"], shapes["in_proj"])
     z, xs, Bm, Cm, dt = torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
     xBC_new = torch.cat([xs, Bm, Cm], -1)                  # (B,1,C)
 
-    conv_in = torch.cat([conv_state, xBC_new], dim=1)      # (B,K,C)
-    xBC = (conv_in * p["conv_w"][None]).sum(dim=1, keepdim=True) + p["conv_b"]
+    channels_cut = conv_state.shape[-1] != conv_channels(cfg)
+    if channels_cut:
+        conv_in = torch.cat([conv_state, L.shard(xBC_new, None, None,
+                                                 "model")], dim=1)
+        conv_w = L.block_of(p["conv_w"], shapes["conv_w"], 1)
+        conv_b = L.block_of(p["conv_b"], shapes["conv_b"], 0)
+    else:
+        conv_in = torch.cat([conv_state, xBC_new], dim=1)  # (B,K,C)
+        conv_w = L.whole(p["conv_w"], shapes["conv_w"])
+        conv_b = L.whole(p["conv_b"], shapes["conv_b"])
+    xBC = (conv_in * conv_w[None]).sum(dim=1, keepdim=True) + conv_b
+    if channels_cut:
+        xBC = coll.tp_gather(xBC, 2, group)
     xBC = F.silu(xBC)
     new_conv_state = conv_in[:, 1:]
 
     xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
-    dt = _softplus(dt.float() + p["dt_bias"])                      # (B,1,H)
-    a = torch.exp(-torch.exp(p["A_log"]) * dt)[:, 0]               # (B,H)
-    xs_h = xs.reshape(Bsz, H, P).float()
+    xs, z, dt = (L.shard(t, None, None, "model") for t in (xs, z, dt))
+    h = dt.shape[-1]                                               # H / M
+    dt = _softplus(dt.float() + L.block_of(p["dt_bias"], (H,), 0))  # (B,1,h)
+    a = torch.exp(-torch.exp(L.block_of(p["A_log"], (H,), 0)) * dt)[:, 0]
+    xs_h = xs.reshape(Bsz, h, P).float()
     x_dt = xs_h * dt[:, 0, :, None]                                # discretized
 
     # h <- a h + (dt x) B^T ; y = h C + D x
     new_ssm = ssm_state * a[..., None, None] + \
         x_dt[..., None] * Bm[:, 0].float()[:, None, None, :]
     y = torch.matmul(new_ssm, Cm[:, 0].float()[:, None, :, None])[..., 0]
-    y = y + xs_h * p["D"][None, :, None]
-    y = y.reshape(Bsz, 1, di).to(x.dtype)
-    y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = torch.matmul(y, p["out_proj"])
+    y = y + xs_h * L.block_of(p["D"], (H,), 0)[None, :, None]
+    y = y.reshape(Bsz, 1, h * P).to(x.dtype)
+    y = gated_rms_norm(y, z, L.block_of(p["norm"], (di,), 0), cfg.norm_eps,
+                       group)
+    out = coll.tp_reduce(
+        torch.matmul(y, L.block_of(p["out_proj"], shapes["out_proj"], 0)),
+        group)
     return out, (new_conv_state, new_ssm)
 
 

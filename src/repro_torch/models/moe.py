@@ -84,8 +84,16 @@ def route(xg, router, cfg):
     return top_p, top_e, keep, pos, cap, aux
 
 
-def moe_mlp(x, p, cfg, *, group_size: int = 2048):
-    """x: (B, S, D) -> (B, S, D); returns (out, aux_loss)."""
+def moe_mlp(x, p, cfg, *, group_size: int = 2048, rows=None):
+    """x: (B, S, D) -> (B, S, D); returns (out, aux_loss).  ``rows``: the
+    data axes' group over which x's rows are split (serving,
+    ``layers.rows_group``): the whole batch is gathered, routed in the
+    one-process groups and capacities, and this rank's rows are kept."""
+    if rows is not None:
+        r = torch.distributed.get_rank(rows)
+        out, aux = moe_mlp(coll.all_gather_rows(x, rows), p, cfg,
+                           group_size=group_size)
+        return out[r * x.shape[0]:(r + 1) * x.shape[0]], aux
     B, S, D = x.shape
     K, Ep = cfg.top_k, cfg.n_experts + cfg.expert_pad
     n_tok = B * S
@@ -148,12 +156,12 @@ def init_params(cfg, seed: int, device=None):
     return L.draw_sorted(**makers)
 
 
-def _moe_block(x, blk, cfg, positions, kv=None):
+def _moe_block(x, blk, cfg, positions, kv=None, rows=None):
     h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
     x = x + L.attention(h, blk["attn"], cfg, positions, causal=True,
                         kv_override=kv)
     h = L.rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
-    out, aux = moe_mlp(h, blk["moe"], cfg)
+    out, aux = moe_mlp(h, blk["moe"], cfg, rows=rows)
     return x + out, aux
 
 
@@ -202,23 +210,27 @@ def prefill(params, batch, cfg, cache):
     for i, blk, _ in T.layers(params, cfg):
         h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
         _, k, v = L._qkv(h, blk["attn"], cfg, positions)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-        x, _ = _moe_block(x, blk, cfg, positions, kv=(k, v, positions))
+        cache["k"][i, :, :S] = L.cache_block(k, cache["k"])
+        cache["v"][i, :, :S] = L.cache_block(v, cache["v"])
+        x, _ = _moe_block(x, blk, cfg, positions, kv=(k, v, positions),
+                          rows=L.rows_group())
     h = L.rms_norm(x, params["ln_final"], cfg.norm_eps)
     logits = L.unembed(h[:, -1:], T._lm_matrix(params))
     return logits[:, 0], cache
 
 
 def decode_step(params, cache, token, pos, cfg):
-    """One token per row; the MoE ffn routes the B tokens as one group."""
-    B = token.shape[0]
+    """One token per row; the MoE ffn routes the B tokens as one group
+    (on a mesh serving split rows, the whole batch's B)."""
+    rows = L.rows_group()
+    B = token.shape[0] * (1 if rows is None
+                          else torch.distributed.get_world_size(rows))
     x = L.embed(token, params["embedding"])
     for i, blk, _ in T.layers(params, cfg):
         h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
         x = x + T.decode_attn(h, blk, cfg, cache, i, pos)
         h2 = L.rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
-        out, _aux = moe_mlp(h2, blk["moe"], cfg, group_size=B)
+        out, _aux = moe_mlp(h2, blk["moe"], cfg, group_size=B, rows=rows)
         x = x + out
     h = L.rms_norm(x, params["ln_final"], cfg.norm_eps)
     logits = L.unembed(h, T._lm_matrix(params))

@@ -20,7 +20,10 @@ Implementation notes
   to the JAX package's loss and ``jax.grad``.
 * ``prefill`` fills the preallocated KV cache in place and returns (last
   logits, cache); ``decode_step`` writes one position per row in place
-  and launches ``flash_decode`` once per layer on the card.
+  and launches ``flash_decode`` once per layer on the card.  On the
+  model axis the cache holds this rank's blocks (``launch/serve.py``):
+  each layer writes its block of the whole K/V and attends through
+  ``layers.decode_attention``.
 """
 from __future__ import annotations
 
@@ -167,8 +170,8 @@ def prefill_trunk(params, x, positions, cfg, cache):
     for i, blk, window in layers(params, cfg):
         h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
         _, k, v = L._qkv(h, blk["attn"], cfg, positions)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        cache["k"][i, :, :S] = L.cache_block(k, cache["k"])
+        cache["v"][i, :, :S] = L.cache_block(v, cache["v"])
         x = _block(x, blk, window, cfg, positions, kv=(k, v, positions))
     return L.rms_norm(x, params["ln_final"], cfg.norm_eps)
 
@@ -194,8 +197,7 @@ def decode_attn(x, blk, cfg, cache, i, pos, window=0):
     q, k, v = L._qkv(x, blk["attn"], cfg, pos[:, None])
     idx = (torch.arange(B, device=x.device), pos.long())
     ck, cv = cache["k"][i], cache["v"][i]
-    ck.index_put_(idx, k[:, 0])
-    cv.index_put_(idx, v[:, 0])
+    L.cache_write(ck, cv, k, v, idx)
     return L.decode_attention(q, blk["attn"], ck, cv, pos, cfg, window=window)
 
 

@@ -19,7 +19,10 @@ encoder, the decoder's self-attention and its cross-attention run
 :func:`repro_torch.models.layers.attention` and ``mlp`` on their blocks;
 the cross-attention's K/V come whole from the encoder's output on every
 rank, and a position table cut on its rows (``pos_dec`` at the reduced
-sizes, where ``max_seq`` equals the vocab) is read whole.
+sizes, where ``max_seq`` equals the vocab) is read whole.  Serving on
+the model axis (``launch/serve.py``) keeps this rank's blocks of the
+self and the cross K/V caches, cut as the other families' KV caches,
+and decodes both through ``layers.decode_attention``.
 """
 from __future__ import annotations
 
@@ -108,10 +111,10 @@ def _dec_trunk(params, x, cfg, positions, enc_out, enc_pos, cache=None):
         h = L.rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
         x = x + L.mlp(h, blk["mlp"], "gelu")
         if cache is not None:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-            cache["xk"][i] = xk
-            cache["xv"][i] = xv
+            cache["k"][i, :, :S] = L.cache_block(k, cache["k"])
+            cache["v"][i, :, :S] = L.cache_block(v, cache["v"])
+            cache["xk"][i] = L.cache_block(xk, cache["xk"])
+            cache["xv"][i] = L.cache_block(xv, cache["xv"])
     return L.rms_norm(x, params["ln_final"], cfg.norm_eps)
 
 
@@ -161,20 +164,20 @@ def decode_step(params, cache, token, pos, cfg):
     """Decoder-only step; cross-attention reads the cached encoder KV."""
     B = token.shape[0]
     idx = (torch.arange(B, device=token.device), pos.long())
-    x = L.embed(token, params["embedding"]) \
-        + params["pos_dec"][idx[1]][:, None]
+    pos_dec = L.whole(params["pos_dec"], (cfg.max_seq, cfg.d_model))
+    x = L.embed(token, params["embedding"]) + pos_dec[idx[1]][:, None]
     Fr = cache["xk"].shape[2]
     last = torch.full((B,), Fr - 1, dtype=torch.int32, device=token.device)
+    dec = L.whole_stack(params["dec"], (cfg.n_layers,))
     for i in range(cfg.n_layers):
-        blk = L.layer_slice(params["dec"], i)
+        blk = L.layer_slice(dec, i)
         h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
         q, k, v = L._qkv(h, blk["attn"], cfg, None, rope=False)
         ck, cv = cache["k"][i], cache["v"][i]
-        ck.index_put_(idx, k[:, 0])
-        cv.index_put_(idx, v[:, 0])
+        L.cache_write(ck, cv, k, v, idx)
         x = x + L.decode_attention(q, blk["attn"], ck, cv, pos, cfg)
         h = L.rms_norm(x, blk["ln_xattn"], cfg.norm_eps)
-        xq = L._proj(h, blk["xattn"]["wq"])
+        (xq,) = L._in_projs(h, blk["xattn"], cfg, ("wq",))
         # cross attention: all encoder frames visible
         x = x + L.decode_attention(xq, blk["xattn"], cache["xk"][i],
                                    cache["xv"][i], last, cfg)

@@ -29,7 +29,11 @@ output whole (its z/m split crosses the cut), runs q/k/v, the gates and
 the chunked recurrence on this rank's heads, normalizes over the whole
 d_inner and adds the ranks' rows of w_down; an sLSTM block gathers its
 ``R*`` whole once, before the time loop, and runs the recurrence whole
-on every rank (no collective inside the loop).
+on every rank (no collective inside the loop).  Heads that do not
+divide the model axis run the mLSTM whole on every rank.  Serving on the
+model axis (``launch/serve.py``) keeps the mLSTM states of this rank's
+heads (or, with heads that do not divide the axis, its block of their
+key dim) and the sLSTM states whole.
 """
 from __future__ import annotations
 
@@ -125,29 +129,38 @@ def mlstm_chunked(q, k, v, logf, logi, chunk: int, init_state=None):
 def mlstm_block(x, p, cfg, state=None):
     """x: (B,S,D).  state: C (B,H,dk,dv+1) for decode, or None.  On the
     model axis H is this rank's heads, the state's too (module
-    docstring)."""
+    docstring).  Heads that do not divide the model axis (xlstm-350m's 4
+    on 16 ranks) run whole on every rank, and a decode state cut on its
+    key dim (``launch/serve.py``) steps this rank's key rows, its
+    readout's partial sums added over the group."""
     B, S, D = x.shape
     di, H = d_inner(cfg), mlstm_heads(cfg)
     dh = di // H
     g = L.model_group()
+    split = g is not None and H % torch.distributed.get_world_size(g) == 0
     h_in = L.rms_norm(x, p["ln"], cfg.norm_eps)
     z, m = torch.chunk(L.whole_proj(h_in, p["w_up"], (D, 2 * di)), 2, -1)
 
-    mc = coll.tp_copy(m, g)
+    mc = coll.tp_copy(m, g if split else None)
+
+    def mine(w, shape, dim):
+        """This rank's block of ``w`` along ``dim`` on split heads, else
+        ``w`` whole."""
+        return L.block_of(w, shape, dim) if split else L.whole(w, shape)
 
     def heads(name):
-        return torch.matmul(mc, L.block_of(p[name], (di, di), 1)).reshape(
+        return torch.matmul(mc, mine(p[name], (di, di), 1)).reshape(
             B, S, -1, dh)
 
     q, v = heads("wq"), heads("wv")
     k = heads("wk") * (dh ** -0.5)
     # the gates' f32 weights are the compute dtype in a bf16 round's
     # client; the JAX package's products promote them to f32
-    logi = (torch.matmul(mc.float(), L.block_of(p["w_i"], (di, H), 1).float())
-            + L.block_of(p["b_i"], (H,), 0))
+    logi = (torch.matmul(mc.float(), mine(p["w_i"], (di, H), 1).float())
+            + mine(p["b_i"], (H,), 0))
     logf = F.logsigmoid(
-        torch.matmul(mc.float(), L.block_of(p["w_f"], (di, H), 1).float())
-        + L.block_of(p["b_f"], (H,), 0))
+        torch.matmul(mc.float(), mine(p["w_f"], (di, H), 1).float())
+        + mine(p["b_f"], (H,), 0))
     # stabilize the input gate (exp can overflow): subtract a running cap
     logi = torch.clamp(logi, max=10.0)
 
@@ -160,17 +173,27 @@ def mlstm_block(x, p, cfg, state=None):
         v_ext = (torch.cat([v, ones], -1)
                  * torch.exp(logi)[..., None].to(v.dtype))[:, 0]
         f = torch.exp(logf)[:, 0]                           # (B,H)
+        qk = (q[:, 0].float(), k[:, 0].float())
+        key_cut = state.shape[-2] != dh
+        if key_cut:
+            qk = tuple(coll.tp_scatter(t, 2, g) for t in qk)
         final = state * f[..., None, None] + torch.einsum(
-            "bhd,bhe->bhde", k[:, 0].float(), v_ext.float())
-        y_ext = torch.einsum("bhd,bhde->bhe", q[:, 0].float(), final)
+            "bhd,bhe->bhde", qk[1], v_ext.float())
+        y_ext = torch.einsum("bhd,bhde->bhe", qk[0], final)
+        if key_cut:
+            y_ext = coll.tp_reduce(y_ext, g)
         yv, norm = y_ext[..., :-1], y_ext[..., -1:]
         y = (yv / torch.clamp(torch.abs(norm), min=1.0))[:, None]
 
     # the chunked path mixes f32 decay factors in; pin back to residual dtype
     y = y.reshape(B, S, -1).to(x.dtype)
-    y = (L.rms_norm(y, L.block_of(p["ln_inner"], (di,), 0), cfg.norm_eps,
-                    group=g)
-         * F.silu(L.shard(z, None, None, "model")))
+    if split or g is None:
+        y = (L.rms_norm(y, L.block_of(p["ln_inner"], (di,), 0), cfg.norm_eps,
+                        group=g)
+             * F.silu(L.shard(z, None, None, "model")))
+    else:
+        y = L.shard(L.rms_norm(y, p["ln_inner"], cfg.norm_eps) * F.silu(z),
+                    None, None, "model")
     return x + L.down_proj(y, p["w_down"], (di, D)), final
 
 
@@ -314,7 +337,7 @@ def _run(params, x, cfg, cache, decode):
             slot = cache[kind][idx] if cache is not None else None
             x, new = mlstm_block(x, lyr, cfg, state=slot if decode else None)
             if slot is not None:
-                slot.copy_(new)
+                slot.copy_(new if decode else L.cache_block(new, slot))
     return L.rms_norm(x, params["ln_final"], cfg.norm_eps)
 
 

@@ -851,3 +851,141 @@ def model_axis_zoo_ranks(rank, out, data, rounds, noise, engine_shapes,
     if launcher:
         res["launcher"] = _guard(lambda: launcher_runs(mesh))
     return res
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh (tests/test_torch_serve_mesh.py)
+# ---------------------------------------------------------------------------
+
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 16, 4
+
+
+def serve_config(arch, overrides=None):
+    from repro_torch.configs import get_config
+    return get_config(arch).reduced().replace(param_dtype="float32",
+                                              **(overrides or {}))
+
+
+def serve_inputs(cfg, seed=0):
+    """The prompt batch (with the stub frames or patches) and the decode
+    steps' tokens, as numpy."""
+    rng = np.random.default_rng(seed)
+    B, S = SERVE_B, SERVE_S
+    toks = rng.integers(0, cfg.vocab, size=(B, S + SERVE_STEPS)).astype(
+        np.int32)
+    batch = {"tokens": toks[:, :S]}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return batch, toks[:, S:]
+
+
+def serve_on(mesh, cfg, params_np, batch_np, steps_np):
+    """A prefill of ``batch_np`` and a decode step per column of
+    ``steps_np`` (teacher-forced) of the reduced ``cfg`` on ``mesh``
+    (None: one process, whole params and cache): each step's logits (this
+    rank's rows), the cache leaves (this rank's blocks) after the prefill
+    and after the last step, and the (query heads, kv heads, head_dim)
+    of every plain ``flash_decode`` call."""
+    import contextlib
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import convert
+    from repro_torch.models.base import get_family
+    fam = get_family(cfg.family)
+    params = convert.params_from_numpy(params_np)
+    B, S = SERVE_B, SERVE_S
+    max_len = S + steps_np.shape[1]
+    off = cfg.n_patches if cfg.family == "vlm" else 0
+    if mesh is None:
+        cache = fam.init_cache(cfg, B, max_len, device="cpu")
+        ctx, rows = contextlib.nullcontext(), (lambda t: t)
+    else:
+        params = serve.place_params(params, cfg, mesh)
+        cache = serve.init_cache(cfg, B, max_len, mesh, "cpu")
+        ctx = serve.context(mesh, cfg, B)
+        rows = (lambda t: serve.rows(t, mesh, B))
+    calls, plain = [], flash_ops.flash_decode_ref
+
+    def counted(q, k, v, pos, **kw):
+        calls.append((int(q.shape[1]), int(k.shape[2]), int(k.shape[3])))
+        return plain(q, k, v, pos, **kw)
+
+    flash_ops.flash_decode_ref = counted
+    try:
+        with ctx, torch.no_grad():
+            batch = rows({k: torch.from_numpy(v) for k, v in
+                          batch_np.items()})
+            lg, cache = fam.prefill(params, batch, cfg, cache)
+            out = {"prefill": lg.numpy().copy(),
+                   "cache_prefill": leaves_np(cache)}
+            for t in range(steps_np.shape[1]):
+                tok = rows(torch.from_numpy(steps_np[:, t:t + 1].copy()))
+                pos = torch.full((tok.shape[0],), off + S + t,
+                                 dtype=torch.int32)
+                lg, cache = fam.decode_step(params, cache, tok, pos, cfg)
+                out[f"decode{t}"] = lg.numpy().copy()
+            out["cache"] = leaves_np(cache)
+    finally:
+        flash_ops.flash_decode_ref = plain
+    out["flash_calls"] = sorted(set(calls))
+    out["n_flash"] = len(calls)
+    return out
+
+
+def serve_mesh_ranks(rank, out, data, cases, params, inputs):
+    """Every case of tests/test_torch_serve_mesh.py on this rank, on a
+    ``data`` x ``WORLD / data`` mesh: ``cases`` is ``{name: (arch,
+    overrides)}``, ``params[name]`` its whole params and ``inputs[name]``
+    its (batch, decode tokens), as numpy."""
+    import torch.distributed as dist
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data=data, model=dist.get_world_size() // data)
+    res = {"mesh": mesh.shape, "coords": (mesh.rank, mesh.model_rank)}
+    for name, (arch, ov) in cases.items():
+        coll.reset_stats()
+        res[name] = _guard(lambda a=arch, o=ov, n=name: serve_on(
+            mesh, serve_config(a, o), params[n], *inputs[n]))
+        res[name + ":collectives"] = coll.stats()
+    return res
+
+
+def serve_step(mesh, cfg, device, max_len=24):
+    """One decode step of ``cfg`` served on ``mesh`` from a zero cache of
+    ``max_len`` positions, on ``device`` (``"meta"`` on a fake group):
+    its collectives ``{name: (calls, bytes)}`` and its FLOPs."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import serve
+    from repro_torch.models.base import get_family
+    fam = get_family(cfg.family)
+    B = SERVE_B
+    params = serve.place_params(fam.init_params(cfg, 0, device=device), cfg,
+                                mesh)
+    cache = serve.init_cache(cfg, B, max_len, mesh, device)
+    token = serve.rows(torch.zeros((B, 1), dtype=torch.int32, device=device),
+                       mesh, B)
+    pos = torch.full((token.shape[0],), max_len - 1, dtype=torch.int32,
+                     device=device)
+    coll.reset_stats()
+    with serve.context(mesh, cfg, B), torch.no_grad(), \
+            FlopCounterMode(display=False) as flops:
+        fam.decode_step(params, cache, token, pos, cfg)
+    return {"collectives": {k: (v["calls"], v["bytes"])
+                            for k, v in coll.stats().items()},
+            "flops": int(flops.get_total_flops())}
+
+
+def serve_step_ranks(rank, out, data, cases):
+    """:func:`serve_step` of each of ``cases`` (``{name: (arch,
+    overrides)}``) on this rank of a ``data`` x ``WORLD / data`` mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data=data, model=dist.get_world_size() // data)
+    return {name: _guard(lambda a=arch, o=ov: serve_step(
+        mesh, serve_config(a, o), "cpu")) for name, (arch, ov) in
+        cases.items()}

@@ -1,0 +1,207 @@
+"""The production meshes' dry run (``repro_torch.launch.dryrun``) and its
+sharding rules, on the CPU.
+
+* Specs, on JAX ``AbstractMesh``es of (16, 16), (2, 16, 16), (1, 2) and
+  (2, 2) and the port's abstract meshes of the same shapes:
+  ``cache_shardings`` equals the JAX package's for all ten configs'
+  caches (the JAX side from ``jax.eval_shape(init_cache)``) at
+  ``decode_32k`` and ``long_500k`` (B = 1: the rows stay replicated);
+  ``tree_shardings`` of the params, roles serve, master and client,
+  equals the JAX package's on the 2x16x16 mesh.
+* Fixed runs of ``run_one`` (a fake process group of 256 or 512 ranks,
+  rank 0's program on ``meta``): every config at ``decode_32k`` on the
+  single pod, ``train_4k`` for zamba2-1.2b and olmoe-1b-7b,
+  ``prefill_32k`` for zamba2-1.2b and phi-3-vision-4.2b, ``long_500k``
+  for xlstm-350m, and on the two pods smollm-360m ``train_4k`` and
+  zamba2-1.2b ``decode_32k``: each ends ``"ok"`` with the JSON's fields.
+* Two pinned counts: the reduced configs' one-rank decode step on a fake
+  (1, 2) group makes the collectives (calls and bytes) the same step
+  makes on 2 real gloo ranks; reduced smollm-360m's step costs the FLOPs
+  written out below.
+"""
+import json
+import pathlib
+import sys
+
+import jax
+import pytest
+import torch
+
+import repro.launch.shardings as r_sh
+from repro.configs import ARCH_IDS
+from repro.configs import get_config as r_get_config
+from repro.models.base import INPUT_SHAPES as R_SHAPES
+from repro.models.base import get_family as r_get_family
+
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch import shardings as t_sh
+from repro_torch.launch.mesh import HostMesh, make_host_mesh
+from repro_torch.models.base import get_family as t_get_family
+from repro_torch.pytree import tree_leaves, tree_map
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+import _torch_mesh_ranks as M  # noqa: E402
+
+MESHES = {"16x16": (None, 16, 16), "2x16x16": (2, 16, 16),
+          "1x2": (None, 1, 2), "2x2": (None, 2, 2)}
+
+
+def _amesh(pod, data, model):
+    sizes = (data, model) if pod is None else (pod, data, model)
+    names = ("data", "model") if pod is None else ("pod", "data", "model")
+    try:
+        return jax.sharding.AbstractMesh(sizes, names)
+    except TypeError:
+        return jax.sharding.AbstractMesh(tuple(zip(names, sizes)))
+
+
+def _tmesh(pod, data, model):
+    return HostMesh.abstract(data, model, pod=pod)
+
+
+def _specs_r(tree):
+    return [tuple(ns.spec) for ns in jax.tree_util.tree_leaves(tree)]
+
+
+def _specs_t(tree):
+    return [ns.spec for ns in tree_leaves(tree)]
+
+
+@pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cache_shardings_equal_the_reference(arch, mesh, shape_name):
+    long = shape_name == "long_500k"
+    shape = R_SHAPES[shape_name]
+    B, S = shape.global_batch, shape.seq_len
+    r_cfg = r_get_config(arch, long_variant=long)
+    t_cfg = t_get_config(arch, long_variant=long)
+    r_cache = jax.eval_shape(
+        lambda: r_get_family(r_cfg.family).init_cache(r_cfg, B, S))
+    t_cache = t_get_family(t_cfg.family).init_cache(t_cfg, B, S,
+                                                    device="meta")
+    assert [tuple(l.shape) for l in jax.tree_util.tree_leaves(r_cache)] == \
+        [tuple(l.shape) for l in tree_leaves(t_cache)]
+    want = _specs_r(r_sh.cache_shardings(r_cache, r_cfg,
+                                         _amesh(*MESHES[mesh]), B))
+    got = _specs_t(t_sh.cache_shardings(t_cache, t_cfg,
+                                        _tmesh(*MESHES[mesh]), B))
+    assert got == want
+    pod, data, _ = MESHES[mesh]
+    if B == 1 and data * (pod or 1) > 1:      # rows replicated over data
+        assert not any("data" in str(s) for s in got)
+
+
+@pytest.mark.parametrize("role", ["serve", "master", "client"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_shardings_equal_the_reference_on_two_pods(arch, role):
+    r_cfg, t_cfg = r_get_config(arch), t_get_config(arch)
+    r_tree = jax.eval_shape(lambda: r_get_family(r_cfg.family).init_params(
+        jax.random.PRNGKey(0), r_cfg))
+    t_tree = t_get_family(t_cfg.family).init_params(t_cfg, 0, device="meta")
+    amesh, tmesh = _amesh(2, 16, 16), _tmesh(2, 16, 16)
+    if role == "client":
+        r_tree = jax.tree_util.tree_map(
+            lambda l: jax.ShapeDtypeStruct((32,) + l.shape, l.dtype), r_tree)
+        t_tree = tree_map(lambda l: torch.empty(
+            (32,) + tuple(l.shape), device="meta"), t_tree)
+    want = _specs_r(r_sh.tree_shardings(r_tree, r_cfg, amesh, role))
+    got = _specs_t(t_sh.tree_shardings(t_tree, t_cfg, tmesh, role))
+    assert got == want
+
+
+RUNS = ([(arch, "decode_32k", "single") for arch in ARCH_IDS]
+        + [("zamba2-1.2b", "train_4k", "single"),
+           ("olmoe-1b-7b", "train_4k", "single"),
+           ("zamba2-1.2b", "prefill_32k", "single"),
+           ("phi-3-vision-4.2b", "prefill_32k", "single"),
+           ("xlstm-350m", "long_500k", "single"),
+           ("smollm-360m", "train_4k", "multipod"),
+           ("zamba2-1.2b", "decode_32k", "multipod")])
+
+
+@pytest.mark.parametrize("arch,shape,mesh", RUNS,
+                         ids=["-".join(r) for r in RUNS])
+def test_run_one_is_ok(arch, shape, mesh):
+    res = dryrun.run_one(arch, shape, mesh)
+    assert res["status"] == "ok", res.get("error")
+    assert res["mesh_shape"] == ({"data": 16, "model": 16} if mesh ==
+                                 "single" else
+                                 {"pod": 2, "data": 16, "model": 16})
+    mem = res["memory"]
+    for k in ("argument_size_bytes", "output_size_bytes", "temp_size_bytes"):
+        assert isinstance(mem[k], int) and mem[k] > 0, k
+    assert res["cost"]["flops"] > 0
+    coll = res["collectives"]
+    assert set(coll) == {"bytes", "counts"}
+    assert coll["counts"]["all-gather"] > 0 and coll["bytes"]["all-gather"] > 0
+    assert res["walk"] is None and res["hlo_ops"] is None
+    assert "analysis/hlo.py" in res["not_ported"]["walk"]
+    if shape == "train_4k":
+        assert coll["counts"]["reduce-scatter"] == 1
+
+
+def test_main_writes_the_reference_naming(tmp_path, monkeypatch, capsys):
+    """The CLI writes ``<arch>__<shape>__<mesh>.json``; ``--resume`` skips
+    an ok result; ``--no-batch-constraints`` and ``--expert-pad`` are
+    taken."""
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
+    argv = ["--arch", "xlstm-350m", "--shape", "long_500k", "--mesh",
+            "single", "--no-batch-constraints", "--expert-pad", "4"]
+    assert dryrun.main(argv) == 0
+    with open(tmp_path / "xlstm-350m__long_500k__single.json") as f:
+        assert json.load(f)["status"] == "ok"
+    assert dryrun.main(argv + ["--resume"]) == 0
+    assert "skip (done)" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the pinned counts
+# ---------------------------------------------------------------------------
+
+STEP_CASES = {"smollm": ("smollm-360m", None),
+              "smollm_kv5": ("smollm-360m", {"n_heads": 5, "n_kv_heads": 5,
+                                             "d_head": 64}),
+              "zamba2": ("zamba2-1.2b", None),
+              "olmoe": ("olmoe-1b-7b", None)}
+
+
+@pytest.fixture(scope="module")
+def gloo_steps(tmp_path_factory):
+    return M.spawn("serve_step_ranks", tmp_path_factory.mktemp("steps"),
+                   world=2, data=1, cases=STEP_CASES)
+
+
+@pytest.fixture(scope="module")
+def fake_steps():
+    with dryrun.fake_group(2, 0):
+        mesh = make_host_mesh(data=1, model=2)
+        return {name: M.serve_step(mesh, M.serve_config(arch, ov), "meta")
+                for name, (arch, ov) in STEP_CASES.items()}
+
+
+@pytest.mark.parametrize("name", list(STEP_CASES))
+def test_fake_group_counts_the_collectives_of_real_ranks(gloo_steps,
+                                                         fake_steps, name):
+    for res in gloo_steps:
+        assert "error" not in res[name], res[name].get("error")
+        assert res[name]["collectives"] == fake_steps[name]["collectives"]
+        assert res[name]["flops"] == fake_steps[name]["flops"]
+
+
+def test_decode_step_flops_are_the_products_written_out(fake_steps):
+    """Reduced smollm-360m (D 256, 4 heads and 4 kv heads of 64, d_ff 512,
+    vocab 512 tied, 2 layers), one decode step of B = 4 rows over a cache
+    of 24 positions, on rank 0 of a model axis of 2: wq/wk/wv and wo are
+    cut on head_dim, w_gate/w_up on d_ff's columns and w_down on its
+    rows, the embedding on the vocab; ``flash_decode`` runs on 2 of the 4
+    kv heads."""
+    B, D, Dh, F, V, L, S = 4, 256, 64, 512, 512, 2, 24
+    qkv = 3 * 2 * B * D * (4 * Dh // 2)
+    attn = 2 * (2 * B * 2 * Dh * S)          # q.K and p.V on 2 heads
+    wo = 2 * B * (4 * Dh // 2) * D
+    mlp = 2 * (2 * B * D * F // 2) + 2 * B * (F // 2) * D
+    unembed = 2 * B * D * (V // 2)
+    assert fake_steps["smollm"]["flops"] == L * (qkv + attn + wo + mlp) \
+        + unembed == 5865472

@@ -256,23 +256,36 @@ def test_make_host_mesh_without_a_group_is_one_by_one():
 
 
 # ---------------------------------------------------------------------------
-# ROADMAP.md queue 1 item 19: the model axis (only its third part,
-# serving on a mesh, still raises)
+# ROADMAP.md queue 1 item 19: the model axis (only its fourth part, the
+# reference's dry-run knobs the port lacks, still raises)
 # ---------------------------------------------------------------------------
 
 def test_the_model_axis_raises_naming_item_19():
     from repro_torch.launch import dryrun
-    with pytest.raises(ValueError, match=ROADMAP_19):
-        t_mesh.make_production_mesh()
-    with pytest.raises(ValueError, match=ROADMAP_19):
-        t_mesh.make_production_mesh(multi_pod=True)
-    with pytest.raises(ValueError, match=ROADMAP_19):
-        t_sh.cache_shardings({}, t_get_config("smollm-360m"),
-                             t_mesh.HostMesh.abstract(2, 2), batch_size=8)
-    with pytest.raises(ValueError, match=ROADMAP_19):
-        dryrun.main([])
-    with pytest.raises(ValueError, match=ROADMAP_19):
-        dryrun.run_one("gemma2-2b", "train_4k", "single")
+    # the production meshes run: abstract outside a group of their size
+    # (launch/dryrun.py makes one; tests/test_torch_dryrun.py runs it)
+    m = t_mesh.make_production_mesh()
+    assert m.shape == {"data": 16, "model": 16} and m.world is None
+    pod = t_mesh.make_production_mesh(multi_pod=True)
+    assert pod.shape == {"pod": 2, "data": 16, "model": 16}
+    assert t_mesh.data_axes(pod) == ("pod", "data")
+    assert t_mesh.num_client_groups(pod) == 32 and pod.size == 512
+    # cache_shardings runs (its specs against the JAX package's:
+    # tests/test_torch_dryrun.py)
+    cfg = t_get_config("smollm-360m")
+    cache = t_get_family(cfg.family).init_cache(cfg, 8, 64, device="meta")
+    sh = t_sh.cache_shardings(cache, cfg, t_mesh.HostMesh.abstract(2, 2),
+                              batch_size=8)
+    assert sh["k"].spec == (None, "data", None, None, "model")
+    # the reference's dry-run knobs the port lacks raise, naming part 4
+    for argv in (["--remat-policy", "dots"], ["--client-placement", "dp"],
+                 ["--attn-shard", "heads_padded"]):
+        with pytest.raises(ValueError, match=ROADMAP_19 + ", part 4"):
+            dryrun.main(["--arch", "gemma2-2b", "--shape", "train_4k"]
+                        + argv)
+    with pytest.raises(ValueError, match=ROADMAP_19 + ", part 4"):
+        dryrun.run_one("gemma2-2b", "train_4k", "single",
+                       remat_policy="dots")
     # a model axis passes, and then wants the mesh's ranks
     # (test_torch_model_axis, test_torch_model_axis_zoo run on them)
     with pytest.raises(ValueError,
