@@ -89,11 +89,11 @@ package ``repro``) and fails with a non-zero exit on the first problem:
 19. [serve-zoo-rerun] gemma2-2b at full width again: bit-identical
     logits and tokens;
 20. [train-zoo] ``launch/train.py spmd`` (the production round,
-    ``core/fl_step.py``) at full width and depth, 3 rounds and a
+    ``core/fl_step.py``) at full width and depth, 2 rounds and a
     bit-identical rerun each: zamba2-1.2b (bf16 clients, f32 master,
     FedAdam; G = 2, n_micro = 2, per_micro = 2, seq 256) with
-    ``ssd_intra_chunk`` launched once per Mamba2 layer per microbatch
-    forward, and smollm-360m at the launcher's defaults; per round the
+    ``ssd_intra_chunk`` launched twice per Mamba2 layer per microbatch
+    (its forward and the backward's recompute), and smollm-360m at the launcher's defaults; per round the
     params move and stay finite and delta_norm > 0; the wall per round and
     peak memory, and the device idle share of one profiled rerun round;
     zamba2's one-microbatch gradient through the kernel's
@@ -126,8 +126,8 @@ package ``repro``) and fails with a non-zero exit on the first problem:
 24. [mesh-train] (after [axes]) ``launch/train.py spmd --devices 2
     --data-axis 2`` as two gloo ranks on cuda:0, the f32 master and
     FedAdam's state sharded over them: zamba2-1.2b at [train-zoo]'s
-    flags (``ssd_intra_chunk`` 38 x n_micro per round on each rank, +38
-    per loss eval on rank 0; master and delta norms within 1e-5 relative
+    flags (``ssd_intra_chunk`` 2 x 38 x n_micro per round on each rank,
+    +38 per loss eval on rank 0; master and delta norms within 1e-5 relative
     of [train-zoo]'s W = 1 run; round 0 rerun bit-identical in the same
     ranks' processes, by fingerprints of every shard) and smollm-360m at
     G = 2 against its W = 1 run; each rank's peak memory, walls and
@@ -148,7 +148,23 @@ package ``repro``) and fails with a non-zero exit on the first problem:
     leaves whole on the model axis bit-identical in each model group, the
     rerun bit-identical, the master's per-leaf deviation from W = 1; the
     f32 round of each reduced config on the same mesh shape within 1e-5
-    of W = 1; walls, peak memory and collectives per rank.
+    of W = 1; walls, peak memory and collectives per rank; in zamba2's
+    ranks, [serve-mesh] (serving on the model axis) and one round of
+    smollm-360m with one client per rank (``client_placement="dp"``, G
+    = 2, each client's model whole on its rank), the master bit-identical
+    to (or within 1e-5 of) the one-process round of G = 2;
+26. [remat] smollm-360m at full width and depth, bf16 client, f32
+    master, one client's microbatch of ``train_4k`` on the 16 x 16 mesh
+    (4 x 4096 tokens, n_micro 1): one round under full rematerialization
+    and one under ``set_remat_policy("dots")``, the masters bit-identical,
+    the dots peak memory at least the full one; both peaks and walls;
+27. [dryrun] ``launch/dryrun.py``'s combinations on the host, in a child
+    process started at the beginning and read at the end: zamba2-1.2b x
+    decode_32k and smollm-360m x train_4k with ``--remat-policy dots
+    --client-placement dp``, on the single pod.
+
+The CUDA C++ kernels' ``nvcc`` build starts in the background when the
+script starts and is waited for before the first CUDA kernel runs.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -857,12 +873,13 @@ def _window_idle_share(run):
     evals only: started at the end of the first eval, stopped at the start
     of the second after a synchronise (the wait the eval's fetch makes
     anyway).  Returns (window ms, device busy ms, idle share), the busy
-    time being the union of the device activities' intervals."""
+    time being the union of the device activities' intervals.  Only the
+    device's activity is recorded: the busy time reads nothing else, and
+    the host ops' events took the profiler ~35 s to gather per window."""
     import torch
     from repro_torch.engine.engine import CohortRunner
     real = CohortRunner.eval_boundary
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     state = {"evals": 0}
 
     def boundary(self, inside):
@@ -1653,19 +1670,47 @@ def _ptxas_summary(text):
     return out
 
 
-def phase_kernels_zoo(dev):
+def start_build():
+    """The CUDA C++ kernels' ``nvcc`` build (``kernels/build.py``: one
+    ``nvcc`` per source, all at once), started in a background thread
+    that runs nothing but those processes; :func:`phase_kernels_zoo`
+    waits for it before the first CUDA kernel runs."""
+    import threading
+    from repro_torch.kernels import build
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            build.build()
+        except BaseException as e:  # noqa: BLE001 — raised at the join
+            box["error"] = e
+        box["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, name="nvcc-build")
+    thread.start()
+    return thread, box
+
+
+def phase_kernels_zoo(dev, build_job):
     """The CUDA C++ kernels vs their plain versions on the card (the
     tolerances of tests/test_kernels.py); returns the max |kernel - plain|
-    per kernel."""
+    per kernel.  ``build_job``: :func:`start_build`'s thread, waited for
+    here."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import flash_attn, ref as fref
     from repro_torch.kernels.ssd_scan import ref as sref, ssd_scan
+    thread, box = build_job
     t0 = time.perf_counter()
+    thread.join()
+    if "error" in box:
+        raise box["error"]
     build.library()
-    t_build = time.perf_counter() - t0
     log(f"[kernels-zoo] nvcc build of kernels/csrc into "
-        f"{build.build_dir().relative_to(ROOT)}: {t_build:.1f} s")
+        f"{build.build_dir().relative_to(ROOT)}: {box['s']:.1f} s in the "
+        f"background from the start; waited {time.perf_counter() - t0:.1f} "
+        f"s for it here")
     for line in _ptxas_summary(build.build_log()):
         log(f"[kernels-zoo]   {line}")
     lib = build.library()
@@ -2231,13 +2276,18 @@ def phase_serve_zoo_small(dev):
 # ---------------------------------------------------------------------------
 
 # (arch, spmd flags): zamba2-1.2b at a sequence of 2 SSM chunks, smollm-360m
-# at the launcher's defaults; 3 rounds each (only the rounds are cut)
+# at the launcher's defaults; 2 rounds each (only the rounds are cut)
 TRAIN_ZOO = {
     "zamba2-1.2b": ["--data-axis", "2", "--n-micro", "2", "--per-micro", "2",
                     "--seq", "256"],
     "smollm-360m": [],
 }
-TRAIN_ROUNDS = 3
+TRAIN_ROUNDS = 2
+# each arch's peak memory and wall per round when the training forward
+# kept every activation (PERF.md section 5), logged beside the
+# rematerialized run's
+TRAIN_ZOO_NO_REMAT = {"zamba2-1.2b": "51.98 GiB, 1.29-2.13 s per round",
+                      "smollm-360m": "17.32 GiB, 2.64-3.80 s per round"}
 TRAIN_GRAD_RTOL = 1e-2          # relative L2 per leaf or input
 # bf16 whole model: the kernel route's gradient no farther from the f32
 # gradient than this many times the plain route's bf16 gradient is
@@ -2441,8 +2491,10 @@ def _ssd_grad_check(args, dev, smi):
                 f"[train-zoo] bf16 grad {path}: kernel route {kernel16:.3e} "
                 f"from the f32 gradient, > {TRAIN_BF16_RATIO} x the plain "
                 f"route's {plain16:.3e}")
-    require(n_kernel == 4 * cfg.n_layers + 1, f"[train-zoo] grad check: "
-            f"{n_kernel} kernel launches, expected 4 x {cfg.n_layers} + 1")
+    # two kernel-route runs, each a no_grad loss and a gradient (its
+    # forward and the backward's recompute), and the block's one launch
+    require(n_kernel == 6 * cfg.n_layers + 1, f"[train-zoo] grad check: "
+            f"{n_kernel} kernel launches, expected 6 x {cfg.n_layers} + 1")
     worst32 = max(zip(f32, paths))
     log(f"[train-zoo] {smi}; zamba2-1.2b gradients through the "
         f"autograd.Function vs through ssd_intra_chunk_ref: SSD block at "
@@ -2501,7 +2553,8 @@ def phase_train_zoo(dev, smi):
                                                               smi)
         cfg = _spmd_cfg(args)
         G, nm = args.data_axis, args.n_micro
-        per_round = (cfg.n_layers * G * args.n_local * nm
+        # every microbatch's forward and the backward's recompute of it
+        per_round = (2 * cfg.n_layers * G * args.n_local * nm
                      if cfg.family == "hybrid" else 0)
         evals = len(range(0, TRAIN_ROUNDS, args.log_every)) + 1
         per_eval = cfg.n_layers if cfg.family == "hybrid" else 0
@@ -2509,7 +2562,8 @@ def phase_train_zoo(dev, smi):
         want[0] += per_eval            # round 0 starts with a loss log
         require(st["launches"] == want, f"[train-zoo] {arch}: "
                 f"ssd_intra_chunk per round {st['launches']}, expected "
-                f"{want} (38 layers x G x n_local x n_micro, no recompute)")
+                f"{want} (2 x 38 layers x G x n_local x n_micro: the "
+                f"forward and its recompute)")
         require(total == TRAIN_ROUNDS * per_round + evals * per_eval,
                 f"[train-zoo] {arch}: {total} launches in all")
         again, _, st2, _, _, _ = _train_spmd_once(arch, flags, smi,
@@ -2534,7 +2588,8 @@ def phase_train_zoo(dev, smi):
             f"{pw * 1e3:.1f} ms wall, {pd * 1e3:.1f} ms of device kernels "
             f"-> device idle share {idle:.3f}, {idle_plain:.3f} against "
             f"the first run's round 1); {tokens} tokens per "
-            f"round; peak memory {peak / 2**30:.2f} GiB; delta_norm "
+            f"round; peak memory {peak / 2**30:.2f} GiB (rematerialized; "
+            f"without it {TRAIN_ZOO_NO_REMAT[arch]}); delta_norm "
             f"{[round(n, 4) for n in st['norms']]}; ssd_intra_chunk "
             f"launches per round {st['launches']} ({total} with the loss "
             f"evals); rerun bit-identical; run wall {wall:.1f} s; the "
@@ -2547,6 +2602,70 @@ def phase_train_zoo(dev, smi):
         refs[arch] = (first, st["norms"])
         del first, again
     return launches, times, refs
+
+
+# [remat]: smollm-360m at full width and depth, bf16 client, f32 master:
+# one client's microbatch of train_4k on the 16 x 16 mesh (256 rows / 16
+# clients / 4 microbatches = 4 rows of 4096 tokens), one round
+REMAT_ARCH = "smollm-360m"
+REMAT_FLAGS = ["--data-axis", "1", "--n-micro", "1", "--per-micro", "4",
+               "--seq", "4096", "--steps", "1"]
+
+
+def phase_remat(smi):
+    """[remat]: one ``run_spmd`` round of ``REMAT_ARCH`` at ``REMAT_FLAGS``
+    under full rematerialization and one under
+    ``set_remat_policy("dots")``: the recompute is the same kernels on the
+    same inputs, so the two masters must be bit-identical; the dots
+    policy keeps the 2-D products' outputs, so its peak memory is at
+    least the full policy's.  Logs both peaks and walls."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.pytree import tree_leaves
+    runs = {}
+    for policy in (None, "dots"):
+        args = _spmd_args(REMAT_ARCH, REMAT_FLAGS)
+        state = {"walls": [], "norms": []}
+
+        def on_round(i, master, metrics):
+            torch.cuda.synchronize()
+            state["walls"].append(time.perf_counter() - state["t"])
+            state["norms"].append(float(metrics["delta_norm"]))
+
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        transformer.set_remat_policy(policy)
+        try:
+            t0 = state["t"] = time.perf_counter()
+            master = train.run_spmd(args, on_round=on_round,
+                                    cfg=_spmd_cfg(args))
+            torch.cuda.synchronize()
+        finally:
+            transformer.set_remat_policy(None)
+        runs[policy] = dict(master=[l.cpu() for l in tree_leaves(master)],
+                            peak=torch.cuda.max_memory_allocated(),
+                            wall=time.perf_counter() - t0, **state)
+        del master
+        _free_card()
+    full, dots = runs[None], runs["dots"]
+    for leaf in full["master"]:
+        require(bool(torch.isfinite(leaf).all()), "[remat] nonfinite master")
+    require(all(torch.equal(a, b) for a, b in
+                zip(full["master"], dots["master"]))
+            and full["norms"] == dots["norms"],
+            "[remat] the dots policy's master differs from the full one's")
+    require(dots["peak"] >= full["peak"], f"[remat] dots peak "
+            f"{dots['peak']} below the full policy's {full['peak']}")
+    cfg = _spmd_cfg(_spmd_args(REMAT_ARCH, REMAT_FLAGS))
+    log(f"[remat] {smi}; {REMAT_ARCH} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.param_dtype} client, f32 master), one client, "
+        f"one round of 1 microbatch of 4 x 4096 tokens: full remat peak "
+        f"{full['peak'] / 2**30:.2f} GiB, round {full['walls'][0]:.3f} s "
+        f"(with init and a loss eval; run {full['wall']:.1f} s); dots peak "
+        f"{dots['peak'] / 2**30:.2f} GiB, round {dots['walls'][0]:.3f} s "
+        f"(run {dots['wall']:.1f} s); masters bit-identical, delta_norm "
+        f"{full['norms'][0]:.6g}")
 
 
 def _small_batch(cfg, b, seq, seed):
@@ -2612,7 +2731,8 @@ def phase_train_zoo_small(dev):
         d = max(float((a - b).abs().max()) for a, b in zip(mc, mg))
         moved = max(float((a.cpu() - b).abs().max()) for a, b in
                     zip(tree_leaves(p_cpu), mc))
-        want = cfg.n_layers * G * NM if cfg.family == "hybrid" else 0
+        # the forward and the backward's recompute of each microbatch
+        want = 2 * cfg.n_layers * G * NM if cfg.family == "hybrid" else 0
         require(d <= 1e-4, f"[train-zoo-small] {arch}: params differ by {d}")
         require(abs(ng - nc) <= 1e-4 * nc, f"[train-zoo-small] {arch}: "
                 f"delta_norm {ng} vs {nc}")
@@ -2702,27 +2822,60 @@ MESH_BOOKKEEPING = ("times", "server_version", "update_counts", "staleness",
                     "fault_events", "dropouts")
 
 
-def _mesh_spawn(fn, world, *args):
-    """Start ``world`` ranks of ``fn(rank, port, *args)`` with ``spawn``
-    and wait for them (a rank that fails fails the phase).  The ranks'
-    CUDA allocator grows expandable segments (two full-width zamba2
-    ranks share one card with this process: fragmentation would cost
-    them ~7 GiB each), and this process first frees its cached blocks."""
-    import torch.multiprocessing as mp
-    from repro_torch.launch.collectives import free_port
-    _free_card()
-    env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+# what the ranks' server process imports once, for every rank forked from
+# it (on the card machine's host: torch ~7 s, and torch._dynamo 8-9 s,
+# which the rematerialized training forward's first torch.utils.checkpoint
+# call imports); none of it touches the card
+RANK_PRELOAD = ["numpy", "torch", "torch.distributed", "torch._dynamo",
+                "torch.utils.checkpoint"]
+# the ranks' CUDA allocator grows expandable segments (two full-width
+# zamba2 ranks share one card with this process: fragmentation would cost
+# them ~7 GiB each)
+RANK_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+
+
+def start_rank_server():
+    """Start (once) the ``forkserver`` process the ranks are forked from:
+    it imports ``RANK_PRELOAD`` beside this process's phases, so a rank
+    starts with them imported; its environment, which the ranks inherit,
+    has ``RANK_ENV``."""
+    import multiprocessing
+    from multiprocessing import forkserver
+    multiprocessing.set_forkserver_preload(RANK_PRELOAD)
+    old = {k: os.environ.get(k) for k in RANK_ENV}
+    os.environ.update(RANK_ENV)
     try:
-        mp.start_processes(fn, args=(free_port(),) + args, nprocs=world,
-                           start_method="spawn")
+        forkserver.ensure_running()
     finally:
         for k, v in old.items():
             if v is None:
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
+
+
+def _mesh_spawn(fn, world, *args, during=None):
+    """Start ``world`` ranks of ``fn(rank, port, *args)``, forked from the
+    rank server (:func:`start_rank_server`), and wait for them (a rank
+    that fails fails the phase); this process first frees its cached
+    blocks.  ``during``: work of this process run while the ranks run
+    (returned; the ranks are killed if it raises)."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.collectives import free_port
+    _free_card()
+    start_rank_server()
+    ctx = mp.start_processes(fn, args=(free_port(),) + args, nprocs=world,
+                             start_method="forkserver", join=False)
+    try:
+        got = during() if during is not None else None
+        while not ctx.join():
+            pass
+    except BaseException:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+        raise
+    return got
 
 
 def _rank_setup(rank, world, port, backend, join=True):
@@ -2789,7 +2942,8 @@ def _mesh_main_rank(rank, port, world, backend, out, model=1):
         runner.run_cohort(plans)
         res["partition"] = assert_cohort_partitioned(runner.last_partition,
                                                      mesh)
-        torch.save(res, out / f"rank{rank}.pt")
+        torch.save(res, out / f"rank{rank}.pt",
+                   _use_new_zipfile_serialization=False)
     finally:
         dist.destroy_process_group()
 
@@ -3101,7 +3255,8 @@ def _mesh_train_rank(rank, port, world, backend, arch, flags, out,
         again = run(1, rerun_port)
         res["rerun"] = {k: again[k] for k in ("norms", "prints", "walls",
                                               "wall")}
-    torch.save(res, out / f"rank{rank}.pt")
+    torch.save(res, out / f"rank{rank}.pt",
+               _use_new_zipfile_serialization=False)
 
 
 def _mesh_train_ranks(arch, flags, world, backend, rerun):
@@ -3138,10 +3293,11 @@ MESH_TRAIN = (
 
 def phase_mesh_train(smi, refs):
     """[mesh-train]: ``launch/train.py spmd --devices W --data-axis W`` at
-    full width and depth, 3 rounds, the f32
+    full width and depth, 2 rounds, the f32
     master and FedAdam's state sharded over the ranks (``MESH_TRAIN``).
-    Requires ssd_intra_chunk launched on each rank n_layers x n_micro per
-    round and client plus n_layers per loss eval on rank 0, the ranks'
+    Requires ssd_intra_chunk launched on each rank 2 x n_layers x n_micro
+    per round and client (the forward and its recompute) plus n_layers per
+    loss eval on rank 0, the ranks'
     delta norms equal, the master and delta norms within 1e-5 (relative)
     of the W = 1 run from the same seed at W = 2 (``refs[arch]``:
     [train-zoo]'s first zamba2 run for the full-depth NCCL entry; the
@@ -3169,8 +3325,8 @@ def phase_mesh_train(smi, refs):
         require(args.data_axis == world, f"[mesh-train] {arch}: G != W")
         ranks, wall = _mesh_train_ranks(arch, flags, world, backend, rerun)
         hybrid = cfg.family == "hybrid"
-        per_round = (cfg.n_layers * (args.data_axis // world) * args.n_local
-                     * args.n_micro if hybrid else 0)
+        per_round = (2 * cfg.n_layers * (args.data_axis // world)
+                     * args.n_local * args.n_micro if hybrid else 0)
         evals = len(range(0, TRAIN_ROUNDS, args.log_every)) + 1
         for r, res in enumerate(ranks):
             want = [per_round] * TRAIN_ROUNDS
@@ -3255,6 +3411,10 @@ MESH_MODEL_MORE = (
     ("phi-3-vision-4.2b", ["--steps", "1", DEPTH, "8"], 2, 1, False),
 )
 MESH_MODEL_ROUNDS = 2         # unless the entry's flags say --steps
+# entries whose W = 1 runs go on in this process while their gloo ranks
+# run (W = 1's peak and the ranks' fit the card together: 16 + 4 x 5.6
+# and 20 + 2 x 10 GiB); their W = 1 walls are read beside the ranks
+MESH_MODEL_BESIDE = ("smollm-360m", "xlstm-350m")
 MESH_MODEL_SMALL = dict(G=2, n_micro=2, seq=32)
 # the bounds at full width, set between the sound readings and a control
 # whose tp_copy backward drops its all-reduce
@@ -3446,7 +3606,8 @@ def _full_width_bounds(arch, args, cfg, got, ref, grad, grad_ref):
 
 
 def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
-                     rerun_port, small_port, grad=True, serve=None):
+                     rerun_port, small_port, grad=True, serve=None,
+                     dp_port=None):
     """One rank of [mesh-model]: ``run_spmd`` on a data x model mesh through
     ``launch.train.spmd_rank`` (gloo, every rank on cuda:0), recording
     each ssd_intra_chunk launch's head count and holding the first launch
@@ -3455,8 +3616,9 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
     reduced round of the same family on the same mesh shape and the f32
     gradient of one microbatch at full width (``_full_grad``); with
     ``serve`` (W = 1's tokens of each ``SERVE_MESH`` entry), [serve-mesh]
-    on the same mesh (``_serve_mesh_ranks``).  Saves what it measured to
-    ``out/rank<r>.pt``."""
+    on the same mesh (``_serve_mesh_ranks``); with ``dp_port``, one round
+    of ``MESH_MODEL_DP`` with one client per rank (``_mesh_dp_run``).
+    Saves what it measured to ``out/rank<r>.pt``."""
     device = _rank_setup(rank, world, port, backend, join=False)
     import torch
     import torch.distributed as dist
@@ -3536,7 +3698,112 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
             res["serve_wall"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
-    torch.save(res, out / f"rank{rank}.pt")
+    if dp_port is not None:
+        _free_card()
+        res["dp"] = _mesh_dp_run(rank, world, data, backend, dp_port)
+    torch.save(res, out / f"rank{rank}.pt",
+               _use_new_zipfile_serialization=False)
+
+
+# [mesh-model]'s one-client-per-rank round (``client_placement="dp"``),
+# in the ranks of the zamba2-1.2b entry (data 1 x model 2): one round of
+# smollm-360m at full width and depth at the launcher's defaults, G = the
+# ranks, each client's model whole on its rank; held to the one-process
+# round of the same G
+MESH_MODEL_DP = ("smollm-360m", ["--steps", "1"])
+
+
+def _mesh_dp_args(world, data, placement=True):
+    arch, flags = MESH_MODEL_DP
+    extra = (["--devices", str(world), "--data-axis", str(data)]
+             if placement else ["--data-axis", str(world)])
+    return _spmd_args(arch, flags + extra)
+
+
+def _mesh_dp_run(rank, world, data, backend, port):
+    """This rank's run of the ``MESH_MODEL_DP`` round through
+    ``launch.train.spmd_rank``: its delta norm, wall, peak memory and
+    collectives, and on rank 0 the whole final master."""
+    import torch
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import train
+    from repro_torch.pytree import tree_leaves
+    args = _mesh_dp_args(world, data)
+    norms = []
+    torch.cuda.reset_peak_memory_stats()
+    coll.reset_stats()
+    t0 = time.perf_counter()
+    whole = train.spmd_rank(
+        args, rank, port, backend=backend, cfg=_spmd_cfg(args),
+        client_placement="dp",
+        on_round=lambda i, m, met: norms.append(float(met["delta_norm"])))
+    torch.cuda.synchronize()
+    res = dict(norms=norms, wall=time.perf_counter() - t0,
+               peak=torch.cuda.max_memory_allocated(),
+               collectives=coll.stats())
+    if rank == 0:
+        res["master"] = [l.cpu() for l in tree_leaves(whole)]
+    return res
+
+
+def _mesh_dp_ref(world, data):
+    """The one-process round of ``MESH_MODEL_DP`` at G = ``world``: its
+    whole final master on the CPU, delta norms, wall and peak."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.pytree import tree_leaves
+    args = _mesh_dp_args(world, data, placement=False)
+    norms = []
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    master = train.run_spmd(
+        args, cfg=_spmd_cfg(args),
+        on_round=lambda i, m, met: norms.append(float(met["delta_norm"])))
+    torch.cuda.synchronize()
+    ref = dict(master=[l.cpu() for l in tree_leaves(master)], norms=norms,
+               wall=time.perf_counter() - t0,
+               peak=torch.cuda.max_memory_allocated())
+    del master
+    _free_card()
+    return ref
+
+
+def _mesh_dp_check(smi, ref, ranks, world, data):
+    """The ``MESH_MODEL_DP`` round on the ranks against the one-process
+    round of the same G (``ref``: its master and delta norms): bit-identical,
+    or within ``MESH_TIGHT``; equal delta norms on every rank."""
+    import torch
+    got = [r["dp"] for r in ranks]
+    for leaf in got[0]["master"]:
+        require(bool(torch.isfinite(leaf).all()),
+                "[mesh-model] dp: nonfinite master")
+    same = all(torch.equal(a, b) for a, b in zip(got[0]["master"],
+                                                 ref["master"]))
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(got[0]["master"], ref["master"]))
+    require(same or worst <= MESH_TIGHT, f"[mesh-model] dp: master "
+            f"{worst:.3e} from the one-process round")
+    for r, res in enumerate(got):
+        require(res["norms"] == got[0]["norms"], f"[mesh-model] dp rank "
+                f"{r}: delta norms differ")
+    rel = abs(got[0]["norms"][0] - ref["norms"][0]) / ref["norms"][0]
+    require(rel <= MESH_TIGHT, f"[mesh-model] dp: delta_norm {rel:.3e} "
+            "from the one-process round")
+    arch = MESH_MODEL_DP[0]
+    log(f"[mesh-model] {smi}; {arch} client_placement dp on (data "
+        f"{data}, model {world // data}), {world} gloo ranks on one card, "
+        f"G={world} (one client per rank, its model whole there), one "
+        f"round, full depth: master "
+        + ("bit-identical to" if same else f"{worst:.3e} from")
+        + f" the one-process round of G={world} (delta_norm {rel:.3e}); "
+        f"one process {ref['wall']:.1f} s, peak {ref['peak'] / 2**30:.2f} "
+        f"GiB; per rank " + "; ".join(
+            f"rank {r} run {res['wall']:.1f} s, peak "
+            f"{res['peak'] / 2**30:.2f} GiB, collectives (calls, bytes, s) "
+            + str({k: (v['calls'], v['bytes'], round(v['seconds'], 2))
+                   for k, v in res['collectives'].items()})
+            for r, res in enumerate(got)))
 
 
 def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
@@ -3546,7 +3813,8 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
     or the depth cut the entry's ``DEPTH`` makes, logged), every rank
     a gloo process on the one card, 2 rounds (or the entry's
     ``--steps``); the same run at W = 1 (``--devices 1``) in this
-    process is the reference.  Requires
+    process is the reference (for ``MESH_MODEL_BESIDE``'s entries, run
+    while their ranks run).  Requires
     per rank: ssd_intra_chunk launched per round as often as the W = 1
     run per client, at H / 2 = 32 heads, its first launch within the
     bf16 tolerance of the plain version on the same inputs; the ranks'
@@ -3586,29 +3854,38 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
         hybrid = cfg.family == "hybrid"
         require(reference or not hybrid, f"[mesh-model] {arch}: the hybrid's "
                 "launch check needs the W = 1 run")
-        ref = None
-        if reference:
-            ref, _, st, ref_peak, _, _ = _train_spmd_once(
-                arch, _mesh_model_flags(flags, 1, data), smi)
         whole_depth = get_config(arch)
         depth = (f"depth cut to {cfg.n_layers} of {whole_depth.n_layers} "
                  f"layers" if args.depth else "full depth")
         log(f"[mesh-model] {arch}: {depth}, full width, "
             f"{cfg.param_dtype} clients")
-        small_ref, small_dn, small_n = _small_tp_round(arch, "cuda")
-        grad_ref = (_full_grad(arch, flags, world, data, "cuda")
+
+        def w1(arch=arch, flags=flags, world=world, data=data):
+            """This entry's W = 1 runs, in this process."""
+            run = (_train_spmd_once(arch, _mesh_model_flags(flags, 1, data),
+                                    smi) if reference else (None,) * 6)
+            return (run, _small_tp_round(arch, "cuda"),
+                    _full_grad(arch, flags, world, data, "cuda")
                     if reference else None)
-        serve_refs = None
+
+        beside = backend == "gloo" and arch in MESH_MODEL_BESIDE
+        refs = None if beside else w1()
+        serve_refs = dp_ref = None
         if serve and arch == "zamba2-1.2b":
             t0 = time.perf_counter()
             serve_refs = _serve_mesh_refs()
             log(f"[serve-mesh] W=1 runs {time.perf_counter() - t0:.1f} s")
+            dp_ref = _mesh_dp_ref(world, data)
         _free_card()
         t0 = time.perf_counter()
-        _mesh_spawn(_mesh_model_rank, world, world, backend, arch, flags,
-                    data, out, free_port() if rerun else None, free_port(),
-                    reference, None if serve_refs is None
-                    else [r["tokens"] for r in serve_refs])
+        got = _mesh_spawn(_mesh_model_rank, world, world, backend, arch,
+                          flags, data, out, free_port() if rerun else None,
+                          free_port(), reference, None if serve_refs is None
+                          else [r["tokens"] for r in serve_refs],
+                          None if dp_ref is None else free_port(),
+                          during=w1 if beside else None)
+        (ref, _, st, ref_peak, _, _), (small_ref, small_dn, small_n), \
+            grad_ref = refs or got
         ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
                  for r in range(world)]
         wall = time.perf_counter() - t0
@@ -3628,7 +3905,7 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
         # a rank runs G / data clients, and every rank evaluates the loss
         w1_launches = st["launches"] if reference else [0]
         per_client = w1_launches[-1] // args.data_axis
-        require(per_client == (cfg.n_layers * args.n_local * args.n_micro
+        require(per_client == (2 * cfg.n_layers * args.n_local * args.n_micro
                                if hybrid else 0),
                 f"[mesh-model] {arch} W=1: {w1_launches} launches")
         want = [per_client * (args.data_axis // data)] * args.steps
@@ -3665,11 +3942,15 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
                                 f"[mesh-model] {arch}: leaf {j} (whole on "
                                 f"the model axis) differs in the model "
                                 f"group of rank {lead}")
+        # the walls of an entry whose W = 1 run goes on beside its ranks
+        # are taken with both on the card and the host at once
+        overlap = (" (overlapped: W=1 ran beside the ranks on the same "
+                   "card and host)" if beside else "")
         if reference:
             rel_n = max(abs(a - b) / abs(b) for a, b in
                         zip(ranks[0]["norms"], st["norms"]))
             w1 = (f"delta_norm {rel_n:.3e} from W=1; W=1 walls "
-                  f"{[round(w, 3) for w in st['walls']]} s, peak "
+                  f"{[round(w, 3) for w in st['walls']]} s{overlap}, peak "
                   f"{ref_peak / 2**30:.2f} GiB")
         else:
             w1 = "no W=1 run at full width (its round does not fit a card)"
@@ -3714,17 +3995,20 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
                      for k, v in res["collectives"].items()}
             log(f"[mesh-model] {arch} rank {r}: walls per round "
                 f"{[round(w, 3) for w in res['walls']]} s (round 0 with "
-                f"init and a loss eval), run {res['wall']:.1f} s of which "
-                f"{coll_s:.1f} s in collectives (host clock), peak memory "
+                f"init and a loss eval){overlap}, run {res['wall']:.1f} s "
+                f"of which {coll_s:.1f} s in collectives (host clock), "
+                f"peak memory "
                 f"{res['peak'] / 2**30:.2f} GiB, collectives (calls, "
                 f"bytes) {calls}")
+        if dp_ref is not None:
+            _mesh_dp_check(smi, dp_ref, ranks, world, data)
         if serve_refs is not None:
             launches["flash_decode"] += _serve_mesh_check(
                 smi, serve_refs, ranks, max(r["serve_wall"] for r in ranks))
             for r, res in enumerate(ranks):
                 launches["ssd_intra_chunk"] += sum(
                     e["ssd"] for e in res["serve"])
-        del ranks, ref, grad_ref, serve_refs
+        del ranks, ref, grad_ref, serve_refs, dp_ref
         _free_card()
     return launches
 
@@ -3736,13 +4020,13 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
 # steps, held to W = 1's logits): zamba2 in f32 runs ssd_intra_chunk on 32
 # of its 64 SSM heads in the prefill and flash_decode on 16 of its 32 kv
 # heads; smollm-360m's 5 kv heads do not divide 2, so its K/V blocks are
-# cut on head_dim and gathered whole for each step; zamba2 in bf16 at
-# [serve]'s batch gives the numbers (bf16 rounding moves a deep random
-# model far from f32: PERF.md section 6), so only finite logits,
-# launches and cache bytes are required of it
+# cut on head_dim and gathered whole for each step; zamba2 in bf16 gives
+# the numbers at 2 rows (bf16 rounding moves a deep random model far from
+# f32: PERF.md section 6), so only finite logits, launches and cache bytes
+# are required of it
 SERVE_MESH = (("zamba2-1.2b", "float32", 2, 2048, 16, True),
               ("smollm-360m", "float32", 2, 2048, 16, True),
-              ("zamba2-1.2b", "bfloat16", 8, 2048, 16, False))
+              ("zamba2-1.2b", "bfloat16", 2, 2048, 16, False))
 SERVE_MESH_TOL = 1e-3            # [serve-zoo-small]'s bound
 SERVE_MESH_SEED = 5
 
@@ -3937,18 +4221,66 @@ def _serve_mesh_check(smi, refs, ranks, wall, entries=SERVE_MESH,
     return launches
 
 
-def phase_dryrun(smi):
-    """[dryrun]: ``launch/dryrun.py``'s one combination on the host: the
-    card machine's torch has the fake process group; the JSON's memory,
-    FLOPs and collectives."""
+# [dryrun]'s combinations: (arch, shape, run_one's knobs)
+DRYRUN = (("zamba2-1.2b", "decode_32k", {}),
+          ("smollm-360m", "train_4k", {"remat_policy": "dots",
+                                       "client_placement": "dp"}))
+DRYRUN_OUT = ROOT / "build" / "dryrun_smoke.json"
+
+
+def _dryrun_child():
+    """The child process of [dryrun]: every ``DRYRUN`` combination, the
+    results written to ``DRYRUN_OUT``."""
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import dryrun
-    t0 = time.perf_counter()
-    res = dryrun.run_one("zamba2-1.2b", "decode_32k", "single")
-    require(res["status"] == "ok", f"[dryrun] {res.get('error')}")
-    log(f"[dryrun] zamba2-1.2b x decode_32k x single (rank 0 of a fake "
-        f"group of 256, meta tensors): memory {res['memory']}, flops "
-        f"{res['cost']['flops']}, collectives {res['collectives']}; "
-        f"{time.perf_counter() - t0:.1f} s")
+    out = []
+    for arch, shape, kw in DRYRUN:
+        t0 = time.perf_counter()
+        res = dryrun.run_one(arch, shape, "single", **kw)
+        res["wall_s"] = time.perf_counter() - t0
+        out.append(res)
+    DRYRUN_OUT.write_text(json.dumps(out))
+
+
+def start_dryrun():
+    """[dryrun], started: ``launch/dryrun.py``'s combinations in a child
+    process on the host (the card machine's torch has the fake process
+    group), beside the phases on the card."""
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_OUT.unlink(missing_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke._dryrun_child()"], cwd=str(ROOT), env=env), \
+        time.perf_counter()
+
+
+def phase_dryrun(smi, started):
+    """[dryrun], read: each combination ``"ok"``; the JSON's memory,
+    FLOPs and collectives (the train combination: one client per rank,
+    ``n_micro`` capped at its one row, the dots policy)."""
+    proc, t0 = started
+    t_wait = time.perf_counter()
+    rc = proc.wait(timeout=600)
+    require(rc == 0 and DRYRUN_OUT.exists(), f"[dryrun] child exit {rc}")
+    results = json.loads(DRYRUN_OUT.read_text())
+    DRYRUN_OUT.unlink()
+    for (arch, shape, kw), res in zip(DRYRUN, results):
+        require(res["status"] == "ok", f"[dryrun] {arch} x {shape} {kw}: "
+                f"{res.get('error')}")
+        if shape == "train_4k":
+            require(res["client_placement"] == "dp"
+                    and res["remat_policy"] == "dots"
+                    and res["n_micro"] == 1,
+                    f"[dryrun] {arch} x {shape}: {res['client_placement']}, "
+                    f"{res['remat_policy']}, n_micro {res['n_micro']}")
+        log(f"[dryrun] {arch} x {shape} x single {kw} (rank 0 of a fake "
+            f"group of 256, meta tensors): memory {res['memory']}, flops "
+            f"{res['cost']['flops']}, collectives {res['collectives']}; "
+            f"trace {res['trace_s']} s, {res['wall_s']:.1f} s in the child")
+    log(f"[dryrun] the child ran {time.perf_counter() - t0:.1f} s beside "
+        f"the card's phases; waited {time.perf_counter() - t_wait:.1f} s "
+        f"for it at the end")
 
 
 def main():
@@ -3956,6 +4288,19 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
     dev, smi = phase_device()
+    start_rank_server()
+    build_job = start_build()
+    dry = start_dryrun()
+    try:
+        _phases(dev, smi, t_start, build_job, dry)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+        build_job[0].join()
+
+
+def _phases(dev, smi, t_start, build_job, dry):
     errs = phase_kernels(dev)
     times = phase_times(dev, smi)
     launches, main_runs = phase_main_path()
@@ -3982,7 +4327,7 @@ def main():
     for name, n in mesh_launches.items():
         launches[name] += n
     log(f"[mesh-main] phase wall {time.perf_counter() - t0:.1f} s")
-    errs.update(phase_kernels_zoo(dev))
+    errs.update(phase_kernels_zoo(dev, build_job))
     times.update(phase_times_zoo(dev, smi))
     params, cfg, tokens, logits, toks, serve_launches = phase_serve(dev, smi)
     launches.update(serve_launches)
@@ -4003,6 +4348,8 @@ def main():
     train_launches, _, train_refs = phase_train_zoo(dev, smi)
     t1 = time.perf_counter()
     launches["ssd_intra_chunk"] += train_launches
+    phase_remat(smi)
+    t_remat = time.perf_counter()
     phase_train_zoo_small(dev)
     t2 = time.perf_counter()
     phase_axes(smi)
@@ -4015,9 +4362,10 @@ def main():
     for name, n in mesh_model_launches.items():
         launches[name] += n
     t5 = time.perf_counter()
-    phase_dryrun(smi)
-    log(f"[train-zoo] phase walls: [train-zoo] {t1 - t0:.1f} s, "
-        f"[train-zoo-small] {t2 - t1:.1f} s, [axes] {t3 - t2:.1f} s, "
+    phase_dryrun(smi, dry)
+    log(f"[train-zoo] phase walls: [train-zoo] {t1 - t0:.1f} s, [remat] "
+        f"{t_remat - t1:.1f} s, "
+        f"[train-zoo-small] {t2 - t_remat:.1f} s, [axes] {t3 - t2:.1f} s, "
         f"[mesh-train] {t4 - t3:.1f} s, [mesh-model] with [serve-mesh] "
         f"{t5 - t4:.1f} s, [dryrun] {time.perf_counter() - t5:.1f} s; "
         f"ssd_intra_chunk launches: serving "

@@ -20,9 +20,11 @@ One ``fl_train_step`` = one federated round:
      the gradient.
 
 Gradients come from ``torch.autograd.grad`` over the family's ``loss``.
-The JAX models wrap their layers in ``jax.checkpoint``; the port keeps
-every activation (no recomputation), so each Mamba2 layer launches
-``ssd_intra_chunk`` once per microbatch forward.
+As the JAX models wrap their layers in ``jax.checkpoint``, the port's
+families rematerialize their training forwards (``models.layers.remat``:
+each layer, segment or period, and each loss chunk), so each Mamba2
+layer launches ``ssd_intra_chunk`` twice per microbatch: in the forward
+and in the backward's recompute.
 
 Noise: ``jax.random`` streams cannot be replayed by ``torch.Generator``.
 Each client draws from its own generator, leaf by leaf in the flat
@@ -72,10 +74,27 @@ runs the same clients together, tensor-parallel
     one-process round's;
   * ``delta_norm`` adds each leaf's blocks over the axes that cut it.
 
+With client shardings of ``role="client_all_axes"`` (the reference's
+``--client-placement dp``: the stacked client dim split over the data
+axes and the model axis together) each rank of the mesh runs its own
+clients, G a multiple of all the mesh's ranks, client c on the rank at
+position c // (G / ranks) in (data, model) order:
+
+  * the compute-dtype master is gathered whole on every rank, over the
+    data axes and the model axis (:func:`gather_master`);
+  * the local phase runs each client's model whole on its rank: no model
+    group, and the layers' mesh context is set aside for it (the
+    reference's ``attn_axis="none"``);
+  * the weighted delta sum over every rank is left on the master's
+    blocks (reduce-scattered over the data group, then over the model
+    group on the leaves the model axis cuts, all-reduced there on the
+    others), and ``delta_norm`` adds each leaf's blocks once.
+
 Without a process group (W = 1) the shardings change nothing.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable
 
@@ -85,7 +104,8 @@ import torch
 from repro_torch.core.dp import DPConfig
 from repro_torch.launch import collectives as coll
 from repro_torch.launch.mesh import num_client_groups, require_runnable
-from repro_torch.launch.shardings import block, data_dim, model_dim
+from repro_torch.launch.shardings import (block, client_all_axes, data_dim,
+                                         model_dim)
 from repro_torch.models import layers as L
 from repro_torch.optim.optimizers import SGD, Adam
 from repro_torch.pytree import tree_leaves, tree_map, tree_unflatten_like
@@ -329,30 +349,39 @@ def gather_master(tree, master_shardings):
 
 
 def _round_mesh(fl: FLStepConfig, client_shardings, master_shardings):
-    """The mesh of the shardings (None without), checked runnable, and
-    the client split: every client leaf split on its
-    leading dim, G a multiple of the data-axis product."""
+    """(mesh of the shardings (None without), checked runnable; whether
+    the clients span every axis) and the client split: every client leaf
+    split on its leading dim, G a multiple of the data-axis product, or
+    with ``role="client_all_axes"`` shardings of all the mesh's ranks."""
     shs = (_sharding_leaves(client_shardings)
            + _sharding_leaves(master_shardings))
     if not shs:
-        return None
+        return None, False
     mesh = shs[0].mesh
     if any(s.mesh != mesh for s in shs):
         raise ValueError("client and master shardings lie on different "
                          "meshes")
     require_runnable(mesh)
-    for s in _sharding_leaves(client_shardings):
+    clients = _sharding_leaves(client_shardings)
+    for s in clients:
         if data_dim(s) != 0:
             raise ValueError(
                 f"client sharding {s.spec} does not split the leading "
                 "client dim over the data axis")
-    w = num_client_groups(mesh)
+    spans = {client_all_axes(s) for s in clients}
+    if len(spans) > 1:
+        raise ValueError("some client shardings span the model axis and "
+                         "some do not")
+    all_axes = spans == {True}
+    w = mesh.size if all_axes else num_client_groups(mesh)
     if fl.num_clients % w:
+        what = ("all the mesh's ranks" if all_axes
+                else "the data-axis product")
         raise ValueError(
-            f"num_clients G={fl.num_clients} is not a multiple of the "
-            f"data-axis product {w}: the clients cannot split over it")
+            f"num_clients G={fl.num_clients} is not a multiple of "
+            f"{what} {w}: the clients cannot split over it")
     master_dims(master_shardings)       # validates the master specs
-    return mesh
+    return mesh, all_axes
 
 
 def _sum_blocks(sq, split, group):
@@ -388,15 +417,26 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
     (``models.layers.set_mesh_context``).
     """
     G = fl.num_clients
-    mesh = _round_mesh(fl, client_shardings, master_shardings)
+    mesh, all_axes = _round_mesh(fl, client_shardings, master_shardings)
     group = mesh.group if mesh is not None else None
-    w = num_client_groups(mesh) if group is not None else 1
     dims = master_dims(master_shardings)
-    model = None
+    # the model axis: the local phase's (tensor parallelism inside each
+    # client), or with the clients over every axis only the master's
+    # blocks, which the delta sum and its norm cover
+    blocks = model = None
     if group is not None and mesh.shape["model"] > 1:
-        model = ModelAxis(mesh.model_group, mesh.model_rank,
-                          mesh.shape["model"],
-                          tuple(master_model_dims(master_shardings)))
+        blocks = ModelAxis(mesh.model_group, mesh.model_rank,
+                           mesh.shape["model"],
+                           tuple(master_model_dims(master_shardings)))
+        model = None if all_axes else blocks
+    if group is None:
+        w, r = 1, 0
+    elif all_axes:
+        w = mesh.size
+        r = mesh.rank * mesh.shape["model"] + mesh.model_rank
+    else:
+        w, r = num_client_groups(mesh), mesh.rank
+    mine = range(r * G // w, (r + 1) * G // w)
     server_opt = make_server_optimizer(fl)
     cdtype = getattr(torch, fl.compute_dtype)
     local_phase = make_local_phase(loss_fn, fl, model)
@@ -410,22 +450,24 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
                 "models.layers.set_mesh_context(mesh, cfg=cfg)")
         master_c = tree_map(lambda m: m.to(cdtype), master)
         leaf_dims = dims or [None] * len(tree_leaves(master))
-        if group is not None:
+        if all_axes:
+            # the broadcast: each client whole on its rank
+            master_c = gather_master(master_c, master_shardings)
+        elif group is not None:
             # the broadcast: the compute-dtype shards all-gathered over the
             # data axis (each rank keeps its model blocks)
             master_c = coll.all_gather_tree(master_c, leaf_dims, group)
         cbatch = tree_map(
             lambda x: split_batch(x, G, fl.n_local, fl.n_micro), batch)
         sources = client_noise(key, G, device)
-        r = mesh.rank if group is not None else 0
-        mine = range(r * G // w, (r + 1) * G // w)
         deltas = []
-        for g in mine:
-            new = local_phase(master_c, tree_map(lambda x: x[g], cbatch),
-                              sources[g])
-            deltas.append(tree_map(lambda n, s: n.float() - s.float(),
-                                   new, master_c))
-            del new
+        with L.no_mesh_context() if all_axes else contextlib.nullcontext():
+            for g in mine:
+                new = local_phase(master_c, tree_map(lambda x: x[g], cbatch),
+                                  sources[g])
+                deltas.append(tree_map(lambda n, s: n.float() - s.float(),
+                                       new, master_c))
+                del new
         del master_c
         if dp.granularity == "client_level":
             # per-client global norms across ALL leaves, then one noise
@@ -458,6 +500,10 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
         if group is not None:
             # the sum over ranks, left on the master's shards
             agg = coll.reduce_scatter_tree(agg, leaf_dims, group)
+        if all_axes and blocks is not None:
+            # ... and over the model group, left on the model blocks
+            agg = coll.reduce_scatter_tree(agg, list(blocks.dims),
+                                           blocks.group)
         # server update: FedAdam treats -Delta as the gradient
         neg = tree_map(torch.neg, agg)
         new_master, new_opt_state = server_opt.update(neg, opt_state, master)
@@ -466,9 +512,9 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
             # each leaf's sum over the blocks of the axes that cut it; a
             # leaf whole on an axis counts once there
             sq = _sum_blocks(sq, [d is not None for d in leaf_dims], group)
-        if model is not None:
-            sq = _sum_blocks(sq, [d is not None for d in model.dims],
-                             model.group)
+        if blocks is not None:
+            sq = _sum_blocks(sq, [d is not None for d in blocks.dims],
+                             blocks.group)
         metrics = {"delta_norm": torch.sqrt(sum(sq)), "weight_sum": wsum}
         return new_master, new_opt_state, metrics
 

@@ -31,16 +31,27 @@ reference's:
   with no buffer reuse, where XLA's is the compiled program's;
 * ``cost.flops``: ``torch.utils.flop_counter.FlopCounterMode``'s count
   of the rank's matrix products (the plain kernels' products counted as
-  the kernels' own contractions); XLA's also counts elementwise work;
+  the kernels' own contractions), the backward's recompute of every
+  rematerialized unit included, as XLA's count includes it; XLA's also
+  counts elementwise work;
 * ``collectives``: ``{"bytes", "counts"}`` per kind, from
   ``collectives.stats()``: every call the rank makes, each one's input
   bytes (XLA's parse sums each op's output bytes, once per static op);
 * ``walk``, ``hlo_ops``: None; the HLO walker (``analysis/hlo.py``) is
   ROADMAP.md queue 1 item 15.
 
-The reference's knobs the port lacks (``--remat-policy dots``,
-``--client-placement dp``, ``--attn-shard heads_padded``) raise, naming
-ROADMAP.md queue 1 item 19, part 4.
+The reference's training knobs: ``--remat-policy dots``
+(``models.transformer.set_remat_policy``: the dense and VLM layers save
+their 2-D matrix products; every family rematerializes its training
+forward whatever the policy) and ``--client-placement dp`` (one client
+per rank, G = all the mesh's ranks, each client's model whole on its
+rank: ``role="client_all_axes"`` client shardings in
+``core/fl_step.py``).  On ``train_4k``'s 256 rows that is one row per
+client on the single pod, so the placement caps ``--n-micro`` at the
+rows a client has (the reference's own ``split_batch`` refuses 1 row in
+4 microbatches); the JSON records the ``n_micro`` run, the policy and
+the placement.  ``--attn-shard heads_padded`` (padded uneven heads)
+raises, naming ROADMAP.md queue 1 item 19, part 4.
 """
 from __future__ import annotations
 
@@ -63,7 +74,8 @@ NOTES = {
               "buffer reuse; the plain kernels' temporaries count, which "
               "the CUDA kernels do not make), not XLA's compiled temp",
     "flops": "FlopCounterMode: matrix products only (plain kernels' "
-             "products counted as the kernels' contractions)",
+             "products counted as the kernels' contractions), the "
+             "backward's recompute included",
     "collectives": "every call this rank makes, bytes of its input "
                    "buffers per call",
 }
@@ -107,20 +119,39 @@ def _meta_noise(client, step, leaf, shape):
     return torch.empty(tuple(shape), device="meta")
 
 
-def build_train(arch_id, cfg, shape, mesh, n_micro: int = 4):
+def client_groups(mesh, client_placement: str = "tp") -> int:
+    """G of the round: the data-axis product, or with ``"dp"`` all the
+    mesh's ranks (the reference's ``build_train``)."""
+    from repro_torch.launch.mesh import num_client_groups
+    return mesh.size if client_placement == "dp" else num_client_groups(mesh)
+
+
+def train_micro(shape, G: int, n_micro: int, client_placement: str) -> int:
+    """The microbatches per local step: ``n_micro``, capped under the
+    ``"dp"`` placement at the rows a client has."""
+    if client_placement == "dp":
+        return max(1, min(n_micro, shape.global_batch // G))
+    return n_micro
+
+
+def build_train(arch_id, cfg, shape, mesh, n_micro: int = 4,
+                client_placement: str = "tp"):
     """The production round (``core/fl_step.py``) on ``mesh``: -> (step,
-    its arguments, the bytes of this rank's input blocks)."""
+    its arguments, the bytes of this rank's input blocks).  With
+    ``client_placement="dp"`` the clients span every axis (G = all the
+    mesh's ranks, ``role="client_all_axes"``, the batch's rows split over
+    every rank) and ``n_micro`` is capped by :func:`train_micro`."""
     import torch
     from repro_torch.core.dp import DPConfig
     from repro_torch.core.fl_step import (
         FLStepConfig, make_fl_train_step, make_server_optimizer,
         shard_master)
-    from repro_torch.launch.mesh import num_client_groups
     from repro_torch.launch.shardings import tree_shardings
     from repro_torch.models.base import get_family, input_specs
     from repro_torch.pytree import tree_map
     fam = get_family(cfg.family)
-    G = num_client_groups(mesh)
+    G = client_groups(mesh, client_placement)
+    n_micro = train_micro(shape, G, n_micro, client_placement)
     fl = FLStepConfig(num_clients=G, n_local=1, n_micro=n_micro,
                       dp=DPConfig(clip_norm=1.0, noise_multiplier=1.0,
                                   granularity="per_microbatch"),
@@ -131,7 +162,9 @@ def build_train(arch_id, cfg, shape, mesh, n_micro: int = 4):
         fam.init_params(cfg, 0, device="meta"))
     stacked = tree_map(lambda l: torch.empty(
         (G,) + tuple(l.shape), dtype=l.dtype, device="meta"), master)
-    client_sh = tree_shardings(stacked, cfg, mesh, role="client")
+    client_sh = tree_shardings(
+        stacked, cfg, mesh,
+        role="client_all_axes" if client_placement == "dp" else "client")
     master_sh = tree_shardings(master, cfg, mesh, role="master")
     local = shard_master(master, master_sh)
     step = make_fl_train_step(lambda p, b: fam.loss(p, b, cfg), fl,
@@ -188,18 +221,32 @@ def build_decode(arch_id, cfg, shape, mesh):
     return step, args, sum(_nbytes(a) for a in args)
 
 
-def refuse_knobs(attn_shard="even", remat_policy="", client_placement="tp"):
-    """The reference's dry-run knobs the port does not have."""
+def refuse_knobs(attn_shard="even"):
+    """The reference's dry-run knob the port does not have."""
     from repro_torch.launch.mesh import not_ported
-    if remat_policy:
-        raise not_ported(f"--remat-policy {remat_policy} (the port has no "
-                         "rematerialization)")
-    if client_placement != "tp":
-        raise not_ported(f"--client-placement {client_placement} (one "
-                         "client per chip)")
     if attn_shard != "even":
         raise not_ported(f"--attn-shard {attn_shard} (padded uneven "
                          "heads)")
+
+
+def measure(step, args, train: bool):
+    """Run ``step(*args)`` once (under autograd when ``train``, else under
+    ``no_grad``) -> (its output, the peak of live storage it made, its
+    matrix-product FLOPs, the trace's seconds); ``collectives.stats()``
+    then holds its collectives."""
+    import torch
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import collectives as coll
+    coll.reset_stats()
+    tracker = MemTracker()
+    t1 = time.time()
+    with FlopCounterMode(display=False) as flops, tracker, \
+            contextlib.nullcontext() if train else torch.no_grad():
+        out = step(*args)
+    peak = sum(d.get("Total", 0) for d in
+               tracker.get_tracker_snapshot("peak").values())
+    return out, int(peak), int(flops.get_total_flops()), time.time() - t1
 
 
 def _collectives(st) -> dict:
@@ -214,62 +261,62 @@ def run_one(arch_id: str, shape_name: str, mesh_kind: str,
             client_placement: str = "tp", rank: int = 0) -> dict:
     """One combination on rank ``rank`` of a fake group of the mesh's
     size.  ``train_batch_constraints`` changes nothing: the port never
-    splits a client's microbatch over the data axes.  A failure of the
-    step is recorded (``"status": "error"``), as the reference records
-    its lowering's."""
-    import torch
-    from torch.distributed._tools.mem_tracker import MemTracker
-    from torch.utils.flop_counter import FlopCounterMode
-
+    splits a client's microbatch over the data axes.  ``remat_policy``
+    and ``client_placement`` are the reference's training knobs (module
+    docstring).  A failure of the step is recorded (``"status":
+    "error"``), as the reference records its lowering's."""
     from repro_torch.configs import get_config
     from repro_torch.launch import collectives as coll
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import layers as L
     from repro_torch.models.base import INPUT_SHAPES
+    from repro_torch.models.transformer import set_remat_policy
 
-    refuse_knobs(attn_shard, remat_policy, client_placement)
+    refuse_knobs(attn_shard)
     shape = INPUT_SHAPES[shape_name]
     cfg = get_config(arch_id, long_variant=(shape_name == "long_500k"))
     if expert_pad and cfg.n_experts:
         cfg = cfg.replace(expert_pad=expert_pad)
     multi = mesh_kind == "multipod"
+    train = shape.kind == "train"
     head = {"arch": arch_id, "shape": shape_name, "mesh": mesh_kind,
-            "tag": tag, "rank": rank}
+            "tag": tag, "rank": rank, "remat_policy": remat_policy or None,
+            "client_placement": client_placement}
     t0 = time.time()
+    set_remat_policy(remat_policy or None)
     with fake_group(512 if multi else 256, rank):
         mesh = make_production_mesh(multi_pod=multi)
         try:
-            if shape.kind == "train":
-                L.set_mesh_context(mesh, cfg=cfg)
+            if train:
+                if client_placement != "dp":
+                    # the reference's attn_axis="none" under "dp": each
+                    # client's model runs whole, with no mesh context
+                    L.set_mesh_context(mesh, cfg=cfg)
                 ctx = contextlib.nullcontext()
                 build = build_train
+                G = client_groups(mesh, client_placement)
+                kw = {"n_micro": n_micro,
+                      "client_placement": client_placement}
+                head["n_micro"] = train_micro(shape, G, n_micro,
+                                              client_placement)
             else:
                 ctx = serve.context(mesh, cfg, shape.global_batch)
                 build = (build_prefill if shape.kind == "prefill"
                          else build_decode)
+                kw = {}
             with ctx:
-                kw = {"n_micro": n_micro} if shape.kind == "train" else {}
                 step, args, arg_bytes = build(arch_id, cfg, shape, mesh,
                                               **kw)
-                coll.reset_stats()
-                tracker = MemTracker()
-                t1 = time.time()
-                with FlopCounterMode(display=False) as flops, tracker, \
-                        torch.no_grad() if shape.kind != "train" else \
-                        contextlib.nullcontext():
-                    out = step(*args)
-                t_run = time.time() - t1
-                peak = sum(d.get("Total", 0) for d in
-                           tracker.get_tracker_snapshot("peak").values())
+                out, peak, flops, t_run = measure(step, args, train)
                 result = dict(head, **{
                     "status": "ok", "mesh_shape": mesh.shape,
                     "trace_s": round(t_run, 1),
                     "memory": {"argument_size_bytes": int(arg_bytes),
                                "output_size_bytes": _nbytes(out),
-                               "temp_size_bytes": int(peak),
+                               "temp_size_bytes": peak,
                                "generated_code_size_bytes": None},
-                    "cost": {"flops": int(flops.get_total_flops())},
+                    "cost": {"flops": flops},
                     "collectives": _collectives(coll.stats()),
                     "walk": None, "hlo_ops": None,
                     "not_ported": NOT_PORTED, "notes": NOTES})
@@ -280,6 +327,7 @@ def run_one(arch_id: str, shape_name: str, mesh_kind: str,
                 "elapsed_s": round(time.time() - t0, 1)})
         finally:
             L.clear_mesh_context()
+            set_remat_policy(None)
     return result
 
 
@@ -301,13 +349,15 @@ def build_parser():
                     help="heads_padded raises (ROADMAP.md item 19, part 4)")
     ap.add_argument("--expert-pad", type=int, default=0)
     ap.add_argument("--remat-policy", choices=("", "dots"), default="",
-                    help="dots raises (ROADMAP.md item 19, part 4)")
+                    help="dots: the dense and VLM layers save their 2-D "
+                         "matrix products (default: full remat)")
     ap.add_argument("--no-batch-constraints", action="store_true",
                     help="accepted; changes nothing (the port never splits "
                          "a client's microbatch over the data axes)")
     ap.add_argument("--client-placement", choices=("tp", "dp"),
                     default="tp",
-                    help="dp raises (ROADMAP.md item 19, part 4)")
+                    help="dp: one client per rank, each client's model "
+                         "whole on its rank")
     ap.add_argument("--rank", type=int, default=0,
                     help="the rank of the fake group whose program is traced")
     return ap
@@ -317,7 +367,7 @@ def main(argv=None):
     from repro_torch.configs import ARCH_IDS
     from repro_torch.models.base import INPUT_SHAPES
     args = build_parser().parse_args(argv)
-    refuse_knobs(args.attn_shard, args.remat_policy, args.client_placement)
+    refuse_knobs(args.attn_shard)
     if args.all:
         combos = [(arch, shp, mk) for arch in ARCH_IDS for shp in INPUT_SHAPES
                   if applicable(arch, shp) for mk in ("single", "multipod")]

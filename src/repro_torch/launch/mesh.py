@@ -25,9 +25,12 @@ coordinate's members, as the JAX package's engine does, and for serving
 production meshes; the second adds a leading ``"pod"`` axis, which joins
 ``"data"`` as one more data axis (:func:`data_axes`).  Inside a process
 group of their size (the fake group of ``launch/dryrun.py``, or a real
-one) they are concrete, else abstract.  What the port still leaves of
-the reference's dry run raises :func:`not_ported`, naming ROADMAP.md
-queue 1 item 19, its fourth part.
+one) they are concrete, else abstract.  The dry run takes the
+reference's ``--remat-policy`` and ``--client-placement`` knobs (one
+client per rank: ``role="client_all_axes"``, the production round runs
+each client whole on its rank); what the port still leaves of it,
+``--attn-shard heads_padded``, raises :func:`not_ported`, naming
+ROADMAP.md queue 1 item 19, its fourth part.
 """
 from __future__ import annotations
 

@@ -15,7 +15,9 @@ architecture config:
     the first remaining dim matching d_model that divides by the data-axis
     product is sharded over the data axes (ZeRO-style);
   * for G-stacked per-client tensors (role="client"), the LEADING client
-    dim is sharded over the data axes and d_model dims stay unsharded.
+    dim is sharded over the data axes and d_model dims stay unsharded;
+    with role="client_all_axes" (one client per rank) it is sharded over
+    the data axes and the model axis together and nothing else is.
 
 Executing a spec is the callers' job (:func:`data_dim` and
 :func:`model_dim` read one): on each axis a leaf is split along at most
@@ -229,6 +231,13 @@ def model_dim(sharding) -> "int | None":
     if sharding.mesh.shape["model"] == 1:
         return None
     return _axis_dim(sharding, {"model"})
+
+
+def client_all_axes(sharding) -> bool:
+    """Whether a client sharding splits its leading client dim over the
+    model axis too (``role="client_all_axes"``: one client per rank)."""
+    lead = sharding.spec[0] if sharding.spec else None
+    return isinstance(lead, tuple) and "model" in lead
 
 
 def block(leaf, sharding, data_rank: int = 0, model_rank: int = 0):

@@ -125,12 +125,17 @@ def stub_inputs(cfg, batch_size: int, seed) -> dict:
     return out
 
 
-def run_spmd(args, on_round=None, cfg=None):
+def run_spmd(args, on_round=None, cfg=None, client_placement="tp"):
     """``args.steps`` rounds of the production round over the synthetic
     token pipeline.  ``on_round(i, master, metrics)``, if given, is
     called after each round (``master``: this rank's shards on a mesh).
     ``cfg`` is the architecture config to train in place of
     ``spmd_config(args)`` (a caller's cut of it).
+    ``client_placement="dp"`` is the reference dry run's one-client-per-
+    chip placement: on a mesh of N ranks, G = N clients, each client's
+    model whole on its rank (``core/fl_step.py``,
+    ``role="client_all_axes"``); the master stays cut in blocks over both
+    axes.  The JAX launcher has no such flag, so neither has this one.
 
     ``--devices 1`` runs in this process and returns the final master
     params.  ``--devices N`` joins the process group when run under
@@ -142,7 +147,8 @@ def run_spmd(args, on_round=None, cfg=None):
             f"spmd --devices {args.devices} is not a multiple of "
             f"--data-axis {args.data_axis}: the mesh is data x model")
     if args.devices == 1:
-        return _run_spmd(args, None, args.device, on_round, cfg)
+        return _run_spmd(args, None, args.device, on_round, cfg,
+                         client_placement)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         if int(os.environ["WORLD_SIZE"]) != args.devices:
             raise ValueError(
@@ -150,20 +156,21 @@ def run_spmd(args, on_round=None, cfg=None):
                 f"--devices {args.devices}")
         return spmd_rank(args, int(os.environ["RANK"]),
                          int(os.environ["MASTER_PORT"]), on_round=on_round,
-                         cfg=cfg)
+                         cfg=cfg, client_placement=client_placement)
     import torch.multiprocessing as mp
     from repro_torch.launch.collectives import free_port
-    mp.start_processes(_spawned_rank, args=(args, free_port(), cfg),
+    mp.start_processes(_spawned_rank,
+                       args=(args, free_port(), cfg, client_placement),
                        nprocs=args.devices, start_method="spawn")
     return None
 
 
-def _spawned_rank(rank, args, port, cfg):
-    spmd_rank(args, rank, port, cfg=cfg)
+def _spawned_rank(rank, args, port, cfg, client_placement):
+    spmd_rank(args, rank, port, cfg=cfg, client_placement=client_placement)
 
 
 def spmd_rank(args, rank: int, port: int, backend=None, on_round=None,
-              cfg=None):
+              cfg=None, client_placement="tp"):
     """Rank ``rank`` of ``args.devices``: join the group at
     ``tcp://localhost:<port>`` (the backend by ``choose_backend`` unless
     given), run the round on the mesh, leave the group.  Returns the
@@ -185,27 +192,33 @@ def spmd_rank(args, rank: int, port: int, backend=None, on_round=None,
         if rank == 0:
             print(f"[train:spmd] mesh {mesh.shape} over {world} ranks: "
                   f"{coll.describe(None, device)}", flush=True)
-        return _run_spmd(args, mesh, device, on_round, cfg)
+        return _run_spmd(args, mesh, device, on_round, cfg,
+                         client_placement)
     finally:
         dist.destroy_process_group()
 
 
-def _run_spmd(args, mesh, device, on_round, cfg=None):
+def _run_spmd(args, mesh, device, on_round, cfg=None,
+              client_placement="tp"):
     from repro_torch.models import layers
 
     cfg = cfg or spmd_config(args)
     if mesh is None:
-        return _spmd_rounds(args, None, device, on_round, cfg)
+        return _spmd_rounds(args, None, device, on_round, cfg, "tp")
     # the layers read the model axis from the mesh context, as in the
-    # JAX launcher (no batch constraints inside a client)
+    # JAX launcher (no batch constraints inside a client); with one
+    # client per rank the round sets it aside for the local phase
     layers.set_mesh_context(mesh, cfg=cfg)
     try:
-        return _spmd_rounds(args, mesh, device, on_round, cfg)
+        return _spmd_rounds(args, mesh, device, on_round, cfg,
+                            client_placement)
     finally:
         layers.clear_mesh_context()
 
 
-def _spmd_rounds(args, mesh, device, on_round, cfg):
+def _spmd_rounds(args, mesh, device, on_round, cfg, client_placement):
+    import contextlib
+
     import torch
 
     from repro_torch.checkpoint import checkpoint as ckpt
@@ -217,17 +230,20 @@ def _spmd_rounds(args, mesh, device, on_round, cfg):
     from repro_torch.device import resolve_device
     from repro_torch.launch import collectives as coll
     from repro_torch.launch.shardings import tree_shardings
+    from repro_torch.models import layers
     from repro_torch.models.base import get_family
     from repro_torch.pytree import tree_map
 
     dev = resolve_device(device)
     fam = get_family(cfg.family)
     lead = mesh is None or (mesh.rank == 0 and mesh.model_rank == 0)
+    dp = mesh is not None and client_placement == "dp"
     # on a model axis the loss is tensor-parallel: every rank evaluates
-    tp = mesh is not None and mesh.shape["model"] > 1
+    # (with one client per rank the lead evaluates the whole master)
+    tp = mesh is not None and mesh.shape["model"] > 1 and not dp
     evaluates = lead or tp
 
-    G = args.data_axis
+    G = mesh.size if dp else args.data_axis
     fl = FLStepConfig(
         num_clients=G, n_local=args.n_local, n_micro=args.n_micro,
         local_lr=args.local_lr, server_lr=args.server_lr,
@@ -241,7 +257,8 @@ def _spmd_rounds(args, mesh, device, on_round, cfg):
     if mesh is not None:
         stacked = tree_map(lambda l: torch.empty(
             (G,) + tuple(l.shape), dtype=l.dtype, device="meta"), master)
-        client_sh = tree_shardings(stacked, cfg, mesh, role="client")
+        client_sh = tree_shardings(
+            stacked, cfg, mesh, role="client_all_axes" if dp else "client")
         master_sh = tree_shardings(master, cfg, mesh, role="master")
         master = shard_master(master, master_sh)
 
@@ -259,8 +276,9 @@ def _spmd_rounds(args, mesh, device, on_round, cfg):
 
     @torch.no_grad()
     def eval_loss(params, b):
-        return float(loss_fn(tree_map(lambda l: l.to(cfg.pdtype), params),
-                             b))
+        with layers.no_mesh_context() if dp else contextlib.nullcontext():
+            return float(loss_fn(tree_map(lambda l: l.to(cfg.pdtype),
+                                          params), b))
 
     def eval_params(dtype=None):
         """What the loss is evaluated on: the whole master (every rank

@@ -81,8 +81,7 @@ def _mamba_layer(x, mix, ln, cfg):
     return x + out, new_state
 
 
-def _shared_block(x, p, cfg, positions, kv=None):
-    sp = p["shared_attn"]
+def _shared_block(x, sp, cfg, positions, kv=None):
     h = L.rms_norm(x, sp["ln_attn"], cfg.norm_eps)
     x = x + L.attention(h, sp["attn"], cfg, positions, causal=True,
                         kv_override=kv)
@@ -104,16 +103,34 @@ def _mamba_layers(params, cfg):
         yield (None, ti, L.layer_slice(tail["mix"], ti), tail["ln"][ti])
 
 
+def _segment(x, layers, sp, cfg, positions):
+    """One segment: its Mamba2 layers ((mix, ln) pairs), then the shared
+    block."""
+    for mix, ln in layers:
+        x, _ = _mamba_layer(x, mix, ln, cfg)
+    return _shared_block(x, sp, cfg, positions)
+
+
+def _trailing(x, mix, ln, cfg):
+    return _mamba_layer(x, mix, ln, cfg)[0]
+
+
 def forward_hidden(params, batch, cfg):
+    """The training forward (no cache): each segment (its Mamba2 layers
+    and the shared block) and each trailing layer is a rematerialized unit
+    under autograd (the JAX package's ``jax.checkpoint`` of its scan
+    bodies)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = L.embed(tokens, params["embedding"])
-    _, seg_len, _ = segment_plan(cfg)
-    for si, li, mix, ln in _mamba_layers(params, cfg):
-        x, _ = _mamba_layer(x, mix, ln, cfg)
-        if si is not None and li == seg_len - 1:
-            x = _shared_block(x, params, cfg, positions)
+    n_seg, seg_len, _ = segment_plan(cfg)
+    layers = [(mix, ln) for _, _, mix, ln in _mamba_layers(params, cfg)]
+    for si in range(n_seg):
+        x = L.remat(_segment, x, layers[si * seg_len:(si + 1) * seg_len],
+                    params["shared_attn"], cfg, positions)
+    for mix, ln in layers[n_seg * seg_len:]:
+        x = L.remat(_trailing, x, mix, ln, cfg)
     return L.rms_norm(x, params["ln_final"], cfg.norm_eps)
 
 
@@ -129,7 +146,8 @@ def logits_fn(params, batch, cfg):
 def loss(params, batch, cfg, *, loss_chunk: int = 512):
     """Mean next-token CE with sequence-chunked logits; trained through
     autograd (on the card the Mamba2 layers' ``ssd_intra_chunk`` is an
-    ``autograd.Function``, :mod:`repro_torch.kernels.ssd_scan.ops`)."""
+    ``autograd.Function``, :mod:`repro_torch.kernels.ssd_scan.ops`, which
+    the backward's recompute of each unit launches again)."""
     h = forward_hidden(params, batch, cfg)
     return L.chunked_lm_loss(h, batch["labels"], _head(params),
                              loss_chunk=loss_chunk)
@@ -192,8 +210,7 @@ def prefill(params, batch, cfg, cache):
             _, k, v = L._qkv(h, sp["attn"], cfg, positions)
             cache["attn_k"][si, :, :S] = L.cache_block(k, cache["attn_k"])
             cache["attn_v"][si, :, :S] = L.cache_block(v, cache["attn_v"])
-            x = _shared_block(x, params, cfg, positions,
-                              kv=(k, v, positions))
+            x = _shared_block(x, sp, cfg, positions, kv=(k, v, positions))
 
     h = L.rms_norm(x, params["ln_final"], cfg.norm_eps)
     logits = L.unembed(h[:, -1:], _head(params))

@@ -34,18 +34,25 @@ Conventions (the JAX package's, kept at the public surface)
   (``launch/serve.py``) hands the families a rank's blocks of the
   caches: :func:`cache_block` and :func:`cache_write` write into them,
   and :func:`decode_attention` attends where they lie.
+* Rematerialization (:func:`remat`, the JAX package's ``jax.checkpoint``):
+  the families' training forwards keep only each checkpointed unit's
+  inputs and run the unit again in the backward; the chunked loss does
+  so per chunk.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import itertools
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.launch import collectives as coll
-from repro_torch.pytree import tree_map
+from repro_torch.pytree import tree_leaves, tree_map
 
 # ---------------------------------------------------------------------------
 # the mesh context: the model axis (installed by the launcher)
@@ -135,6 +142,66 @@ def _ctx_cfg():
     if cfg is None:
         raise ValueError("the model axis needs set_mesh_context(..., cfg=)")
     return cfg
+
+
+@contextlib.contextmanager
+def no_mesh_context():
+    """A ``with`` block in which the layers see no mesh context (the
+    production round's one-client-per-rank placement runs each client's
+    model whole on its rank); the context is restored on exit."""
+    saved = dict(_MESH_CTX)
+    clear_mesh_context()
+    try:
+        yield
+    finally:
+        _MESH_CTX.update(saved)
+
+
+# ---------------------------------------------------------------------------
+# rematerialization (the JAX package's jax.checkpoint)
+# ---------------------------------------------------------------------------
+
+# the 2-D matrix products: what jax.checkpoint_policies.
+# dots_with_no_batch_dims_saveable saves (matmul over a batch of rows
+# folds into mm; attention's batched products are bmm and recomputed)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, *args, policy=None):
+    """``fn(*args)`` as a rematerialized unit when autograd records (grad
+    mode on and a tensor among ``args`` requiring grad): the backward
+    keeps only the unit's inputs and runs ``fn`` again to rebuild what it
+    needs (``torch.utils.checkpoint.checkpoint``, non-reentrant).  With
+    ``policy="dots"`` the unit's 2-D matrix products are saved and the
+    rest is recomputed (selective checkpointing).  Otherwise (serving,
+    prefill, the loss evals under ``no_grad``) ``fn`` runs as it is, with
+    no checkpoint machinery.
+
+    ``preserve_rng_state=False``: no unit draws a random number (the DP
+    noise is drawn outside the loss), so there is no RNG state to
+    restore, and restoring it would read the device's generator state in
+    every unit.  ``determinism_check`` keeps its default: the recompute's
+    saved tensors must match the first forward's shapes, dtypes and
+    devices.  The recompute re-runs the unit's kernels (``ssd_intra_chunk``
+    launches again) and its model-axis collectives, in the same order on
+    every rank of a model group, up to the last tensor the backward saved
+    (PyTorch's early stop: a layer's MLP down projection, whose output no
+    backward saves, and its all-reduce do not run again)."""
+    if not (torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tree_leaves(list(args)))):
+        return fn(*args)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                            preserve_rng_state=False, **kw)
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -645,7 +712,12 @@ def chunked_lm_loss(h, labels, W, softcap: float = 0.0,
     """Mean next-token CE with sequence-chunked logits, as every family of
     the JAX package writes it: ``max(1, S // loss_chunk)`` chunks of equal
     length (S must divide into them), each chunk's mean CE, then the mean
-    of those.  The (B, S, V) logits are never held whole."""
+    of those.  Each chunk is a rematerialized unit (:func:`remat`, the
+    JAX package's ``jax.checkpoint(chunk_loss)``): under autograd a chunk
+    keeps only its slice of ``h``, and its f32 logits are rebuilt in the
+    backward one chunk at a time, so at most one chunk's logits (and
+    their gradient) are live at once; the (B, S, V) logits are never
+    held whole, in the forward or the backward."""
     B, S, _ = h.shape
     n_chunks = max(1, S // loss_chunk)
     size = S // n_chunks
@@ -655,15 +727,19 @@ def chunked_lm_loss(h, labels, W, softcap: float = 0.0,
     g, d, lo = _table_cut(W)
     if d is None or d == 1:
         # whole, or d_model columns: unembed adds the partial logits
-        losses = [cross_entropy_loss(unembed(h[:, i:i + size], W, softcap),
-                                     labels[:, i:i + size], W.shape[0])
+        losses = [remat(_chunk_ce, h[:, i:i + size], labels[:, i:i + size],
+                        W, softcap)
                   for i in range(0, S, size)]
     else:
         hc = coll.tp_copy(h, g)
-        losses = [_vocab_parallel_ce(hc[:, i:i + size],
-                                     labels[:, i:i + size], W, softcap, lo, g)
+        losses = [remat(_vocab_parallel_ce, hc[:, i:i + size],
+                        labels[:, i:i + size], W, softcap, lo, g)
                   for i in range(0, S, size)]
     return torch.mean(torch.stack(losses))
+
+
+def _chunk_ce(h, labels, W, softcap):
+    return cross_entropy_loss(unembed(h, W, softcap), labels, W.shape[0])
 
 
 def _vocab_parallel_ce(h, labels, W, softcap, lo, group):

@@ -165,11 +165,20 @@ def _moe_block(x, blk, cfg, positions, kv=None, rows=None):
     return x + out, aux
 
 
+def _moe_layer(x, aux, blk, cfg, positions):
+    """One layer with the aux loss carried: (x, aux sum so far) -> the
+    next pair."""
+    x, a = _moe_block(x, blk, cfg, positions)
+    return x, aux + a
+
+
 def trunk(params, x, cfg, positions):
+    """The training forward's layers, each a rematerialized unit under
+    autograd with the aux loss in its carry (the JAX package's
+    ``jax.checkpoint`` of its scan body)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, blk, _ in T.layers(params, cfg):         # windows all 0
-        x, a = _moe_block(x, blk, cfg, positions)
-        aux = aux + a
+        x, aux = L.remat(_moe_layer, x, aux, blk, cfg, positions)
     return L.rms_norm(x, params["ln_final"], cfg.norm_eps), aux / cfg.n_layers
 
 

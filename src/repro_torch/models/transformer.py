@@ -15,9 +15,16 @@ Implementation notes
   dtype; tied embeddings.  The windows are a Python list of ints, never
   a tensor: ``flash_decode`` takes the window as an int, and a tensor
   would cost a host sync per layer per step.
+* **Rematerialization**: each layer of :func:`trunk` is a checkpointed
+  unit (``layers.remat``, the JAX package's ``jax.checkpoint`` of its scan
+  body) under the policy :func:`set_remat_policy` picks: full (the
+  default), or ``"dots"``, which saves the 2-D matrix products.  The
+  policy applies to this trunk only (the dense and VLM families), as in
+  the JAX package.
 * **Chunked CE loss**: the (B, S, V) logits tensor is never materialized
-  (vocab up to 256 000); its value and its gradient (autograd) are held
-  to the JAX package's loss and ``jax.grad``.
+  (vocab up to 256 000), each chunk rematerialized in the backward; its
+  value and its gradient (autograd) are held to the JAX package's loss
+  and ``jax.grad``.
 * ``prefill`` fills the preallocated KV cache in place and returns (last
   logits, cache); ``decode_step`` writes one position per row in place
   and launches ``flash_decode`` once per layer on the card.  On the
@@ -32,6 +39,16 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.base import Family, register_family
+
+# the remat-policy knob (the JAX package's; the dry run's --remat-policy):
+# None rematerializes each layer whole, "dots" saves its 2-D matrix
+# products (jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
+_REMAT = {"policy": None}
+
+
+def set_remat_policy(name):
+    _REMAT["policy"] = "dots" if name == "dots" else None
+
 
 # ---------------------------------------------------------------------------
 # params
@@ -110,9 +127,11 @@ def _block(x, blk, window, cfg, positions, kv=None):
 
 
 def trunk(params, x, cfg, positions):
-    """x: (B, S, D) embedded input -> final hidden states."""
+    """x: (B, S, D) embedded input -> final hidden states; under autograd
+    each layer is rematerialized under the current policy."""
     for _, blk, window in layers(params, cfg):
-        x = _block(x, blk, window, cfg, positions)
+        x = L.remat(_block, x, blk, window, cfg, positions,
+                    policy=_REMAT["policy"])
     return L.rms_norm(x, params["ln_final"], cfg.norm_eps)
 
 

@@ -78,43 +78,62 @@ def _positions(B, S, device):
 
 
 def encode(params, frames, cfg):
-    """frames: (B, F, D) stub embeddings -> encoder states."""
+    """frames: (B, F, D) stub embeddings -> encoder states; under autograd
+    each encoder layer is a rematerialized unit."""
     B, Fr, D = frames.shape
     x = frames + _sinusoidal(Fr, D, frames.device).to(frames.dtype)
     positions = _positions(B, Fr, frames.device)
     enc = L.whole_stack(params["enc"], (cfg.n_enc_layers,))
     for i in range(cfg.n_enc_layers):
-        blk = L.layer_slice(enc, i)
-        h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
-        x = x + L.attention(h, blk["attn"], cfg, positions, causal=False,
-                            rope=False)
-        h = L.rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
-        x = x + L.mlp(h, blk["mlp"], "gelu")
+        x = L.remat(_enc_layer, x, L.layer_slice(enc, i), cfg, positions)
     return L.rms_norm(x, params["ln_enc_final"], cfg.norm_eps)
+
+
+def _enc_layer(x, blk, cfg, positions):
+    h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
+    x = x + L.attention(h, blk["attn"], cfg, positions, causal=False,
+                        rope=False)
+    h = L.rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
+    return x + L.mlp(h, blk["mlp"], "gelu")
+
+
+def _dec_layer(x, blk, cfg, positions, enc_out, enc_pos):
+    """One decoder layer -> (x, self k, self v, cross k, cross v)."""
+    h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
+    _, k, v = L._qkv(h, blk["attn"], cfg, positions, rope=False)
+    x = x + L.attention(h, blk["attn"], cfg, positions, causal=True,
+                        rope=False, kv_override=(k, v, positions))
+    h = L.rms_norm(x, blk["ln_xattn"], cfg.norm_eps)
+    xk, xv = L._in_projs(enc_out, blk["xattn"], cfg, ("wk", "wv"))
+    x = x + L.attention(h, blk["xattn"], cfg, positions, causal=False,
+                        rope=False, kv_override=(xk, xv, enc_pos))
+    h = L.rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
+    return x + L.mlp(h, blk["mlp"], "gelu"), k, v, xk, xv
+
+
+def _dec_layer_x(x, blk, cfg, positions, enc_out, enc_pos):
+    return _dec_layer(x, blk, cfg, positions, enc_out, enc_pos)[0]
 
 
 def _dec_trunk(params, x, cfg, positions, enc_out, enc_pos, cache=None):
     """The decoder layers; with ``cache``, each layer's self K/V (positions
-    0..S-1) and cross K/V are written into it in place."""
+    0..S-1) and cross K/V are written into it in place.  Without one (the
+    training forward) each layer is a rematerialized unit under autograd;
+    a layer that writes the cache never is."""
     S = x.shape[1]
     dec = L.whole_stack(params["dec"], (cfg.n_layers,))
     for i in range(cfg.n_layers):
         blk = L.layer_slice(dec, i)
-        h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
-        _, k, v = L._qkv(h, blk["attn"], cfg, positions, rope=False)
-        x = x + L.attention(h, blk["attn"], cfg, positions, causal=True,
-                            rope=False, kv_override=(k, v, positions))
-        h = L.rms_norm(x, blk["ln_xattn"], cfg.norm_eps)
-        xk, xv = L._in_projs(enc_out, blk["xattn"], cfg, ("wk", "wv"))
-        x = x + L.attention(h, blk["xattn"], cfg, positions, causal=False,
-                            rope=False, kv_override=(xk, xv, enc_pos))
-        h = L.rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
-        x = x + L.mlp(h, blk["mlp"], "gelu")
-        if cache is not None:
-            cache["k"][i, :, :S] = L.cache_block(k, cache["k"])
-            cache["v"][i, :, :S] = L.cache_block(v, cache["v"])
-            cache["xk"][i] = L.cache_block(xk, cache["xk"])
-            cache["xv"][i] = L.cache_block(xv, cache["xv"])
+        if cache is None:
+            x = L.remat(_dec_layer_x, x, blk, cfg, positions, enc_out,
+                        enc_pos)
+            continue
+        x, k, v, xk, xv = _dec_layer(x, blk, cfg, positions, enc_out,
+                                     enc_pos)
+        cache["k"][i, :, :S] = L.cache_block(k, cache["k"])
+        cache["v"][i, :, :S] = L.cache_block(v, cache["v"])
+        cache["xk"][i] = L.cache_block(xk, cache["xk"])
+        cache["xv"][i] = L.cache_block(xv, cache["xv"])
     return L.rms_norm(x, params["ln_final"], cfg.norm_eps)
 
 

@@ -322,29 +322,54 @@ def _blocks(params, cfg):
 
 
 def _run(params, x, cfg, cache, decode):
-    """Every block over x; with ``cache``, each block's final state is
-    written into its slot in place, and with ``decode`` each block starts
-    from that slot's state."""
+    """Every block over x, each block's final state written into its slot
+    of ``cache`` in place; with ``decode`` each block starts from that
+    slot's state."""
     for kind, idx, lyr in _blocks(params, cfg):
         if kind == "s_seg":
-            slots = (L.layer_slice(cache[kind], *idx) if cache is not None
-                     else None)
+            slots = L.layer_slice(cache[kind], *idx)
             x, new = slstm_block(x, lyr, cfg, state=slots if decode else None)
-            if slots is not None:
-                for k, v in new.items():
-                    slots[k].copy_(v)
+            for k, v in new.items():
+                slots[k].copy_(v)
         else:
-            slot = cache[kind][idx] if cache is not None else None
+            slot = cache[kind][idx]
             x, new = mlstm_block(x, lyr, cfg, state=slot if decode else None)
-            if slot is not None:
-                slot.copy_(new if decode else L.cache_block(new, slot))
+            slot.copy_(new if decode else L.cache_block(new, slot))
+    return L.rms_norm(x, params["ln_final"], cfg.norm_eps)
+
+
+def _period(x, mlstms, slstm, cfg):
+    """One period: its mLSTM layers, then its sLSTM."""
+    for lyr in mlstms:
+        x, _ = mlstm_block(x, lyr, cfg)
+    return slstm_block(x, slstm, cfg)[0]
+
+
+def _mlstm_x(x, lyr, cfg):
+    return mlstm_block(x, lyr, cfg)[0]
+
+
+def _train_run(params, x, cfg):
+    """Every block over x with no cache (the training forward): each
+    period (its mLSTM layers and its sLSTM) and each trailing mLSTM layer
+    is a rematerialized unit under autograd (the JAX package's
+    ``jax.checkpoint`` of its scan bodies)."""
+    n_per, m_per, _ = layer_plan(cfg)
+    blocks = [lyr for _, _, lyr in _blocks(params, cfg)]
+    for pi in range(n_per):
+        period = blocks[pi * (m_per + 1):(pi + 1) * (m_per + 1)]
+        x = L.remat(_period, x, period[:-1], period[-1], cfg)
+    for lyr in blocks[n_per * (m_per + 1):]:
+        x = L.remat(_mlstm_x, x, lyr, cfg)
     return L.rms_norm(x, params["ln_final"], cfg.norm_eps)
 
 
 def forward_hidden(params, batch, cfg, cache=None):
     """Final hidden states; with ``cache``, the blocks' final states are
-    written into it (the prefill)."""
+    written into it (the prefill: never rematerialized)."""
     x = L.embed(batch["tokens"], params["embedding"])
+    if cache is None:
+        return _train_run(params, x, cfg)
     return _run(params, x, cfg, cache, decode=False)
 
 

@@ -258,10 +258,11 @@ def engine_ranks(rank, out, init):
 SEQ, G, N_MICRO, PER_MICRO = 16, 2, 2, 1
 
 
-def setup_arch(arch, overrides=None):
+def setup_arch(arch, overrides=None, clients=G):
     """``tests/test_torch_train_zoo.py``'s port half of ``setup_arch``
     (f32): the reduced config (with ``overrides``), the seeded params and
-    the batch (with the audio frames or the VLM patches)."""
+    the batch of ``clients`` clients (with the audio frames or the VLM
+    patches)."""
     from repro_torch.configs import get_config
     from repro_torch.models.base import get_family
     cfg = get_config(arch).reduced().replace(param_dtype="float32",
@@ -269,7 +270,7 @@ def setup_arch(arch, overrides=None):
                                              **(overrides or {}))
     params = get_family(cfg.family).init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(1)
-    b = G * N_MICRO * PER_MICRO
+    b = clients * N_MICRO * PER_MICRO
     toks = rng.integers(0, cfg.vocab, size=(b, SEQ + 1)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(toks[:, :SEQ]),
              "labels": torch.from_numpy(toks[:, 1:])}
@@ -282,11 +283,11 @@ def setup_arch(arch, overrides=None):
     return cfg, params, batch
 
 
-def fl_config(granularity, server_opt, server_lr, sigma=0.5):
+def fl_config(granularity, server_opt, server_lr, sigma=0.5, clients=G):
     from repro_torch.core.dp import DPConfig
     from repro_torch.core.fl_step import FLStepConfig
     return FLStepConfig(
-        num_clients=G, n_local=1, n_micro=N_MICRO, local_lr=0.05,
+        num_clients=clients, n_local=1, n_micro=N_MICRO, local_lr=0.05,
         server_lr=server_lr, server_opt=server_opt, compute_dtype="float32",
         dp=DPConfig(1.0, sigma, granularity))
 
@@ -342,6 +343,90 @@ def spmd_ranks(rank, out, rounds, noise):
     mesh = make_host_mesh(data=WORLD)
     return {name: _guard(lambda n=name, a=args: round_on(mesh, *a, noise[n]))
             for name, args in rounds.items()}
+
+
+# ---------------------------------------------------------------------------
+# one client per rank (tests/test_torch_client_placement.py)
+# ---------------------------------------------------------------------------
+
+def placement_round(mesh, arch, granularity, server_opt, server_lr, clients,
+                    noise):
+    """One round of the reduced ``arch`` with ``clients`` clients on
+    ``mesh`` with ``role="client_all_axes"`` client shardings, the layers'
+    mesh context installed as the launcher installs it (None: one
+    process, no shardings): the whole new master, the metrics, this
+    rank's clients' count and its master blocks' shapes."""
+    from repro_torch.core.fl_step import (
+        gather_master, make_fl_train_step, make_server_optimizer,
+        shard_master)
+    from repro_torch.launch.shardings import tree_shardings
+    from repro_torch.models import layers as L
+    from repro_torch.models.base import get_family
+    from repro_torch.pytree import tree_map
+    cfg, params, batch = setup_arch(arch, clients=clients)
+    fam = get_family(cfg.family)
+    fl = fl_config(granularity, server_opt, server_lr, clients=clients)
+    client_sh = master_sh = None
+    if mesh is not None:
+        stacked = tree_map(lambda l: torch.empty(
+            (clients,) + tuple(l.shape), device="meta"), params)
+        client_sh = tree_shardings(stacked, cfg, mesh,
+                                   role="client_all_axes")
+        master_sh = tree_shardings(params, cfg, mesh, role="master")
+        L.set_mesh_context(mesh, cfg=cfg)
+    seen = []
+
+    def loss_fn(p, b):
+        seen.append(L.model_group() is None)
+        return fam.loss(p, b, cfg)
+
+    try:
+        local = shard_master(params, master_sh)
+        step = make_fl_train_step(loss_fn, fl, client_shardings=client_sh,
+                                  master_shardings=master_sh)
+        new, _, met = step(local, make_server_optimizer(fl).init(local),
+                           batch, torch.ones(clients) / clients,
+                           noise_source(noise))
+        whole = gather_master(new, master_sh)
+    finally:
+        L.clear_mesh_context()
+    return {"master": leaves_np(whole),
+            "local_shapes": [tuple(l.shape) for l in leaves_np(new)],
+            "whole_shapes": [tuple(l.shape) for l in leaves_np(params)],
+            "losses": len(seen), "no_context": all(seen),
+            "delta_norm": float(met["delta_norm"]),
+            "weight_sum": float(met["weight_sum"])}
+
+
+def placement_ranks(rank, out, data, rounds, noise):
+    """Every round of tests/test_torch_client_placement.py on a ``data`` x
+    ``W / data`` mesh: ``rounds`` is ``{name: (arch, granularity,
+    server_opt, server_lr)}``, G = W clients."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    world = dist.get_world_size()
+    mesh = make_host_mesh(data=data, model=world // data)
+    res = {"coords": (mesh.rank, mesh.model_rank)}
+    for name, args in rounds.items():
+        res[name] = _guard(lambda a=args, n=name: placement_round(
+            mesh, *a, world, noise[n]))
+    res["refusal"] = _refusal(mesh, world + 1)
+    return res
+
+
+def _refusal(mesh, clients):
+    """The error text of a one-client-per-rank round of ``clients``
+    clients on ``mesh`` (None if it builds)."""
+    from repro_torch.core.fl_step import make_fl_train_step
+    from repro_torch.launch.shardings import NamedSharding
+    sh = [NamedSharding(mesh, (("data", "model"), None))]
+    try:
+        make_fl_train_step(lambda p, b: 0.0,
+                           fl_config("per_microbatch", "sgd", 1.0,
+                                     clients=clients), client_shardings=sh)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -548,10 +633,12 @@ def mamba2_case(mesh, with_state, rand):
                       for a, b in zip(got_g, want))
 
 
-def model_axis_ranks(rank, out, data, rounds, noise):
+def model_axis_ranks(rank, out, data, rounds, noise, dots=()):
     """Every case of tests/test_torch_model_axis.py on this rank, on a
     ``data`` x ``WORLD / data`` mesh: ``rounds`` is ``{name: (arch,
-    granularity, server_opt, server_lr, sigma)}``."""
+    granularity, server_opt, server_lr, sigma)}``; each name in ``dots``
+    runs again under ``set_remat_policy("dots")``, as ``<name>_dots``
+    (after the collectives are counted)."""
     import torch.distributed as dist
     from repro_torch.launch import collectives as coll
     from repro_torch.launch.mesh import make_host_mesh, require_runnable
@@ -565,6 +652,37 @@ def model_axis_ranks(rank, out, data, rounds, noise):
                            n=name: rounds_on(mesh, a, gr, o, l, noise[n],
                                              sigma=sg))
     res["collectives"] = coll.stats()
+    for name in dots:
+        arch, gran, opt, lr, sigma = rounds[name]
+        res[f"{name}_dots"] = _guard(lambda a=arch, gr=gran, o=opt, l=lr,
+                                     sg=sigma, n=name: dots_rounds_on(
+                                         mesh, a, gr, o, l, noise[n], sg))
+    return res
+
+
+def dots_rounds_on(mesh, arch, granularity, server_opt, server_lr, noise,
+                   sigma):
+    """``rounds_on`` under ``set_remat_policy("dots")`` (restored after),
+    with the count of the dense layers' units that ran selectively
+    checkpointed under autograd."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    units = []
+    real = L.remat
+
+    def counted(fn, *args, policy=None):
+        units.append(policy)
+        return real(fn, *args, policy=policy)
+
+    T.set_remat_policy("dots")
+    L.remat = counted
+    try:
+        res = rounds_on(mesh, arch, granularity, server_opt, server_lr,
+                        noise, sigma=sigma)
+    finally:
+        L.remat = real
+        T.set_remat_policy(None)
+    res["dots_units"] = units.count("dots")
     return res
 
 

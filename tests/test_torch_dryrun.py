@@ -13,7 +13,9 @@ sharding rules, on the CPU.
   single pod, ``train_4k`` for zamba2-1.2b and olmoe-1b-7b,
   ``prefill_32k`` for zamba2-1.2b and phi-3-vision-4.2b, ``long_500k``
   for xlstm-350m, and on the two pods smollm-360m ``train_4k`` and
-  zamba2-1.2b ``decode_32k``: each ends ``"ok"`` with the JSON's fields.
+  zamba2-1.2b ``decode_32k``: each ends ``"ok"`` with the JSON's fields;
+  smollm-360m ``train_4k`` under ``--remat-policy dots`` on the model
+  axis (the ``tp`` placement), held to the full policy's run.
 * Two pinned counts: the reduced configs' one-rank decode step on a fake
   (1, 2) group makes the collectives (calls and bytes) the same step
   makes on 2 real gloo ranks; reduced smollm-360m's step costs the FLOPs
@@ -140,6 +142,27 @@ def test_run_one_is_ok(arch, shape, mesh):
     assert "analysis/hlo.py" in res["not_ported"]["walk"]
     if shape == "train_4k":
         assert coll["counts"]["reduce-scatter"] == 1
+
+
+def test_dots_policy_runs_on_the_model_axis():
+    """``--remat-policy dots`` with the default ``tp`` placement (the
+    reference's main use of the policy): smollm-360m x train_4k on the
+    single pod, the fake group's collectives recomputed inside the
+    selective checkpoint.  Against the full policy: the same collectives
+    (every unit's collectives run again under both), fewer FLOPs (the
+    saved 2-D products are not run again) and a temp peak no smaller
+    (those products are held)."""
+    full, dots = (dryrun.run_one("smollm-360m", "train_4k", "single",
+                                 remat_policy=p) for p in ("", "dots"))
+    for res in (full, dots):
+        assert res["status"] == "ok", res.get("error")
+        assert res["client_placement"] == "tp"
+    assert (full["remat_policy"], dots["remat_policy"]) == (None, "dots")
+    assert dots["collectives"] == full["collectives"]
+    assert dots["collectives"]["counts"]["all-reduce"] > 0
+    assert dots["cost"]["flops"] < full["cost"]["flops"]
+    assert (dots["memory"]["temp_size_bytes"]
+            >= full["memory"]["temp_size_bytes"])
 
 
 def test_main_writes_the_reference_naming(tmp_path, monkeypatch, capsys):

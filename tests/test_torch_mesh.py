@@ -277,15 +277,20 @@ def test_the_model_axis_raises_naming_item_19():
     sh = t_sh.cache_shardings(cache, cfg, t_mesh.HostMesh.abstract(2, 2),
                               batch_size=8)
     assert sh["k"].spec == (None, "data", None, None, "model")
-    # the reference's dry-run knobs the port lacks raise, naming part 4
-    for argv in (["--remat-policy", "dots"], ["--client-placement", "dp"],
-                 ["--attn-shard", "heads_padded"]):
-        with pytest.raises(ValueError, match=ROADMAP_19 + ", part 4"):
-            dryrun.main(["--arch", "gemma2-2b", "--shape", "train_4k"]
-                        + argv)
+    # the reference's training knobs run (a reduced combination: the
+    # one-client-per-rank placement traces one row per client)
+    res = dryrun.run_one("smollm-360m", "train_4k", "single",
+                         remat_policy="dots", client_placement="dp")
+    assert res["status"] == "ok", res.get("error")
+    assert (res["remat_policy"], res["client_placement"],
+            res["n_micro"]) == ("dots", "dp", 1)
+    # the knob the port lacks raises, naming part 4
+    with pytest.raises(ValueError, match=ROADMAP_19 + ", part 4"):
+        dryrun.main(["--arch", "gemma2-2b", "--shape", "train_4k",
+                     "--attn-shard", "heads_padded"])
     with pytest.raises(ValueError, match=ROADMAP_19 + ", part 4"):
         dryrun.run_one("gemma2-2b", "train_4k", "single",
-                       remat_policy="dots")
+                       attn_shard="heads_padded")
     # a model axis passes, and then wants the mesh's ranks
     # (test_torch_model_axis, test_torch_model_axis_zoo run on them)
     with pytest.raises(ValueError,

@@ -49,6 +49,7 @@ ROUNDS = {
 NOISY = [n for n, r in ROUNDS.items() if r[4] > 0]
 SGD = [n for n, r in ROUNDS.items() if r[2] == "sgd"]
 SIGMA0 = [n for n, r in ROUNDS.items() if r[4] == 0]
+DOTS = ("smollm_micro",)       # run again under set_remat_policy("dots")
 MESHES = {2: 1, 4: 2}          # world -> data axis (model axis 2)
 TOL = 1e-5
 
@@ -88,7 +89,8 @@ def noise():
 def ranks(noise, tmp_path_factory):
     return {world: M.spawn("model_axis_ranks",
                            tmp_path_factory.mktemp(f"model_axis_{world}"),
-                           world=world, data=data, rounds=ROUNDS, noise=noise)
+                           world=world, data=data, rounds=ROUNDS, noise=noise,
+                           dots=DOTS)
             for world, data in MESHES.items()}
 
 
@@ -170,6 +172,32 @@ def test_rounds_match_the_one_process_rounds(ranks, one, world, name):
         np.testing.assert_allclose(g["delta_norm"], r["delta_norm"],
                                    rtol=TOL)
         assert g["weight_sum"] == pytest.approx(r["weight_sum"], rel=TOL)
+
+
+@pytest.mark.parametrize("name", DOTS)
+@pytest.mark.parametrize("world", list(MESHES))
+def test_dots_policy_recomputes_the_model_axis(ranks, one, world, name):
+    """Under ``set_remat_policy("dots")`` the dense layers save their 2-D
+    products and recompute the rest, the model axis's ``tp_*``
+    collectives included, in the same order on every rank: each round's
+    master and metrics are bit-identical to the full policy's on the same
+    mesh, on every rank, and within 1e-5 of the one-process round
+    (W = 1)."""
+    for r in range(world):
+        full = _result(ranks, world, name, r)
+        dots = _result(ranks, world, f"{name}_dots", r)
+        assert dots["dots_units"] > 0
+        for a, b in zip(full["rounds"], dots["rounds"]):
+            assert a["delta_norm"] == b["delta_norm"]
+            assert a["weight_sum"] == b["weight_sum"]
+            for x, y in zip(a["master"], b["master"]):
+                assert np.array_equal(x, y)
+    got = _result(ranks, world, f"{name}_dots")["rounds"][0]
+    ref = one[name]["rounds"][0]
+    for a, b in zip(ref["master"], got["master"]):
+        np.testing.assert_allclose(b, a, rtol=0, atol=TOL)
+    np.testing.assert_allclose(got["delta_norm"], ref["delta_norm"],
+                               rtol=TOL)
 
 
 @pytest.mark.parametrize("world", list(MESHES))

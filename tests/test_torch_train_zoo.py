@@ -50,10 +50,10 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
-def setup_arch(arch, dtype="float32", overrides=None):
+def setup_arch(arch, dtype="float32", overrides=None, clients=G):
     """The reduced config (with ``overrides``) in both packages at
     ``dtype``, the port's seeded f32 params in both, and one global batch
-    of G x N_MICRO x PER_MICRO sequences."""
+    of ``clients`` x N_MICRO x PER_MICRO sequences."""
     kw = dict(param_dtype=dtype, ssm_chunk=SEQ, **(overrides or {}))
     r_cfg = r_get_config(arch).reduced().replace(**kw)
     t_cfg = t_get_config(arch).reduced().replace(**kw)
@@ -62,7 +62,7 @@ def setup_arch(arch, dtype="float32", overrides=None):
     r_params = jax.tree_util.tree_map(
         jnp.asarray, convert.params_to_numpy(t_params))
     rng = np.random.default_rng(1)
-    b = G * N_MICRO * PER_MICRO
+    b = clients * N_MICRO * PER_MICRO
     toks = rng.integers(0, r_cfg.vocab, size=(b, SEQ + 1)).astype(np.int32)
     arrays = {"tokens": toks[:, :SEQ], "labels": toks[:, 1:]}
     if r_cfg.family == "audio":
@@ -100,13 +100,14 @@ def reference_noise(key, n_clients, n_local, params):
 
 
 def run_both(arch, granularity, server_opt, server_lr, dtype="float32",
-             overrides=None):
+             overrides=None, clients=G):
     """One round of each package from the same f32 master, batch and
-    noise, its clients in ``dtype`` (the reduced config with
+    noise, its ``clients`` clients in ``dtype`` (the reduced config with
     ``overrides``): ``(reference master, port master, reference metrics,
     port metrics, initial params)``."""
+    G = clients
     r_cfg, t_cfg, r_params, t_params, r_batch, t_batch = setup_arch(
-        arch, dtype, overrides)
+        arch, dtype, overrides, clients)
     kw = dict(num_clients=G, n_local=1, n_micro=N_MICRO, local_lr=0.05,
               server_lr=server_lr, server_opt=server_opt,
               compute_dtype=dtype)
