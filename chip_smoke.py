@@ -1608,6 +1608,11 @@ ZOO_FLASH_CASES = [(4, 4640, 8, 4, 256, 4096, 50.0, (4200, 4640)),
 # 16 of its 32 kv heads and their 16 query heads
 FLASH_HEAD_SHARD = (8, 2112, 16, 16, 64, 0, 0.0, (2048, 2112))
 ZOO_FLASH_CASES.append(FLASH_HEAD_SHARD)
+# smollm-360m's decode on one rank of a model axis of 2 under
+# heads_padded ([serve-mesh]): the 3 kv heads its 8 (or 7) query heads
+# read, and their 9 query heads, the rest zero-filled
+FLASH_HEADS_PADDED = (2, 2064, 9, 3, 64, 0, 0.0, (1800, 2064))
+ZOO_FLASH_CASES.append(FLASH_HEADS_PADDED)
 
 
 def _ssd_inputs(shape, dtype, dev, seed=0):
@@ -1847,13 +1852,16 @@ def phase_times_zoo(dev, smi):
     return out
 
 
-# flash_decode timed at three zoo shapes, pos = S - 1: gemma2-2b's local
+# flash_decode timed at four zoo shapes, pos = S - 1: gemma2-2b's local
 # layer (its 4096 window admits 4096 of 4640 keys; softcap 50, so no
-# library call computes it), phi-3-vision's Dh = 96 and zamba2-1.2b's
-# head shard on a model axis of 2
+# library call computes it), phi-3-vision's Dh = 96, zamba2-1.2b's head
+# shard on a model axis of 2 and smollm-360m's GQA groups of a
+# heads_padded rank
 ZOO_TIMED = {"gemma2-2b local": (4, 4640, 8, 4, 256, 4096, 50.0),
              "phi-3-vision-4.2b": (8, 2064, 32, 32, 96, 0, 0.0),
-             "zamba2-1.2b head shard": FLASH_HEAD_SHARD[:5] + (0, 0.0)}
+             "zamba2-1.2b head shard": FLASH_HEAD_SHARD[:5] + (0, 0.0),
+             "smollm-360m heads_padded rank":
+                 FLASH_HEADS_PADDED[:5] + (0, 0.0)}
 
 
 def _time_zoo_flash(name, case, dev, smi):
@@ -2326,12 +2334,13 @@ def _spmd_cfg(args):
     return cfg
 
 
-def _train_spmd_once(arch, flags, smi, profile_round=None):
+def _train_spmd_once(arch, flags, smi, profile_round=None, keep_round=None):
     """One ``run_spmd`` with the ``ssd_intra_chunk`` counter set to 0 just
     before it: per round the params move and stay finite, delta_norm > 0,
     the launches since the last round; the wall per round.  Round
     ``profile_round`` (one without a loss eval) runs under the profiler:
-    its wall, device kernel time and idle share go to ``state["profile"]``.
+    its wall, device kernel time and idle share go to ``state["profile"]``;
+    the master after round ``keep_round`` goes to ``state["kept"]`` (CPU).
     Returns the final master on the CPU, the launches and the walls."""
     import torch
     from repro_torch.kernels.flash_attn import flash_attn
@@ -2363,6 +2372,8 @@ def _train_spmd_once(arch, flags, smi, profile_round=None):
         dn = float(metrics["delta_norm"])
         require(dn > 0, f"[train-zoo] {arch} round {i}: delta_norm {dn}")
         state["norms"].append(dn)
+        if i == keep_round:
+            state["kept"] = [l.float().cpu() for l in leaves]
         state["prev"] = [l.clone() for l in leaves]
         state["n"] = ssd_scan.launches()
         if profile_round is not None and i == profile_round - 1:
@@ -3443,6 +3454,30 @@ MESH_MODEL_UPDATE_MAX = 1e-1
 MESH_MODEL_GRAD_FLAGS = {
     "xlstm-350m": [DEPTH, "4", "--reduce", "slstm_every=2"],
 }
+# the entry whose ranks, after its rounds, run one round under
+# ``attn_shard="heads_padded"`` from the same initial master (smollm-360m's
+# 15/5 heads padded to 8/3 slots on its model axis of 2, rank 1's query
+# heads reading kv head 2 of rank 0), held with ``_full_width_bounds`` to
+# the entry's W = 1 run after the same round, its padded master slots
+# exactly zero
+MESH_MODEL_PADDED = "smollm-360m"
+
+
+def _padded_max(blocks, shardings, model_rank):
+    """The largest |value| on a rank's padded slots of its master blocks
+    (``shardings``: the master's, each with its whole shape)."""
+    from repro_torch.launch.shardings import model_dim, real_range
+    from repro_torch.pytree import tree_leaves
+    worst = 0.0
+    for leaf, s in zip(tree_leaves(blocks), tree_leaves(shardings)):
+        d = model_dim(s)
+        if d is None:
+            continue
+        lo, hi = real_range(s.shape[d], s.mesh.shape["model"], model_rank)
+        pad = leaf.narrow(d, hi - lo, leaf.shape[d] - (hi - lo))
+        if pad.numel():
+            worst = max(worst, float(pad.abs().max()))
+    return worst
 MESH_MODEL_UPDATE_MAX_OF = {"xlstm-350m": 0.5}
 SSD_BF16_RTOL = 5e-2          # [kernels-zoo]'s bf16 tolerance
 
@@ -3515,7 +3550,8 @@ def _full_grad(arch, flags, world, data, device, mesh=None):
     from repro_torch.data.tokens import TokenDataConfig, make_batches
     from repro_torch.launch import collectives as coll
     from repro_torch.launch import train
-    from repro_torch.launch.shardings import tree_shardings
+    from repro_torch.launch.shardings import (NamedSharding, block,
+                                             tree_shardings)
     from repro_torch.models import layers
     from repro_torch.models.base import get_family
     from repro_torch.pytree import tree_leaves, tree_unflatten_like
@@ -3535,12 +3571,16 @@ def _full_grad(arch, flags, world, data, device, mesh=None):
 
     if mesh is None:
         return [g.cpu() for g in tree_leaves(loss_grad(loss, params, batch))]
-    dims = master_model_dims(tree_shardings(params, cfg, mesh, role="master"))
-    m, r = mesh.shape["model"], mesh.model_rank
+    # the master's model blocks (its ZeRO data dim left whole)
+    shs = [NamedSharding(s.mesh, tuple(e if e == "model" else None
+                                       for e in s.spec), s.shape)
+           for s in tree_leaves(tree_shardings(params, cfg, mesh,
+                                               role="master"))]
+    dims = master_model_dims(shs)
+    whole = [tuple(l.shape) for l in tree_leaves(params)]
     params = tree_unflatten_like(params, [
-        l if d is None else l.narrow(d, r * (l.shape[d] // m),
-                                     l.shape[d] // m).contiguous()
-        for l, d in zip(tree_leaves(params), dims)])
+        l if d is None else block(l, s, 0, mesh.model_rank).contiguous()
+        for l, d, s in zip(tree_leaves(params), dims, shs)])
     layers.set_mesh_context(mesh, cfg=cfg)
     try:
         grads = loss_grad(loss, params, batch)
@@ -3550,7 +3590,9 @@ def _full_grad(arch, flags, world, data, device, mesh=None):
     grads = coll.all_gather_tree(grads, dims, mesh.model_group)
     if mesh.rank or mesh.model_rank:
         return None
-    return [g.cpu() for g in tree_leaves(grads)]
+    # padded blocks (heads_padded) narrowed to the whole leaves
+    return [(g if d is None else g.narrow(d, 0, n[d])).cpu()
+            for g, d, n in zip(tree_leaves(grads), dims, whole)]
 
 
 def _per_leaf(names, pairs):
@@ -3559,7 +3601,7 @@ def _per_leaf(names, pairs):
     return rels, rels[len(rels) // 2][0], rels[-1]
 
 
-def _full_width_bounds(arch, args, cfg, got, ref, grad, grad_ref):
+def _full_width_bounds(arch, args, cfg, got, ref, grad, grad_ref, tag=""):
     """[mesh-model]'s bounds at full width: the f32 gradient on the model
     axis (``grad``) against W = 1's (``grad_ref``; for an arch of
     ``MESH_MODEL_GRAD_FLAGS``, of the model those flags make), per leaf
@@ -3579,35 +3621,36 @@ def _full_width_bounds(arch, args, cfg, got, ref, grad, grad_ref):
                                               device="cuda")
     names = ["/".join(map(str, p)) for p in tree_paths(init)]
     init = [l.float().cpu() for l in tree_leaves(init)]
+    label = f"{arch} {tag}".strip()
     for name, a in zip(names, got):
         require(bool(torch.isfinite(a).all()),
-                f"[mesh-model] {arch}: nonfinite master at {name}")
+                f"[mesh-model] {label}: nonfinite master at {name}")
     g_rels, g_med, (g_top, g_at) = _per_leaf(names, zip(grad, grad_ref))
     u_rels, u_med, (u_top, u_at) = _per_leaf(
         names, [(a - i, b - i) for a, b, i in zip(got, ref, init)])
     cut = MESH_MODEL_GRAD_FLAGS.get(arch)
-    log(f"[mesh-model] {arch}: f32 gradient of one microbatch at full "
+    log(f"[mesh-model] {label}: f32 gradient of one microbatch at full "
         f"width{f' (spmd flags {cut})' if cut else ''}, relative L2 per "
         f"leaf from W=1 over {len(g_rels)} leaves: "
         f"median {g_med:.4e}, max {g_top:.4e} at {g_at}, largest five "
         f"{[(float(f'{r:.4e}'), n) for r, n in g_rels[-5:]]}")
-    log(f"[mesh-model] {arch}: update (master - init) relative L2 per "
+    log(f"[mesh-model] {label}: update (master - init) relative L2 per "
         f"leaf from W=1 over {len(u_rels)} leaves: median {u_med:.4e}, max "
         f"{u_top:.4e} at {u_at}, largest five "
         f"{[(float(f'{r:.4e}'), n) for r, n in u_rels[-5:]]}")
     require(g_top <= MESH_MODEL_GRAD_RTOL,
-            f"[mesh-model] {arch}: gradient bound: max {g_top:.4e} at "
+            f"[mesh-model] {label}: gradient bound: max {g_top:.4e} at "
             f"{g_at} (limit {MESH_MODEL_GRAD_RTOL}) from W=1")
     u_cap = MESH_MODEL_UPDATE_MAX_OF.get(arch, MESH_MODEL_UPDATE_MAX)
     require(u_med <= MESH_MODEL_UPDATE_MEDIAN and u_top <= u_cap,
-            f"[mesh-model] {arch}: update bound: median {u_med:.4e} (limit "
+            f"[mesh-model] {label}: update bound: median {u_med:.4e} (limit "
             f"{MESH_MODEL_UPDATE_MEDIAN}), max {u_top:.4e} at {u_at} (limit "
             f"{u_cap}) from W=1")
 
 
 def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
                      rerun_port, small_port, grad=True, serve=None,
-                     dp_port=None):
+                     dp_port=None, padded_port=None):
     """One rank of [mesh-model]: ``run_spmd`` on a data x model mesh through
     ``launch.train.spmd_rank`` (gloo, every rank on cuda:0), recording
     each ssd_intra_chunk launch's head count and holding the first launch
@@ -3617,15 +3660,20 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
     gradient of one microbatch at full width (``_full_grad``); with
     ``serve`` (W = 1's tokens of each ``SERVE_MESH`` entry), [serve-mesh]
     on the same mesh (``_serve_mesh_ranks``); with ``dp_port``, one round
-    of ``MESH_MODEL_DP`` with one client per rank (``_mesh_dp_run``).
-    Saves what it measured to ``out/rank<r>.pt``."""
+    of ``MESH_MODEL_DP`` with one client per rank (``_mesh_dp_run``);
+    with ``padded_port``, one round under ``heads_padded`` after the
+    rounds (its master's padded slots, prints and collectives) and its
+    f32 gradient.  Saves what it measured to ``out/rank<r>.pt``."""
     device = _rank_setup(rank, world, port, backend, join=False)
     import torch
     import torch.distributed as dist
     from repro_torch.kernels.ssd_scan import ref as sref, ssd_scan
     from repro_torch.launch import collectives as coll
     from repro_torch.launch import train
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import HostMesh, make_host_mesh
+    from repro_torch.launch.shardings import (set_sharding_options,
+                                             tree_shardings)
+    from repro_torch.models.base import get_family
     from repro_torch.pytree import tree_leaves
 
     launch = ssd_scan.ssd_intra_chunk
@@ -3658,6 +3706,9 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
             st["launches"].append(ssd_scan.launches() - st["n"])
             st["norms"].append(float(metrics["delta_norm"]))
             st["prints"].append(_fingerprint(master))
+            if padded["sh"] is not None:
+                st.setdefault("padded_max", []).append(_padded_max(
+                    master, padded["sh"], rank % (world // data)))
             st["n"], st["t"] = ssd_scan.launches(), time.perf_counter()
 
         torch.cuda.reset_peak_memory_stats()
@@ -3672,16 +3723,31 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
                    total=ssd_scan.launches(),
                    wall=time.perf_counter() - t0,
                    peak=torch.cuda.max_memory_allocated(),
-                   collectives=coll.stats())
+                   collectives=coll.stats(),
+                   padded_max=st.get("padded_max"))
         if rank == 0:
             res["master"] = [l.cpu() for l in tree_leaves(whole)]
         return res
 
+    padded = {"sh": None}
     res = run(port)
     res["heads"], res["kernel_err"] = sorted(seen["heads"]), seen["err"]
     if rerun_port is not None:
         again = run(rerun_port, steps=1)
         res["rerun"] = {k: again[k] for k in ("norms", "prints", "wall")}
+    if padded_port is not None:
+        _free_card()
+        set_sharding_options(attn_shard="heads_padded")
+        try:
+            cfg = _spmd_cfg(_spmd_args(arch, _mesh_model_flags(
+                flags, world, data)))
+            padded["sh"] = tree_shardings(
+                get_family(cfg.family).init_params(cfg, 0, device="meta"),
+                cfg, HostMesh.abstract(data, world // data), role="master")
+            res["padded"] = run(padded_port, steps=1)
+        finally:
+            set_sharding_options(attn_shard="even")
+            padded["sh"] = None
     coll.init_group(backend, rank, world, small_port, device)
     try:
         mesh = make_host_mesh(data=data, model=world // data)
@@ -3691,6 +3757,14 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
         torch.cuda.empty_cache()
         if grad:
             res["grad"] = _full_grad(arch, flags, world, data, device, mesh)
+        if padded_port is not None:
+            torch.cuda.empty_cache()
+            set_sharding_options(attn_shard="heads_padded")
+            try:
+                res["padded"]["grad"] = _full_grad(arch, flags, world, data,
+                                                   device, mesh)
+            finally:
+                set_sharding_options(attn_shard="even")
         if serve is not None:
             _free_card()
             t0 = time.perf_counter()
@@ -3703,6 +3777,71 @@ def _mesh_model_rank(rank, port, world, backend, arch, flags, data, out,
         res["dp"] = _mesh_dp_run(rank, world, data, backend, dp_port)
     torch.save(res, out / f"rank{rank}.pt",
                _use_new_zipfile_serialization=False)
+
+
+def _mesh_padded_check(smi, arch, args, cfg, ranks, st, grad_ref, world,
+                       data):
+    """[mesh-model]'s heads_padded round (``MESH_MODEL_PADDED``): rank 0's
+    master after it and the f32 gradient against W = 1's after the same
+    round (``_full_width_bounds``); every rank's padded master slots
+    exactly zero; the blocks of the leaves the padded placement leaves
+    whole bit-identical across each model group; the ranks' delta norms
+    equal.  Logs each rank's collectives of the even rounds and of the
+    padded round side by side."""
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.launch.shardings import (model_dim, set_sharding_options,
+                                             tree_shardings)
+    from repro_torch.models.base import get_family
+    from repro_torch.pytree import tree_leaves
+    m = world // data
+    got = ranks[0]["padded"]
+    _full_width_bounds(arch, args, cfg, got["master"], st["kept"],
+                       got["grad"], grad_ref, tag="heads_padded")
+    set_sharding_options(attn_shard="heads_padded")
+    try:
+        dims = [model_dim(s) for s in tree_leaves(tree_shardings(
+            get_family(cfg.family).init_params(cfg, 0, device="meta"), cfg,
+            HostMesh.abstract(data, m), role="master"))]
+    finally:
+        set_sharding_options(attn_shard="even")
+    for r, res in enumerate(ranks):
+        hp = res["padded"]
+        require(hp["padded_max"] == [0.0], f"[mesh-model] {arch} "
+                f"heads_padded rank {r}: padded master slots "
+                f"{hp['padded_max']}, not zero")
+        require(hp["norms"] == got["norms"], f"[mesh-model] {arch} "
+                "heads_padded: the ranks' delta norms differ")
+    for lead in range(0, world, m):
+        for r in range(lead + 1, lead + m):
+            for j, d in enumerate(dims):
+                if d is None:
+                    require(ranks[r]["padded"]["prints"][-1][j]
+                            == ranks[lead]["padded"]["prints"][-1][j],
+                            f"[mesh-model] {arch} heads_padded: leaf {j} "
+                            f"(whole on the model axis) differs in the "
+                            f"model group of rank {lead}")
+    rel_n = abs(got["norms"][0] - st["norms"][0]) / abs(st["norms"][0])
+    log(f"[mesh-model] {smi}; {arch} heads_padded: one round from the "
+        f"same initial master, delta_norm {rel_n:.3e} from W=1's first "
+        f"round; padded master slots zero on every rank; "
+        f"{sum(d is not None for d in dims)} of {len(dims)} leaves cut on "
+        f"the model axis, the blocks of the other "
+        f"{sum(d is None for d in dims)} bit-identical across each model "
+        f"group")
+
+    def calls(c):
+        return {k: (v["calls"], v["bytes"], round(v["seconds"], 3))
+                for k, v in c.items()}
+
+    for r, res in enumerate(ranks):
+        hp = res["padded"]
+        log(f"[mesh-model] {arch} rank {r}: collectives (calls, bytes, host "
+            f"s) of the even run's {args.steps} round(s) "
+            f"{calls(res['collectives'])} | of the heads_padded round "
+            f"{calls(hp['collectives'])}; heads_padded round wall "
+            f"{[round(w, 3) for w in hp['walls']]} s (with init and a loss "
+            f"eval), run {hp['wall']:.1f} s, peak "
+            f"{hp['peak'] / 2**30:.2f} GiB")
 
 
 # [mesh-model]'s one-client-per-rank round (``client_placement="dp"``),
@@ -3860,10 +3999,14 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
         log(f"[mesh-model] {arch}: {depth}, full width, "
             f"{cfg.param_dtype} clients")
 
-        def w1(arch=arch, flags=flags, world=world, data=data):
+        padded = reference and arch == MESH_MODEL_PADDED
+
+        def w1(arch=arch, flags=flags, world=world, data=data,
+               padded=padded):
             """This entry's W = 1 runs, in this process."""
             run = (_train_spmd_once(arch, _mesh_model_flags(flags, 1, data),
-                                    smi) if reference else (None,) * 6)
+                                    smi, keep_round=0 if padded else None)
+                   if reference else (None,) * 6)
             return (run, _small_tp_round(arch, "cuda"),
                     _full_grad(arch, flags, world, data, "cuda")
                     if reference else None)
@@ -3883,6 +4026,7 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
                           free_port(), reference, None if serve_refs is None
                           else [r["tokens"] for r in serve_refs],
                           None if dp_ref is None else free_port(),
+                          free_port() if padded else None,
                           during=w1 if beside else None)
         (ref, _, st, ref_peak, _, _), (small_ref, small_dn, small_n), \
             grad_ref = refs or got
@@ -4000,6 +4144,9 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
                 f"peak memory "
                 f"{res['peak'] / 2**30:.2f} GiB, collectives (calls, "
                 f"bytes) {calls}")
+        if padded:
+            _mesh_padded_check(smi, arch, args, cfg, ranks, st, grad_ref,
+                               world, data)
         if dp_ref is not None:
             _mesh_dp_check(smi, dp_ref, ranks, world, data)
         if serve_refs is not None:
@@ -4023,10 +4170,16 @@ def phase_mesh_model(smi, configs=MESH_MODEL, backend="gloo",
 # cut on head_dim and gathered whole for each step; zamba2 in bf16 gives
 # the numbers at 2 rows (bf16 rounding moves a deep random model far from
 # f32: PERF.md section 6), so only finite logits, launches and cache bytes
-# are required of it
+# are required of it.  The fourth entry serves smollm-360m again under
+# ``attn_shard="heads_padded"`` (its 15/5 heads padded to 8/3 slots a
+# rank, each rank's query heads through flash_decode on the whole GQA
+# groups they read: 9/3 heads a launch on both ranks), fed and held to
+# the second entry's W = 1 run (an entry's optional seventh field names
+# the option; W = 1 has no model axis, so it runs once)
 SERVE_MESH = (("zamba2-1.2b", "float32", 2, 2048, 16, True),
               ("smollm-360m", "float32", 2, 2048, 16, True),
-              ("zamba2-1.2b", "bfloat16", 2, 2048, 16, False))
+              ("zamba2-1.2b", "bfloat16", 2, 2048, 16, False),
+              ("smollm-360m", "float32", 2, 2048, 16, True, "heads_padded"))
 SERVE_MESH_TOL = 1e-3            # [serve-zoo-small]'s bound
 SERVE_MESH_SEED = 5
 
@@ -4039,8 +4192,14 @@ def _attn_applications(cfg):
     return _attn_per_step(cfg)
 
 
+def _serve_entry(entry):
+    """A ``SERVE_MESH`` entry as (arch, dtype, B, S, steps, checked,
+    attn_shard): the option is "even" unless the entry names it."""
+    return tuple(entry[:6]) + ((entry[6] if len(entry) > 6 else "even"),)
+
+
 def _serve_mesh_one(arch, dtype, B, S, steps, forced=None, mesh=None,
-                    device="cuda"):
+                    device="cuda", attn="even"):
     """A prefill of B x S prompt tokens and ``steps`` decode steps of the
     full-width ``arch`` in ``dtype``: W = 1 (``mesh`` None) or this rank
     of ``mesh`` (``launch/serve.py``).  The tokens fed are ``forced``
@@ -4049,7 +4208,8 @@ def _serve_mesh_one(arch, dtype, B, S, steps, forced=None, mesh=None,
     the first flash_decode launch is held against the plain version on
     the same inputs (that call launches nothing).  Returns the logits of
     every step (CPU, f32), the launches, the heads each kernel saw, the
-    cache's bytes and the wall times."""
+    cache's bytes and the wall times.  ``attn``: the sharding option the
+    params are placed and served under (restored after)."""
     import contextlib
     import torch
     from repro_torch.configs import get_config
@@ -4057,12 +4217,14 @@ def _serve_mesh_one(arch, dtype, B, S, steps, forced=None, mesh=None,
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import collectives as coll
     from repro_torch.launch import serve
+    from repro_torch.launch.shardings import set_sharding_options
     from repro_torch.models.base import get_family
     from repro_torch.pytree import tree_leaves
     cfg = get_config(arch).replace(param_dtype=dtype)
     fam = get_family(cfg.family)
     params = fam.init_params(cfg, 0, device)
     prompt = _prompts(cfg, B, S, SERVE_MESH_SEED).to(device)
+    set_sharding_options(attn_shard=attn)
     if mesh is None:
         cache = fam.init_cache(cfg, B, S + steps, device)
         ctx = contextlib.nullcontext()
@@ -4118,6 +4280,7 @@ def _serve_mesh_one(arch, dtype, B, S, steps, forced=None, mesh=None,
     finally:
         ssd_scan.ssd_intra_chunk, flash_attn.flash_decode = (ssd_launch,
                                                              flash_launch)
+        set_sharding_options(attn_shard="even")
     logits = torch.stack(logits)                    # (steps + 1, B, V)
     return {"logits": logits, "tokens": logits.argmax(-1),
             "ssd": ssd_prefill, "flash": flash_attn.launches() - n_flash,
@@ -4138,19 +4301,25 @@ def _serve_mesh_ranks(mesh, device, forced, entries=SERVE_MESH):
     with W = 1's greedy tokens ``forced[i]`` ((steps + 1, B): the prefill's
     and each step's; the last is never fed)."""
     out = []
-    for (arch, dtype, B, S, steps, _), toks in zip(entries, forced):
+    for entry, toks in zip(entries, forced):
+        arch, dtype, B, S, steps, _, attn = _serve_entry(entry)
         out.append(_serve_mesh_one(arch, dtype, B, S, steps,
-                                   toks[:-1].t(), mesh, device))
+                                   toks[:-1].t(), mesh, device, attn))
         _free_card()
     return out
 
 
 def _serve_mesh_refs(entries=SERVE_MESH):
-    """W = 1 of every entry in this process (greedy)."""
-    refs = []
-    for arch, dtype, B, S, steps, _ in entries:
-        refs.append(_serve_mesh_one(arch, dtype, B, S, steps))
-        _free_card()
+    """W = 1 of every entry in this process (greedy); an entry that differs
+    from an earlier one only in its sharding option shares that one's
+    run."""
+    refs, runs = [], {}
+    for entry in entries:
+        key = _serve_entry(entry)[:5]
+        if key not in runs:
+            runs[key] = _serve_mesh_one(*key)
+            _free_card()
+        refs.append(runs[key])
     return refs
 
 
@@ -4159,16 +4328,25 @@ def _serve_mesh_check(smi, refs, ranks, wall, entries=SERVE_MESH,
     """Hold each rank's [serve-mesh] entries to W = 1; log the numbers.
     Returns the flash_decode launches of the ranks."""
     import torch
+    from repro_torch.launch.shardings import real_range
     launches = 0
-    for i, (arch, dtype, B, S, steps, checked) in enumerate(entries):
+    for i, entry in enumerate(entries):
+        arch, dtype, B, S, steps, checked, attn = _serve_entry(entry)
         ref = refs[i]
         H, Hkv, Dh = ref["heads"]
         m = len(ranks)
         kv_cut = Hkv % m == 0
         want_flash = ([(H // m, Hkv // m, Dh)] if kv_cut
                       else [(H, Hkv, Dh)])
-        name = f"[serve-mesh] {arch} {dtype} B={B} S={S} x {steps} steps"
+        opt = "" if attn == "even" else f" {attn}"
+        name = f"[serve-mesh] {arch} {dtype}{opt} B={B} S={S} x {steps} steps"
         for r, res in enumerate(ranks):
+            if attn == "heads_padded":
+                # the whole GQA groups of the kv heads this rank's real
+                # query heads read
+                rep_, (qlo, qhi) = H // Hkv, real_range(H, m, r)
+                lo, hi = qlo // rep_, -(-qhi // rep_)
+                want_flash = [((hi - lo) * rep_, hi - lo, Dh)]
             got = res["serve"][i]
             d = float((got["logits"] - ref["logits"]).abs().max())
             require(bool(torch.isfinite(got["logits"]).all()),
@@ -4199,8 +4377,8 @@ def _serve_mesh_check(smi, refs, ranks, wall, entries=SERVE_MESH,
                     f"{ref['ssd_heads']}")
             launches += got["flash"]
             st = got["collectives"]
-            log(f"[serve-mesh] {smi}; {arch} {dtype} rank {r} of a model "
-                f"axis of {m} ({where}): B={B} prompt {S}, prefill "
+            log(f"[serve-mesh] {smi}; {arch} {dtype} ({attn}) rank {r} of a "
+                f"model axis of {m} ({where}): B={B} prompt {S}, prefill "
                 f"{got['prefill_s'] * 1e3:.1f} ms (W=1 "
                 f"{ref['prefill_s'] * 1e3:.1f}), decode "
                 f"{sum(got['step_s']) / steps * 1e3:.1f} ms per step (W=1 "
@@ -4224,7 +4402,11 @@ def _serve_mesh_check(smi, refs, ranks, wall, entries=SERVE_MESH,
 # [dryrun]'s combinations: (arch, shape, run_one's knobs)
 DRYRUN = (("zamba2-1.2b", "decode_32k", {}),
           ("smollm-360m", "train_4k", {"remat_policy": "dots",
-                                       "client_placement": "dp"}))
+                                       "client_placement": "dp"}),
+          # the reference's own padded example: 56 query heads -> 64 slots
+          # over 16 ranks, 8 kv heads -> 16
+          ("deepseek-coder-33b", "decode_32k",
+           {"attn_shard": "heads_padded"}))
 DRYRUN_OUT = ROOT / "build" / "dryrun_smoke.json"
 
 
@@ -4268,6 +4450,9 @@ def phase_dryrun(smi, started):
     for (arch, shape, kw), res in zip(DRYRUN, results):
         require(res["status"] == "ok", f"[dryrun] {arch} x {shape} {kw}: "
                 f"{res.get('error')}")
+        if kw.get("attn_shard"):
+            require(res["attn_shard"] == kw["attn_shard"],
+                    f"[dryrun] {arch} x {shape}: ran {res['attn_shard']}")
         if shape == "train_4k":
             require(res["client_placement"] == "dp"
                     and res["remat_policy"] == "dots"

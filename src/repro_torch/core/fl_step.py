@@ -72,7 +72,13 @@ runs the same clients together, tensor-parallel
   * every noise leaf is drawn whole from the client's generator or the
     injected source and cut to this rank's block, so the draws are the
     one-process round's;
-  * ``delta_norm`` adds each leaf's blocks over the axes that cut it.
+  * ``delta_norm`` adds each leaf's blocks over the axes that cut it;
+  * under ``attn_shard="heads_padded"`` a head count the axis does not
+    divide is cut in GSPMD's padded blocks (``shardings.block``): the
+    layers narrow a block to its real heads before any use and the noise
+    is cut with zeros there, so the padded slots of the master, the
+    gradient, the noise, the clip norms and the update are exactly zero,
+    round after round; :func:`gather_master` drops them.
 
 With client shardings of ``role="client_all_axes"`` (the reference's
 ``--client-placement dp``: the stacked client dim split over the data
@@ -104,8 +110,8 @@ import torch
 from repro_torch.core.dp import DPConfig
 from repro_torch.launch import collectives as coll
 from repro_torch.launch.mesh import num_client_groups, require_runnable
-from repro_torch.launch.shardings import (block, client_all_axes, data_dim,
-                                         model_dim)
+from repro_torch.launch.shardings import (
+    block, client_all_axes, data_dim, model_dim, pad_to, real_range, slots)
 from repro_torch.models import layers as L
 from repro_torch.optim.optimizers import SGD, Adam
 from repro_torch.pytree import tree_leaves, tree_map, tree_unflatten_like
@@ -180,28 +186,28 @@ def _draw(noise, step: int, leaf: int, shape, device) -> torch.Tensor:
 @dataclass(frozen=True)
 class ModelAxis:
     """A client's model cut over the model group (``size`` ranks, this
-    one ``rank``): ``dims[j]`` is the dim of leaf j cut into equal
-    blocks (None: the leaf is whole on every rank)."""
+    one ``rank``): ``dims[j]`` is the dim of leaf j cut into blocks
+    (None: the leaf is whole on every rank), equal ones or, for a head
+    count the axis does not divide (``heads_padded``), GSPMD's padded
+    ones; ``shapes[j]`` is leaf j's whole shape."""
 
     group: object
     rank: int
     size: int
     dims: tuple
-
-    def whole_shape(self, j: int, shape) -> tuple:
-        shape = list(shape)
-        if self.dims[j] is not None:
-            shape[self.dims[j]] *= self.size
-        return tuple(shape)
+    shapes: tuple
 
     def cut(self, j: int, z: torch.Tensor, lead: int = 0) -> torch.Tensor:
         """This rank's block of a whole leaf-``j``-shaped ``z`` (after
-        ``lead`` stacked dims)."""
+        ``lead`` stacked dims): its real slots, then zeros to the block's
+        size, so no draw lands on a padded slot."""
         d = self.dims[j]
         if d is None:
             return z
-        c = z.shape[lead + d] // self.size
-        return z.narrow(lead + d, self.rank * c, c)
+        n = z.shape[lead + d]
+        lo, hi = real_range(n, self.size, self.rank)
+        return pad_to(z.narrow(lead + d, lo, hi - lo), lead + d,
+                      slots(n, self.size))
 
     def sq_norm(self, sqs) -> torch.Tensor:
         """The whole model's squared norm from its leaves' (this rank's
@@ -284,8 +290,7 @@ def _draw_block(noise, step: int, j: int, shape, device, model, lead=()):
     if model is None:
         return _draw(noise, step, j, tuple(lead) + tuple(shape), device)
     return model.cut(j, _draw(noise, step, j, tuple(lead)
-                              + model.whole_shape(j, shape), device),
-                     len(lead))
+                              + tuple(model.shapes[j]), device), len(lead))
 
 
 def client_noise(key, G: int, device):
@@ -333,18 +338,22 @@ def shard_master(tree, master_shardings):
 
 def gather_master(tree, master_shardings):
     """Whole leaves from this rank's blocks (all-gathers over the data and
-    the model axis on a mesh with a process group; every rank must call
-    it)."""
+    the model axis on a mesh with a process group, padded blocks narrowed
+    to the whole leaf; every rank must call it)."""
     if master_shardings is None:
         return tree
-    mesh = tree_leaves(master_shardings)[0].mesh
+    shs = tree_leaves(master_shardings)
+    mesh = shs[0].mesh
     if mesh.group is None:
         return tree
     tree = coll.all_gather_tree(tree, master_dims(master_shardings),
                                 mesh.group)
     if mesh.shape["model"] > 1:
-        tree = coll.all_gather_tree(
-            tree, master_model_dims(master_shardings), mesh.model_group)
+        dims = master_model_dims(master_shardings)
+        tree = coll.all_gather_tree(tree, dims, mesh.model_group)
+        tree = tree_unflatten_like(tree, [
+            l if d is None else l.narrow(d, 0, s.shape[d])
+            for l, d, s in zip(tree_leaves(tree), dims, shs)])
     return tree
 
 
@@ -427,7 +436,9 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
     if group is not None and mesh.shape["model"] > 1:
         blocks = ModelAxis(mesh.model_group, mesh.model_rank,
                            mesh.shape["model"],
-                           tuple(master_model_dims(master_shardings)))
+                           tuple(master_model_dims(master_shardings)),
+                           tuple(s.shape for s in
+                                 tree_leaves(master_shardings)))
         model = None if all_axes else blocks
     if group is None:
         w, r = 1, 0
@@ -501,7 +512,12 @@ def make_fl_train_step(loss_fn: Callable, fl: FLStepConfig,
             # the sum over ranks, left on the master's shards
             agg = coll.reduce_scatter_tree(agg, leaf_dims, group)
         if all_axes and blocks is not None:
-            # ... and over the model group, left on the model blocks
+            # ... and over the model group, left on the model blocks (a
+            # head count the axis does not divide padded to its blocks)
+            agg = tree_unflatten_like(agg, [
+                l if d is None else pad_to(l, d, blocks.size * slots(
+                    l.shape[d], blocks.size))
+                for l, d in zip(tree_leaves(agg), blocks.dims)])
             agg = coll.reduce_scatter_tree(agg, list(blocks.dims),
                                            blocks.group)
         # server update: FedAdam treats -Delta as the gradient

@@ -54,6 +54,7 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch.shardings import pad_to, real_range, slots
 from repro_torch.pytree import tree_leaves, tree_unflatten_like
 
 BUCKET_BYTES = 256 << 20
@@ -363,23 +364,30 @@ def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
     return all_reduce_sum(x, group)
 
 
-def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Every rank's ``x`` joined along ``dim`` in rank order."""
+def _gather_dim(x: torch.Tensor, dim: int, group, n=None) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in rank order.  With ``n``
+    each rank's ``x`` holds its real slots of a dim of ``n`` cut in
+    padded blocks (``shardings.real_range``; ``x`` may be the padded
+    block itself): the blocks are padded, joined and narrowed to ``n``."""
     w = dist.get_world_size(group)
+    if n is not None:
+        x = pad_to(x, dim, slots(n, w))
     moved = x.movedim(dim, 0)
     full = all_gather_rows(moved.reshape(1, -1), group)
-    return full.reshape((w * moved.shape[0],) + tuple(
+    full = full.reshape((w * moved.shape[0],) + tuple(
         moved.shape[1:])).movedim(0, dim)
+    return full if n is None else full.narrow(dim, 0, n)
 
 
-def _chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """This rank's equal chunk of ``x`` along ``dim``."""
+def _chunk(x: torch.Tensor, dim: int, group, keep=None) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim``: an equal chunk, or where
+    the ranks do not divide the dim its padded block (the real slots,
+    then zeros).  ``keep``: the leading slots of the block to keep."""
     w, r = dist.get_world_size(group), dist.get_rank(group)
-    if x.shape[dim] % w:
-        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
-                         f"over {w} ranks")
-    c = x.shape[dim] // w
-    return x.narrow(dim, r * c, c).contiguous()
+    n = x.shape[dim]
+    lo, hi = real_range(n, w, r)
+    out = pad_to(x.narrow(dim, lo, hi - lo), dim, slots(n, w))
+    return (out if keep is None else out.narrow(dim, 0, keep)).contiguous()
 
 
 class _Copy(torch.autograd.Function):
@@ -405,24 +413,24 @@ class _Reduce(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
-        return _gather_dim(x, dim, group)
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.keep = dim, group, x.shape[dim]
+        return _gather_dim(x, dim, group, n)
 
     @staticmethod
     def backward(ctx, g):
-        return _chunk(g, ctx.dim, ctx.group), None, None
+        return _chunk(g, ctx.dim, ctx.group, ctx.keep), None, None, None
 
 
 class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
+        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
         return _chunk(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _gather_dim(g, ctx.dim, ctx.group), None, None
+        return _gather_dim(g, ctx.dim, ctx.group, ctx.n), None, None
 
 
 def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
@@ -438,15 +446,20 @@ def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _Reduce.apply(x, group)
 
 
-def tp_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def tp_gather(x: torch.Tensor, dim: int, group, n=None) -> torch.Tensor:
     """The ranks' blocks along ``dim`` -> the replicated whole (an
-    all-gather); the backward keeps this rank's block of the gradient."""
-    return x if group is None else _Gather.apply(x, dim, group)
+    all-gather); the backward keeps this rank's block of the gradient.
+    ``n``: the whole dim's size when the ranks hold padded blocks of it
+    (``x`` this rank's real slots, or its padded block): the result is
+    narrowed to ``n``, and the backward gives ``x``'s slots."""
+    return x if group is None else _Gather.apply(x, dim, group, n)
 
 
 def tp_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Replicated ``x`` -> this rank's equal block along ``dim`` (no
-    communication); the backward all-gathers the blocks' gradients."""
+    """Replicated ``x`` -> this rank's block along ``dim`` (no
+    communication): an equal block, or GSPMD's padded block where the
+    ranks do not divide the dim; the backward all-gathers the blocks'
+    gradients (narrowed to the dim's size)."""
     return x if group is None else _Scatter.apply(x, dim, group)
 
 

@@ -50,8 +50,12 @@ rank: ``role="client_all_axes"`` client shardings in
 client on the single pod, so the placement caps ``--n-micro`` at the
 rows a client has (the reference's own ``split_batch`` refuses 1 row in
 4 microbatches); the JSON records the ``n_micro`` run, the policy and
-the placement.  ``--attn-shard heads_padded`` (padded uneven heads)
-raises, naming ROADMAP.md queue 1 item 19, part 4.
+the placement.  ``--attn-shard heads_padded`` (GSPMD's padded uneven
+heads: the leaf rule cuts the head counts first, 56 query heads over 16
+ranks as 16 blocks of 4 slots) runs the attention of every family on
+each rank's real query heads (``models/layers.py``) and ``flash_decode``
+on the GQA groups they read; the option is set for the combination and
+restored after it.
 """
 from __future__ import annotations
 
@@ -221,14 +225,6 @@ def build_decode(arch_id, cfg, shape, mesh):
     return step, args, sum(_nbytes(a) for a in args)
 
 
-def refuse_knobs(attn_shard="even"):
-    """The reference's dry-run knob the port does not have."""
-    from repro_torch.launch.mesh import not_ported
-    if attn_shard != "even":
-        raise not_ported(f"--attn-shard {attn_shard} (padded uneven "
-                         "heads)")
-
-
 def measure(step, args, train: bool):
     """Run ``step(*args)`` once (under autograd when ``train``, else under
     ``no_grad``) -> (its output, the peak of live storage it made, its
@@ -269,11 +265,11 @@ def run_one(arch_id: str, shape_name: str, mesh_kind: str,
     from repro_torch.launch import collectives as coll
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.shardings import _OPTS, set_sharding_options
     from repro_torch.models import layers as L
     from repro_torch.models.base import INPUT_SHAPES
     from repro_torch.models.transformer import set_remat_policy
 
-    refuse_knobs(attn_shard)
     shape = INPUT_SHAPES[shape_name]
     cfg = get_config(arch_id, long_variant=(shape_name == "long_500k"))
     if expert_pad and cfg.n_experts:
@@ -282,9 +278,11 @@ def run_one(arch_id: str, shape_name: str, mesh_kind: str,
     train = shape.kind == "train"
     head = {"arch": arch_id, "shape": shape_name, "mesh": mesh_kind,
             "tag": tag, "rank": rank, "remat_policy": remat_policy or None,
-            "client_placement": client_placement}
+            "client_placement": client_placement, "attn_shard": attn_shard}
     t0 = time.time()
     set_remat_policy(remat_policy or None)
+    saved = _OPTS["attn_shard"]
+    set_sharding_options(attn_shard=attn_shard)
     with fake_group(512 if multi else 256, rank):
         mesh = make_production_mesh(multi_pod=multi)
         try:
@@ -328,6 +326,7 @@ def run_one(arch_id: str, shape_name: str, mesh_kind: str,
         finally:
             L.clear_mesh_context()
             set_remat_policy(None)
+            set_sharding_options(attn_shard=saved)
     return result
 
 
@@ -346,7 +345,8 @@ def build_parser():
     ap.add_argument("--tag", default="")
     ap.add_argument("--attn-shard", choices=("even", "heads_padded"),
                     default="even",
-                    help="heads_padded raises (ROADMAP.md item 19, part 4)")
+                    help="heads_padded: head counts cut first, padded "
+                         "where the model axis does not divide them")
     ap.add_argument("--expert-pad", type=int, default=0)
     ap.add_argument("--remat-policy", choices=("", "dots"), default="",
                     help="dots: the dense and VLM layers save their 2-D "
@@ -367,7 +367,6 @@ def main(argv=None):
     from repro_torch.configs import ARCH_IDS
     from repro_torch.models.base import INPUT_SHAPES
     args = build_parser().parse_args(argv)
-    refuse_knobs(args.attn_shard)
     if args.all:
         combos = [(arch, shp, mk) for arch in ARCH_IDS for shp in INPUT_SHAPES
                   if applicable(arch, shp) for mk in ("single", "multipod")]

@@ -25,12 +25,12 @@ coordinate's members, as the JAX package's engine does, and for serving
 production meshes; the second adds a leading ``"pod"`` axis, which joins
 ``"data"`` as one more data axis (:func:`data_axes`).  Inside a process
 group of their size (the fake group of ``launch/dryrun.py``, or a real
-one) they are concrete, else abstract.  The dry run takes the
-reference's ``--remat-policy`` and ``--client-placement`` knobs (one
+one) they are concrete, else abstract.  The dry run takes all the
+reference's knobs: ``--remat-policy``, ``--client-placement`` (one
 client per rank: ``role="client_all_axes"``, the production round runs
-each client whole on its rank); what the port still leaves of it,
-``--attn-shard heads_padded``, raises :func:`not_ported`, naming
-ROADMAP.md queue 1 item 19, its fourth part.
+each client whole on its rank) and ``--attn-shard heads_padded`` (head
+counts cut first on the model axis, padded where it does not divide
+them: ``launch/shardings.py``).
 """
 from __future__ import annotations
 
@@ -39,15 +39,6 @@ import torch.distributed as dist
 
 AXES = ("data", "model")
 POD_AXES = ("pod", "data", "model")
-
-# the ROADMAP.md queue 1 item that brings what the port refuses here
-_MODEL_AXIS_ITEM = 19
-
-
-def not_ported(what: str) -> ValueError:
-    return ValueError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item "
-        f"{_MODEL_AXIS_ITEM}, part 4: the dry run's knobs the port lacks)")
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> "HostMesh":

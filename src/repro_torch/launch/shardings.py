@@ -22,7 +22,12 @@ architecture config:
 Executing a spec is the callers' job (:func:`data_dim` and
 :func:`model_dim` read one): on each axis a leaf is split along at most
 one dim into equal blocks, or replicated; :func:`block` cuts a rank's
-block out of a whole leaf.  A ``"model"`` entry is a no-op on a model
+block out of a whole leaf.  Under ``attn_shard="heads_padded"`` a head
+count that the model axis does not divide is cut as GSPMD pads it:
+blocks of ``c = ceil(n / M)`` slots, rank r holding the real slots
+``[r*c, min((r+1)*c, n))`` (:func:`real_range`) and zeros up to ``c``,
+so a rank may hold padding only (15 heads on 2 ranks: 8 + 8 slots, the
+last one zero).  A ``"model"`` entry is a no-op on a model
 axis of 1 (the rule names ``"model"`` wherever a candidate divides by
 1).  :func:`cache_shardings` is the reference's rule for the serving
 caches; ``launch/serve.py`` places the caches it serves from, and says
@@ -33,6 +38,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from repro_torch.launch.mesh import data_axes as _data_axes
 from repro_torch.pytree import tree_map
@@ -141,10 +147,13 @@ def leaf_spec(shape, cfg, mesh, role: str = "master",
 
 @dataclass(frozen=True)
 class NamedSharding:
-    """A leaf's spec on a mesh (the port's ``jax.sharding.NamedSharding``)."""
+    """A leaf's spec on a mesh (the port's ``jax.sharding.NamedSharding``);
+    ``shape``: the whole leaf's shape where the maker knew it (a padded
+    block does not tell its whole size)."""
 
     mesh: object
     spec: tuple
+    shape: "tuple | None" = None
 
 
 def tree_shardings(tree, cfg, mesh, role: str = "master",
@@ -153,7 +162,8 @@ def tree_shardings(tree, cfg, mesh, role: str = "master",
     tensors or anything with a ``.shape``)."""
     return tree_map(
         lambda l: NamedSharding(mesh, leaf_spec(
-            tuple(l.shape), cfg, mesh, role, skip_leading)), tree)
+            tuple(l.shape), cfg, mesh, role, skip_leading),
+            tuple(l.shape)), tree)
 
 
 def batch_spec(mesh, extra_dims: int = 1) -> tuple:
@@ -240,15 +250,48 @@ def client_all_axes(sharding) -> bool:
     return isinstance(lead, tuple) and "model" in lead
 
 
+def slots(n: int, m: int) -> int:
+    """The slots of a rank's block when ``n`` is cut over ``m`` ranks:
+    ``ceil(n / m)`` (GSPMD's padded block; ``n / m`` when it divides)."""
+    return -(-n // m)
+
+
+def real_range(n: int, m: int, r: int) -> tuple:
+    """(lo, hi): the real slots ``[lo, hi)`` of ``n`` that rank ``r`` of
+    ``m`` holds in its padded block (``lo == hi``: padding only)."""
+    c = slots(n, m)
+    return min(r * c, n), min((r + 1) * c, n)
+
+
+def pad_to(t, dim: int, size: int):
+    """``t`` with zeros appended along ``dim`` up to ``size`` (``t`` itself
+    when it is that long)."""
+    extra = size - t.shape[dim]
+    if extra == 0:
+        return t
+    return torch.cat([t, t.new_zeros(t.shape[:dim] + (extra,)
+                                     + t.shape[dim + 1:])], dim)
+
+
 def block(leaf, sharding, data_rank: int = 0, model_rank: int = 0):
     """The block of the whole ``leaf`` that the rank at (``data_rank``,
-    ``model_rank``) holds under ``sharding`` (a view, no communication)."""
+    ``model_rank``) holds under ``sharding`` (a view where no padding is
+    needed; no communication).  A model dim that the axis does not divide
+    gives GSPMD's padded block under ``heads_padded`` (the only option
+    whose leaf rule cuts one); any other uneven cut raises."""
     shape = sharding.mesh.shape
-    for dim, r, n in ((data_dim(sharding), data_rank,
-                       int(np.prod([shape[a]
-                                    for a in _data_axes(sharding.mesh)]))),
-                      (model_dim(sharding), model_rank, shape["model"])):
-        if dim is not None and n > 1:
-            c = leaf.shape[dim] // n
-            leaf = leaf.narrow(dim, r * c, c)
+    padded = _OPTS["attn_shard"] == "heads_padded"
+    for dim, r, n, pad_ok in (
+            (data_dim(sharding), data_rank,
+             int(np.prod([shape[a] for a in _data_axes(sharding.mesh)])),
+             False),
+            (model_dim(sharding), model_rank, shape["model"], padded)):
+        if dim is None or n == 1:
+            continue
+        size = leaf.shape[dim]
+        if size % n and not pad_ok:
+            raise ValueError(f"dim {dim} of {tuple(leaf.shape)} does not "
+                             f"split evenly over {n} ranks")
+        lo, hi = real_range(size, n, r)
+        leaf = pad_to(leaf.narrow(dim, lo, hi - lo), dim, slots(size, n))
     return leaf

@@ -208,8 +208,8 @@ def prefill(params, batch, cfg, cache):
         if si is not None and li == seg_len - 1:
             h = L.rms_norm(x, sp["ln_attn"], cfg.norm_eps)
             _, k, v = L._qkv(h, sp["attn"], cfg, positions)
-            cache["attn_k"][si, :, :S] = L.cache_block(k, cache["attn_k"])
-            cache["attn_v"][si, :, :S] = L.cache_block(v, cache["attn_v"])
+            cache["attn_k"][si, :, :S] = L.kv_block(k, cache["attn_k"])
+            cache["attn_v"][si, :, :S] = L.kv_block(v, cache["attn_v"])
             x = _shared_block(x, sp, cfg, positions, kv=(k, v, positions))
 
     h = L.rms_norm(x, params["ln_final"], cfg.norm_eps)

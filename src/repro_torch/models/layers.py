@@ -52,6 +52,7 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.launch import collectives as coll
+from repro_torch.launch.shardings import real_range, slots
 from repro_torch.pytree import tree_leaves, tree_map
 
 # ---------------------------------------------------------------------------
@@ -95,13 +96,23 @@ def model_group():
     return mesh.model_group
 
 
+def _axis(g) -> tuple:
+    """(size, this rank's coordinate) of the model group ``g``."""
+    return (torch.distributed.get_world_size(g),
+            torch.distributed.get_rank(g))
+
+
 def split_dim(w, whole_shape) -> "int | None":
     """The dim along which ``w`` is a model-axis block of a leaf of
-    ``whole_shape`` (None: ``w`` is whole)."""
+    ``whole_shape`` (None: ``w`` is whole): an equal block, or on the
+    model axis GSPMD's padded block of a head count
+    (``shardings.real_range``)."""
+    g = model_group()
+    m = None if g is None else _axis(g)[0]
     found = None
     for i, (a, b) in enumerate(zip(w.shape, whole_shape)):
         if a != b:
-            if found is not None or b % a:
+            if found is not None or (b % a and a != (m and slots(b, m))):
                 raise ValueError(f"{tuple(w.shape)} is no block of "
                                  f"{tuple(whole_shape)}")
             found = i
@@ -110,10 +121,11 @@ def split_dim(w, whole_shape) -> "int | None":
 
 def whole(w, whole_shape):
     """``w`` whole on every rank: its blocks all-gathered when it is one
-    (for replicated compute), else ``w`` (always, with no model axis)."""
+    (for replicated compute; padded blocks narrowed to the whole size),
+    else ``w`` (always, with no model axis)."""
     g = model_group()
     d = None if g is None else split_dim(w, whole_shape)
-    return w if d is None else coll.tp_gather(w, d, g)
+    return w if d is None else coll.tp_gather(w, d, g, whole_shape[d])
 
 
 def block_of(w, whole_shape, dim: int):
@@ -281,7 +293,7 @@ def whole_stack(tree, lead):
     def fix(v):
         for k, n in enumerate(lead):
             if v.shape[k] != n:
-                return coll.tp_gather(v, k, g)
+                return coll.tp_gather(v, k, g, n)
         return v
 
     return tree_map(fix, tree)
@@ -379,10 +391,90 @@ def _attn_shapes(cfg):
             "wo": (H, Dh, D)}
 
 
+def heads_cut(p, cfg) -> bool:
+    """Whether the attention params ``p`` run on this rank's query heads:
+    wq cut on its heads over the model axis (``attn_shard=
+    "heads_padded"``, padded where the axis does not divide them)."""
+    g = model_group()
+    return g is not None and split_dim(
+        p["wq"], _attn_shapes(cfg)["wq"]) == 1
+
+
+def straddles(n_heads: int, n_kv: int, m: int) -> bool:
+    """Whether some rank of a model axis of ``m``, holding padded blocks
+    of the ``n_heads`` query and ``n_kv`` kv heads, has a query head
+    whose kv head (``h // (n_heads / n_kv)``, GQA) another rank holds: a
+    GQA group across two ranks, or kv padding that leaves a rank without
+    the kv heads its queries read."""
+    rep = n_heads // n_kv
+    for r in range(m):
+        lo, hi = real_range(n_heads, m, r)
+        klo, khi = real_range(n_kv, m, r)
+        if lo < hi and (lo // rep < klo or (hi - 1) // rep >= khi):
+            return True
+    return False
+
+
 def _in_projs(x, p, cfg, names):
     """``_proj(x, p[n])`` for each name, whole on every rank: a weight cut
     on an output dim projects ``x`` on this rank's columns, and the
-    blocks are all-gathered (one call when all are cut on head_dim)."""
+    blocks are all-gathered (one call when all are cut on head_dim).
+    With wq cut on the heads (:func:`heads_cut`) they are this rank's:
+    :func:`_head_projs`."""
+    if heads_cut(p, cfg):
+        return _head_projs(x, p, cfg, names)
+    return _whole_projs(x, p, cfg, names)
+
+
+def _head_projs(x, p, cfg, names):
+    """The projections on this rank's heads (padded blocks narrowed to
+    their real heads first, so no product and no gradient touches a zero
+    slot): q is this rank's real query heads; k/v its real kv heads, or,
+    where some rank of the group reads a kv head it does not hold
+    (:func:`straddles`), the kv heads all-gathered whole (replicated).  A
+    k/v weight not cut on its heads gives k/v whole."""
+    g = model_group()
+    m, r = _axis(g)
+    shapes = _attn_shapes(cfg)
+    xc = coll.tp_copy(x, g)
+    gather = straddles(cfg.n_heads, cfg.n_kv_heads, m)
+    out = []
+    for n in names:
+        count = shapes[n][1]
+        if n != "wq" and split_dim(p[n], shapes[n]) != 1:
+            out += _whole_projs(x, p, cfg, (n,))
+            continue
+        lo, hi = real_range(count, m, r)
+        t = _proj(xc, p[n].narrow(1, 0, hi - lo))
+        if n != "wq" and gather:
+            t = coll.tp_gather(t, x.dim() - 1, g, count)
+        out.append(t)
+    return out
+
+
+def _kv_for_heads(k, v, cfg):
+    """k/v as :func:`_head_projs` gives them -> this rank's query heads'
+    kv heads, one per query head (the JAX package's ``jnp.repeat`` of the
+    kv heads, restricted to this rank's heads): a whole k/v is replicated
+    into this rank's compute (:func:`coll.tp_copy`: its gradient is the
+    sum of the ranks' parts)."""
+    g = model_group()
+    m, r = _axis(g)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    qlo, qhi = real_range(cfg.n_heads, m, r)
+    base = 0
+    if k.shape[2] == cfg.n_kv_heads:
+        k, v = coll.tp_copy(k, g), coll.tp_copy(v, g)
+    else:
+        base = real_range(cfg.n_kv_heads, m, r)[0]
+    idx = [h // rep - base for h in range(qlo, qhi)]
+    if idx == list(range(k.shape[2])):
+        return k, v
+    idx = torch.tensor(idx, dtype=torch.long, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _whole_projs(x, p, cfg, names):
     g = model_group()
     shapes = _attn_shapes(cfg)
     ws = [p[n] for n in names]
@@ -402,20 +494,24 @@ def _in_projs(x, p, cfg, names):
         sizes = [o.shape[2] for o in out]
         return list(torch.split(coll.tp_gather(
             torch.cat(out, dim=2), 3, g), sizes, dim=2))
-    return [o if d is None else coll.tp_gather(o, x.dim() - 2 + d, g)
-            for o, d in zip(out, dims)]
+    return [o if d is None else coll.tp_gather(o, x.dim() - 2 + d, g,
+                                               shapes[n][d])
+            for o, d, n in zip(out, dims, names)]
 
 
 def _o_proj(o, wo, cfg):
     """o (B, S, H, Dh) times wo: with wo cut on heads or head_dim, this
     rank's block of o (the JAX package's ``shard(o, ...)``) on its rows,
     the partial sums added over the model group; with wo cut on d_model,
-    o on this rank's output columns, all-gathered."""
+    o on this rank's output columns, all-gathered.  An o of this rank's
+    real heads (:func:`_head_projs`) takes wo's real rows."""
     g = model_group()
     shape = _attn_shapes(cfg)["wo"]
     d = None if g is None else split_dim(wo, shape)
     if d is None:
         return _out_proj(o, wo)
+    if d == 0 and o.shape[2] != shape[0]:
+        return coll.tp_reduce(_out_proj(o, wo.narrow(0, 0, o.shape[2])), g)
     if d == 2:
         return coll.tp_gather(_out_proj(coll.tp_copy(o, g), wo), 2, g)
     axes = [None] * 4
@@ -454,7 +550,14 @@ def attention(
     On the model axis q/k/v come from this rank's columns and are
     all-gathered whole (the leaf rule cuts head_dim, and RoPE pairs dim i
     with i + Dh/2 across the cut), the core runs whole on every rank of
-    the group, and o goes through wo's rows (module docstring).
+    the group, and o goes through wo's rows (module docstring).  With wq
+    cut on the heads (``heads_padded``, :func:`heads_cut`) the core runs
+    on this rank's real query heads, each against its kv head
+    (:func:`_kv_for_heads`: this rank's own, or the kv heads gathered
+    whole where a GQA group or the kv padding crosses ranks), RoPE per
+    head, and o goes through wo's real rows; a rank holding padding only
+    attends no head and adds zeros.  ``kv_override``'s k/v are then as
+    :func:`_qkv` gives them.
     """
     B, S, D = x.shape
     if positions is None:
@@ -468,6 +571,8 @@ def attention(
             q = apply_rope(q, positions, cfg.rope_theta)
         k, v, kv_pos = kv_override
 
+    if model_group() is not None and q.shape[2] != cfg.n_heads:
+        k, v = _kv_for_heads(k, v, cfg)
     o = attend(q, k, v, positions, kv_pos, cfg, window=window,
                causal=causal, q_chunk=q_chunk)
     return _o_proj(o, p["wo"], cfg)
@@ -479,7 +584,9 @@ def attend(q, k, v, positions, kv_pos, cfg, *, window: int = 0,
     Hkv, Dh) -> (B, S, H, Dh), the heads and the GQA ratio read from the
     tensors, ``cfg`` giving the scale's head_dim and the softcap."""
     S, H = q.shape[1], q.shape[2]
-    rep = H // k.shape[2]
+    # no heads (a rank holding padding only) still runs, on empty
+    # tensors: its backward makes the group's collectives as every rank's
+    rep = H // k.shape[2] if k.shape[2] else 1
     scale = cfg.head_dim ** -0.5
     kk = torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
     vv = torch.repeat_interleave(v, rep, dim=2) if rep > 1 else v
@@ -524,11 +631,27 @@ def cache_block(t, cache):
     return t
 
 
+def kv_block(t, cache):
+    """:func:`cache_block` of a K or V (..., Hkv, Dh) as :func:`_qkv`
+    gives it: whole, or this rank's real kv heads (``heads_padded``, no
+    GQA group across ranks), which are the cache's block where the cache
+    is cut on the kv heads, and are gathered whole first where it is cut
+    on head_dim."""
+    g = model_group()
+    n = None if g is None else _ctx_cfg().n_kv_heads
+    if n is not None and t.shape[-2] != n:
+        if tuple(t.shape[-2:]) == tuple(cache.shape[-2:]):
+            return t
+        t = coll.tp_gather(t, t.dim() - 2, g, n)
+    return cache_block(t, cache)
+
+
 def cache_write(ck, cv, k, v, idx):
-    """Write one new token's whole ``k``/``v`` (B, 1, Hkv, Dh) at ``idx``
-    (rows, positions) into one layer's K/V cache blocks in place."""
-    ck.index_put_(idx, cache_block(k, ck)[:, 0])
-    cv.index_put_(idx, cache_block(v, cv)[:, 0])
+    """Write one new token's ``k``/``v`` (B, 1, Hkv, Dh), as :func:`_qkv`
+    gives them, at ``idx`` (rows, positions) into one layer's K/V cache
+    blocks in place."""
+    ck.index_put_(idx, kv_block(k, ck)[:, 0])
+    cv.index_put_(idx, kv_block(v, cv)[:, 0])
 
 
 def decode_attention(q, p, cache_k, cache_v, pos, cfg, *, window: int = 0):
@@ -547,20 +670,61 @@ def decode_attention(q, p, cache_k, cache_v, pos, cfg, *, window: int = 0):
     all-gathered whole over the heads for :func:`_o_proj`; cut on
     head_dim (kv heads that do not divide the model axis), the layer's
     K/V blocks are all-gathered whole and every rank attends all heads.
+    With q this rank's real query heads (``heads_padded``):
+    :func:`_decode_on_heads`.
     """
     g = model_group()
-    heads_cut = cache_k.shape[-2] != cfg.n_kv_heads
+    if g is not None and q.shape[2] != cfg.n_heads:
+        return _decode_on_heads(q, p, cache_k, cache_v, pos, cfg, window)
+    kv_cut = cache_k.shape[-2] != cfg.n_kv_heads
     if cache_k.shape[-1] != q.shape[-1]:
         cache_k, cache_v = (coll.tp_gather(c, c.dim() - 1, g).contiguous()
                             for c in (cache_k, cache_v))
-    q1 = coll.tp_scatter(q[:, 0], 1, g) if heads_cut else q[:, 0]
+    q1 = coll.tp_scatter(q[:, 0], 1, g) if kv_cut else q[:, 0]
     o = flash_ops.flash_decode(q1, cache_k, cache_v, pos, window=window,
                                softcap=cfg.attn_logit_softcap)[:, None]
-    if heads_cut:
+    if kv_cut:
         if split_dim(p["wo"], _attn_shapes(cfg)["wo"]) == 0:
             return coll.tp_reduce(_out_proj(o, p["wo"]), g)
         o = coll.tp_gather(o, 2, g)
     return _o_proj(o, p["wo"], cfg)
+
+
+def _decode_on_heads(q, p, cache_k, cache_v, pos, cfg, window):
+    """:func:`decode_attention` with q (B, 1, h, Dh) this rank's real query
+    heads.  ``flash_decode`` runs on the whole GQA groups of the kv heads
+    ``[lo, hi)`` those heads read: q zero-filled to the groups' heads,
+    the extra outputs dropped, so the kernel reads each kv head once and
+    its ``H % Hkv`` holds.  A cache cut on the kv heads (the axis divides
+    them, so the groups are this rank's kv heads) is read where it lies;
+    one cut on head_dim is all-gathered and the kv heads ``[lo, hi)``
+    taken from it.  o goes through wo's real rows, then an all-reduce; a
+    rank holding padding only launches nothing and adds zeros."""
+    g = model_group()
+    m, r = _axis(g)
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    rep = H // Hkv
+    qlo, qhi = real_range(H, m, r)
+    lo, hi = qlo // rep, -(-qhi // rep)
+    if cache_k.shape[-2] == Hkv:
+        base = 0
+        if cache_k.shape[-1] != q.shape[-1]:
+            cache_k, cache_v = (coll.tp_gather(c, c.dim() - 1, g)
+                                for c in (cache_k, cache_v))
+    else:
+        base = real_range(Hkv, m, r)[0]
+    if qhi == qlo:
+        return _o_proj(q, p["wo"], cfg)
+    k, v = (c.narrow(-2, lo - base, hi - lo).contiguous()
+            for c in (cache_k, cache_v))
+    off, nq = qlo - lo * rep, qhi - qlo
+    qg = q[:, 0]
+    if qg.shape[1] != (hi - lo) * rep:
+        qg = q.new_zeros((q.shape[0], (hi - lo) * rep, q.shape[-1]))
+        qg[:, off:off + nq] = q[:, 0]
+    o = flash_ops.flash_decode(qg, k, v, pos, window=window,
+                               softcap=cfg.attn_logit_softcap)
+    return _o_proj(o[:, None, off:off + nq], p["wo"], cfg)
 
 
 # ---------------------------------------------------------------------------

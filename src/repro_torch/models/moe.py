@@ -26,7 +26,10 @@ top-k, the capacity slots and the aux loss are computed whole on every
 rank, the W = 1 decisions exactly; the dispatch too.  The experts'
 hidden is this rank's block of d_expert and w_down is
 :func:`repro_torch.models.layers.down_proj`'s: activations move over the
-group, the expert weights never do.
+group, the expert weights never do.  Under ``attn_shard="heads_padded"``
+(the expert count is the leaf rule's first candidate there) the three
+expert weights are cut on the experts: each rank runs its experts'
+capacity slots whole and their outputs are all-gathered.
 """
 from __future__ import annotations
 
@@ -117,13 +120,22 @@ def moe_mlp(x, p, cfg, *, group_size: int = 2048, rows=None):
     xe = torch.matmul(disp.reshape(g, s, Ep * cap).transpose(1, 2), xg)
     xe = xe.reshape(g, Ep, cap, D).transpose(0, 1)             # (Ep,g,cap,D)
     xe = xe.reshape(Ep, g * cap, D)
-    # on a model axis: this rank's block of the experts' hidden
+    # on a model axis: this rank's block of the experts' hidden, or of
+    # the experts themselves
     Fd = cfg.d_expert or cfg.d_ff
-    wide = (Ep, D, Fd)
-    xc = coll.tp_copy(xe, L.model_group())
-    h = (F.silu(torch.matmul(xc, L.block_of(p["w_gate"], wide, 2)))
-         * torch.matmul(xc, L.block_of(p["w_up"], wide, 2)))
-    ye = L.down_proj(h, p["w_down"], (Ep, Fd, D))              # (Ep,g*cap,D)
+    wide, tall = (Ep, D, Fd), (Ep, Fd, D)
+    grp = L.model_group()
+    if grp is not None and all(L.split_dim(p[n], s) == 0 for n, s in (
+            ("w_gate", wide), ("w_up", wide), ("w_down", tall))):
+        xb = coll.tp_scatter(xe, 0, grp)
+        h = (F.silu(torch.matmul(xb, p["w_gate"]))
+             * torch.matmul(xb, p["w_up"]))
+        ye = coll.tp_gather(torch.matmul(h, p["w_down"]), 0, grp)
+    else:
+        xc = coll.tp_copy(xe, grp)
+        h = (F.silu(torch.matmul(xc, L.block_of(p["w_gate"], wide, 2)))
+             * torch.matmul(xc, L.block_of(p["w_up"], wide, 2)))
+        ye = L.down_proj(h, p["w_down"], tall)                 # (Ep,g*cap,D)
     ye = ye.reshape(Ep, g, cap, D).transpose(0, 1).reshape(g, Ep * cap, D)
     out = torch.matmul(comb.reshape(g, s, Ep * cap), ye)       # (g, s, D)
 
@@ -219,8 +231,8 @@ def prefill(params, batch, cfg, cache):
     for i, blk, _ in T.layers(params, cfg):
         h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
         _, k, v = L._qkv(h, blk["attn"], cfg, positions)
-        cache["k"][i, :, :S] = L.cache_block(k, cache["k"])
-        cache["v"][i, :, :S] = L.cache_block(v, cache["v"])
+        cache["k"][i, :, :S] = L.kv_block(k, cache["k"])
+        cache["v"][i, :, :S] = L.kv_block(v, cache["v"])
         x, _ = _moe_block(x, blk, cfg, positions, kv=(k, v, positions),
                           rows=L.rows_group())
     h = L.rms_norm(x, params["ln_final"], cfg.norm_eps)

@@ -12,7 +12,9 @@ reference; the layouts PyTorch's conv wants are made inside
 logits.  :func:`loss_fn` applies it to one example (``x[None]``), which
 is what ``torch.func.vmap(torch.func.grad(...))`` maps over for
 per-example DP-SGD.  The FL simulation trains in deterministic mode (no
-dropout), as the reference does.
+dropout), as the reference does; :func:`apply` takes the reference's
+train-mode dropout (``train=True`` with a ``torch.Generator``, or the
+keep masks injected), which no FL path calls.
 """
 from __future__ import annotations
 
@@ -93,21 +95,52 @@ def _maxpool2(x):
     return x.reshape(n, t // 2, 2, c).amax(dim=2)
 
 
-def apply_batch(params, x, cfg: SERConfig = SERConfig()):
-    """x: (N, time_frames, n_mels) -> logits (N, num_classes)."""
+def _dropout(x, rate, site, drop):
+    """The reference's ``_dropout``: ``x / (1 - rate)`` where the keep
+    mask is set, else 0.  ``drop`` is None (no dropout: eval mode, or no
+    source), a ``torch.Generator`` (the mask drawn with probability
+    ``1 - rate`` of keeping, on the generator's device) or the masks of
+    the three sites, of which ``site`` is this one."""
+    if drop is None or rate == 0.0:
+        return x
+    if isinstance(drop, torch.Generator):
+        keep = torch.rand(x.shape, generator=drop,
+                          device=drop.device) < 1.0 - rate
+    else:
+        keep = torch.as_tensor(drop[site]).reshape(x.shape)
+    return torch.where(keep.to(x.device), x / (1.0 - rate), 0.0)
+
+
+def apply_batch(params, x, cfg: SERConfig = SERConfig(), drop=None):
+    """x: (N, time_frames, n_mels) -> logits (N, num_classes).  ``drop``:
+    the train-mode dropout's source (:func:`_dropout`; None: none)."""
     h = _conv1d(x, params["conv1"])
     h = _maxpool2(F.relu(_group_norm(h, params["gn1"], cfg.gn_groups)))
+    h = _dropout(h, cfg.drop1, 0, drop)
     h = _conv1d(h, params["conv2"])
     h = _maxpool2(F.relu(_group_norm(h, params["gn2"], cfg.gn_groups)))
+    h = _dropout(h, cfg.drop2, 1, drop)
     # flatten over the (T/4, C2) row-major layout, as the reference
     h = h.reshape(h.shape[0], -1)
     h = F.relu(h @ params["fc1"]["w"] + params["fc1"]["b"])
+    h = _dropout(h, cfg.drop_fc, 2, drop)
     return h @ params["out"]["w"] + params["out"]["b"]
 
 
-def apply(params, x, cfg: SERConfig = SERConfig()):
-    """x: (time_frames, n_mels) -> logits (num_classes,)."""
-    return apply_batch(params, x[None], cfg)[0]
+def apply(params, x, cfg: SERConfig = SERConfig(), train: bool = False,
+          rng=None, masks=None):
+    """x: (time_frames, n_mels) -> logits (num_classes,).  ``train=True``
+    with ``rng`` (a ``torch.Generator``) applies the reference's dropout
+    after each pooled conv block and after fc1, a keep mask drawn per
+    site in that order; ``masks`` (the three sites' keep masks, each of
+    the site's activation shape) injects them instead, as the parity
+    tests inject the reference's ``jax.random.bernoulli`` draws (threefry
+    cannot be replayed by ``torch.Generator``).  Otherwise, and with
+    neither source, the deterministic forward."""
+    drop = None
+    if train:
+        drop = masks if masks is not None else rng
+    return apply_batch(params, x[None], cfg, drop)[0]
 
 
 def loss_fn(params, example, cfg: SERConfig = SERConfig()):

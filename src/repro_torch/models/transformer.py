@@ -189,8 +189,8 @@ def prefill_trunk(params, x, positions, cfg, cache):
     for i, blk, window in layers(params, cfg):
         h = L.rms_norm(x, blk["ln_attn"], cfg.norm_eps)
         _, k, v = L._qkv(h, blk["attn"], cfg, positions)
-        cache["k"][i, :, :S] = L.cache_block(k, cache["k"])
-        cache["v"][i, :, :S] = L.cache_block(v, cache["v"])
+        cache["k"][i, :, :S] = L.kv_block(k, cache["k"])
+        cache["v"][i, :, :S] = L.kv_block(v, cache["v"])
         x = _block(x, blk, window, cfg, positions, kv=(k, v, positions))
     return L.rms_norm(x, params["ln_final"], cfg.norm_eps)
 

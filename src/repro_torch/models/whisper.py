@@ -130,10 +130,10 @@ def _dec_trunk(params, x, cfg, positions, enc_out, enc_pos, cache=None):
             continue
         x, k, v, xk, xv = _dec_layer(x, blk, cfg, positions, enc_out,
                                      enc_pos)
-        cache["k"][i, :, :S] = L.cache_block(k, cache["k"])
-        cache["v"][i, :, :S] = L.cache_block(v, cache["v"])
-        cache["xk"][i] = L.cache_block(xk, cache["xk"])
-        cache["xv"][i] = L.cache_block(xv, cache["xv"])
+        cache["k"][i, :, :S] = L.kv_block(k, cache["k"])
+        cache["v"][i, :, :S] = L.kv_block(v, cache["v"])
+        cache["xk"][i] = L.kv_block(xk, cache["xk"])
+        cache["xv"][i] = L.kv_block(xv, cache["xv"])
     return L.rms_norm(x, params["ln_final"], cfg.norm_eps)
 
 

@@ -95,3 +95,13 @@ class SGD:
         return new_params, SGDState(mom=mom)
 
 
+
+
+def make_optimizer(name: str, **kw):
+    """``"adam"`` -> :class:`Adam` (``**kw``), ``"sgd"`` -> :class:`SGD`;
+    any other name raises ``ValueError(name)``, as the reference's does."""
+    if name == "adam":
+        return Adam(**kw)
+    if name == "sgd":
+        return SGD(**kw)
+    raise ValueError(name)

@@ -1107,3 +1107,108 @@ def serve_step_ranks(rank, out, data, cases):
     return {name: _guard(lambda a=arch, o=ov: serve_step(
         mesh, serve_config(a, o), "cpu")) for name, (arch, ov) in
         cases.items()}
+
+
+# ---------------------------------------------------------------------------
+# padded uneven heads (tests/test_torch_heads_padded_mesh.py)
+# ---------------------------------------------------------------------------
+
+def _padded_slots(tree, shardings):
+    """The largest |value| on this rank's padded slots of every leaf of a
+    (master-shaped) tree of blocks (0.0 where the rank has none)."""
+    from repro_torch.launch.shardings import model_dim, real_range
+    from repro_torch.pytree import tree_leaves
+    worst = 0.0
+    for l, s in zip(tree_leaves(tree), tree_leaves(shardings)):
+        d = model_dim(s)
+        if d is None:
+            continue
+        lo, hi = real_range(s.shape[d], s.mesh.shape["model"],
+                            s.mesh.model_rank)
+        pad = l.narrow(d, hi - lo, l.shape[d] - (hi - lo))
+        if pad.numel():
+            worst = max(worst, float(pad.abs().max()))
+    return worst
+
+
+def padded_rounds_on(mesh, arch, granularity, server_opt, server_lr, noise,
+                     overrides=None, n_rounds=2, sigma=0.5):
+    """``n_rounds`` rounds of the reduced ``arch`` (with ``overrides``) on
+    ``mesh`` under ``attn_shard="heads_padded"``, the layers' mesh context
+    installed: each round's whole master and metrics, the largest |value|
+    on this rank's padded slots of its master, update and optimizer state
+    after each round, and the functions that made each ``tp_gather`` of
+    the rounds (the attention's own gathers are ``_head_projs``')."""
+    import inspect
+    from repro_torch.core.fl_step import (
+        gather_master, make_fl_train_step, make_server_optimizer,
+        master_model_dims, shard_master)
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.shardings import tree_shardings
+    from repro_torch.models import layers as L
+    from repro_torch.models.base import get_family
+    from repro_torch.pytree import tree_map
+    cfg, params, batch = setup_arch(arch, overrides)
+    fam = get_family(cfg.family)
+    fl = fl_config(granularity, server_opt, server_lr, sigma)
+    stacked = tree_map(lambda l: torch.empty((G,) + tuple(l.shape),
+                                             device="meta"), params)
+    client_sh = tree_shardings(stacked, cfg, mesh, role="client")
+    master_sh = tree_shardings(params, cfg, mesh, role="master")
+    callers, real = set(), coll.tp_gather
+
+    def traced(*a, **kw):
+        callers.add(inspect.stack()[1].function)
+        return real(*a, **kw)
+
+    L.set_mesh_context(mesh, cfg=cfg)
+    coll.tp_gather = traced
+    try:
+        local = shard_master(params, master_sh)
+        step = make_fl_train_step(lambda p, b: fam.loss(p, b, cfg), fl,
+                                  client_shardings=client_sh,
+                                  master_shardings=master_sh)
+        opt = make_server_optimizer(fl).init(local)
+        rounds = []
+        for _ in range(n_rounds):
+            new, opt, met = step(local, opt, batch, torch.ones(G) / G,
+                                 noise_source(noise))
+            rounds.append({
+                "master": leaves_np(gather_master(new, master_sh)),
+                "delta_norm": float(met["delta_norm"]),
+                "weight_sum": float(met["weight_sum"]),
+                "pad_master": _padded_slots(new, master_sh),
+                "pad_update": _padded_slots(
+                    tree_map(torch.sub, new, local), master_sh),
+                "pad_opt": max(_padded_slots(t, master_sh) for t in opt
+                               if isinstance(t, dict))})
+            local = new
+    finally:
+        coll.tp_gather = real
+        L.clear_mesh_context()
+    return {"rounds": rounds, "callers": sorted(callers),
+            "model_dims": master_model_dims(master_sh),
+            "local_shapes": [tuple(l.shape) for l in leaves_np(local)]}
+
+
+def heads_padded_ranks(rank, out, data, rounds, noise, serve_cases, params,
+                       inputs):
+    """Every case of tests/test_torch_heads_padded_mesh.py on this rank of
+    a ``data`` x ``WORLD / data`` mesh, under ``heads_padded``: ``rounds``
+    is ``{name: (arch, granularity, server_opt, server_lr, overrides)}``
+    (``noise[name]`` its injected draws), ``serve_cases`` ``{name: (arch,
+    overrides)}`` (``params[name]``, ``inputs[name]`` as numpy)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import set_sharding_options
+    set_sharding_options(attn_shard="heads_padded")
+    mesh = make_host_mesh(data=data, model=dist.get_world_size() // data)
+    res = {"mesh": mesh.shape, "coords": (mesh.rank, mesh.model_rank)}
+    for name, (arch, gran, opt, lr, ov) in rounds.items():
+        res[name] = _guard(lambda a=arch, gr=gran, o=opt, l=lr, v=ov,
+                           n=name: padded_rounds_on(mesh, a, gr, o, l,
+                                                    noise[n], v))
+    for name, (arch, ov) in serve_cases.items():
+        res[name] = _guard(lambda a=arch, o=ov, n=name: serve_on(
+            mesh, serve_config(a, o), params[n], *inputs[n]))
+    return res

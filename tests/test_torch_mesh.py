@@ -256,11 +256,11 @@ def test_make_host_mesh_without_a_group_is_one_by_one():
 
 
 # ---------------------------------------------------------------------------
-# ROADMAP.md queue 1 item 19: the model axis (only its fourth part, the
-# reference's dry-run knobs the port lacks, still raises)
+# ROADMAP.md queue 1 item 19: the model axis, every part of it run,
+# the reference's dry-run knobs included
 # ---------------------------------------------------------------------------
 
-def test_the_model_axis_raises_naming_item_19():
+def test_the_model_axis_runs_every_dry_run_knob():
     from repro_torch.launch import dryrun
     # the production meshes run: abstract outside a group of their size
     # (launch/dryrun.py makes one; tests/test_torch_dryrun.py runs it)
@@ -284,13 +284,18 @@ def test_the_model_axis_raises_naming_item_19():
     assert res["status"] == "ok", res.get("error")
     assert (res["remat_policy"], res["client_placement"],
             res["n_micro"]) == ("dots", "dp", 1)
-    # the knob the port lacks raises, naming part 4
-    with pytest.raises(ValueError, match=ROADMAP_19 + ", part 4"):
-        dryrun.main(["--arch", "gemma2-2b", "--shape", "train_4k",
-                     "--attn-shard", "heads_padded"])
-    with pytest.raises(ValueError, match=ROADMAP_19 + ", part 4"):
-        dryrun.run_one("gemma2-2b", "train_4k", "single",
-                       attn_shard="heads_padded")
+    # and the padded uneven heads (tests/test_torch_heads_padded*.py): the
+    # CLI takes the knob, and gemma2-2b's 8/4 heads pad over 16 ranks
+    args = dryrun.build_parser().parse_args(
+        ["--arch", "gemma2-2b", "--shape", "decode_32k", "--attn-shard",
+         "heads_padded"])
+    assert args.attn_shard == "heads_padded"
+    res = dryrun.run_one("gemma2-2b", "decode_32k", "single",
+                         attn_shard="heads_padded")
+    assert res["status"] == "ok", res.get("error")
+    assert res["attn_shard"] == "heads_padded"
+    assert t_sh._OPTS["attn_shard"] == "even"
+    assert not hasattr(t_mesh, "not_ported")
     # a model axis passes, and then wants the mesh's ranks
     # (test_torch_model_axis, test_torch_model_axis_zoo run on them)
     with pytest.raises(ValueError,
