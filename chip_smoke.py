@@ -161,7 +161,17 @@ package ``repro``) and fails with a non-zero exit on the first problem:
 27. [dryrun] ``launch/dryrun.py``'s combinations on the host, in a child
     process started at the beginning and read at the end: zamba2-1.2b x
     decode_32k and smollm-360m x train_4k with ``--remat-policy dots
-    --client-placement dp``, on the single pod.
+    --client-placement dp``, on the single pod;
+28. [analysis] (right after [mesh-main]; no new run) the port's program
+    audits (``repro_torch.analysis``) over what the phases above left:
+    ``audit_engine_stats`` on every engine RunLog of [main], [rerun],
+    [api], [legacy], [robust], the run modes and [mesh-main] (this
+    process's and each spawned rank's), ``audit_donation(expect=True)``
+    on each [main] cohort's arenas (written in place),
+    ``audit_sharding`` on the W = 2 ranks' cohort rows,
+    ``audit_collectives`` on every spawned rank's runs (at most 3
+    all-gathers per cohort, no other kind), and the port's lint over
+    ``src/repro_torch``.
 
 The CUDA C++ kernels' ``nvcc`` build starts in the background when the
 script starts and is waited for before the first CUDA kernel runs.
@@ -171,6 +181,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -2918,10 +2929,11 @@ def _mesh_main_rank(rank, port, world, backend, out, model=1):
     from repro_torch.core.testbed import build_testbed, run_experiment
     from repro_torch.engine import (
         CohortRunner, EngineConfig, assert_cohort_partitioned)
+    from repro_torch.engine.mesh_backend import Shard
     from repro_torch.kernels.dp_clip import dp_clip
     from repro_torch.launch import collectives as coll
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.pytree import tree_leaves
+    from repro_torch.pytree import tree_leaves, tree_map
     try:
         mesh = make_host_mesh(data=world // model, model=model)
         res = {"describe": coll.describe(mesh.group, device),
@@ -2944,6 +2956,7 @@ def _mesh_main_rank(rank, port, world, backend, out, model=1):
                 "launches": (dp_clip.sqnorm_launches,
                              dp_clip.scale_mean_launches),
                 "info": lg.engine_stats["pallas_interpret"],
+                "engine_stats": lg.engine_stats,
                 "collectives": coll.stats(),
                 "peak": torch.cuda.max_memory_allocated()}
         clients, params, _, _ = build_testbed(_main_cfg())
@@ -2953,6 +2966,10 @@ def _mesh_main_rank(rank, port, world, backend, out, model=1):
         runner.run_cohort(plans)
         res["partition"] = assert_cohort_partitioned(runner.last_partition,
                                                      mesh)
+        # the cohort's rows of this rank as shapes only, for [analysis]
+        res["cohort_rows"] = (len(plans), tree_map(lambda s: Shard(
+            torch.empty(s.local.shape, device="meta"), s.shape, s.offset),
+            runner.last_partition))
         torch.save(res, out / f"rank{rank}.pt",
                    _use_new_zipfile_serialization=False)
     finally:
@@ -3030,6 +3047,7 @@ def _mesh_main_model_axis(smi, twins):
     wall = time.perf_counter() - t0
     ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
              for r in range(4)]
+    MESH_MAIN_RANKS["(data 2, model 2) gloo"] = ranks
     launches = [0, 0]
     for r, res in enumerate(ranks):
         what = f"[mesh-main] (data 2, model 2) rank {r}"
@@ -3153,6 +3171,7 @@ def phase_mesh_main(smi, main_runs):
         ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
                  for r in range(world)]
         _mesh_main_check(ranks, world, backend, s_max, log_main, l0, lj)
+        MESH_MAIN_RANKS[f"W={world} {backend}"] = ranks
         d = {tag: max(float((a - b).abs().max())
                       for a, b in zip(ranks[0][tag]["params"], want))
              for tag, want in want_leaves.items()}
@@ -4410,6 +4429,134 @@ DRYRUN = (("zamba2-1.2b", "decode_32k", {}),
 DRYRUN_OUT = ROOT / "build" / "dryrun_smoke.json"
 
 
+# ---------------------------------------------------------------------------
+# [analysis]: the port's program audits and lint over what the phases above
+# produced
+# ---------------------------------------------------------------------------
+
+# (label, RunLog.engine_stats) of every engine run of this process since
+# _record_engine_stats, labelled by the phase that ran it
+ENGINE_STATS = []
+_LABEL = [None]
+# [main]'s cohorts: (arenas before, arenas after) per submitted cohort
+MAIN_ARENAS = []
+# [mesh-main]'s spawned ranks' saved results, by mesh
+MESH_MAIN_RANKS = {}
+# the phases whose engine runs [analysis] audits
+AUDITED = ("main", "rerun", "api", "legacy", "robust", "modes",
+           "mesh-main")
+
+
+def _stats_label(label):
+    _LABEL[0] = label
+
+
+def _record_engine_stats():
+    """Keep every engine run's stats as the engine validates them at the
+    end of the run (``engine.validate_engine_stats``), labelled with the
+    running phase."""
+    from repro_torch.engine import engine
+    real = engine.validate_engine_stats
+
+    def recorded(stats, *a, **kw):
+        out = real(stats, *a, **kw)
+        if _LABEL[0] is not None:
+            ENGINE_STATS.append((_LABEL[0], out))
+        return out
+
+    engine.validate_engine_stats = recorded
+
+
+@contextlib.contextmanager
+def _arena_recorder():
+    """Keep each cohort's client-state arenas (the tensors themselves)
+    before and after its submission, for the in-place audit."""
+    from repro_torch.engine.engine import CohortRunner
+    real = CohortRunner.submit_cohort
+
+    def submit(self, staged):
+        before = (self._arena_params, self._arena_opt)
+        out = real(self, staged)
+        if staged.arena and not staged.degenerate:
+            MAIN_ARENAS.append((before, (self._arena_params,
+                                         self._arena_opt)))
+        return out
+
+    CohortRunner.submit_cohort = submit
+    try:
+        yield
+    finally:
+        CohortRunner.submit_cohort = real
+
+
+def phase_analysis(smi):
+    """[analysis]: no new run.  ``audit_engine_stats`` on every engine
+    RunLog of [main], [rerun], [api], [legacy], [robust], the run modes
+    and [mesh-main] (this process's, and each spawned rank's);
+    ``audit_donation(expect=True)`` on each of [main]'s cohorts (the
+    arenas written in place); ``audit_sharding`` and
+    ``audit_collectives`` on [mesh-main]'s spawned ranks (the cohort's
+    rows on each rank; all-gathers at most 3 per cohort, one per dtype
+    run of the gathered params and Adam state, and no other kind); the
+    port's lint over ``src/repro_torch``."""
+    from repro_torch.analysis import (
+        audit_collectives, audit_donation, audit_engine_stats,
+        audit_sharding)
+    from repro_torch.analysis import lint
+    from repro_torch.pytree import tree_leaves
+    t0 = time.perf_counter()
+    counts = {}
+    for label, st in ENGINE_STATS:
+        if label in AUDITED:
+            audit_engine_stats(st, label=f"[{label}] engine_stats")
+            counts[label] = counts.get(label, 0) + 1
+    require(set(counts) == set(AUDITED),
+            f"[analysis] engine runs audited per phase: {counts}")
+    n_rank_runs = 0
+    for mesh_name, ranks in MESH_MAIN_RANKS.items():
+        for r, res in enumerate(ranks):
+            for tag, _, _ in MESH_MAIN_RUNS:
+                if tag not in res:
+                    continue
+                what = f"[mesh-main] {mesh_name} rank {r} {tag}"
+                st = audit_engine_stats(res[tag]["engine_stats"], label=what)
+                budget = 3 * st["cohorts"]
+                got = audit_collectives(
+                    res[tag]["collectives"], label=what,
+                    forbid=("all-reduce", "reduce-scatter", "broadcast"),
+                    max_counts={"all-gather": budget})
+                require(got.get("all-gather", 0) > 0,
+                        f"{what}: no all-gather")
+                n_rank_runs += 1
+    require("W=2 gloo" in MESH_MAIN_RANKS, "[analysis] no W = 2 ranks")
+    sharded = []
+    for r, res in enumerate(MESH_MAIN_RANKS["W=2 gloo"]):
+        k, rows = res["cohort_rows"]
+        sharded.append(audit_sharding(
+            rows, client_dim=k, min_partition=2,
+            label=f"[mesh-main] W=2 gloo rank {r}"))
+    require(MAIN_ARENAS, "[analysis] [main] recorded no cohort")
+    n_cohorts, n_leaves = len(MAIN_ARENAS), len(tree_leaves(
+        MAIN_ARENAS[0][0]))
+    n_arena = sum(audit_donation(before, after, expect=True,
+                                 label="[main] cohort arenas")
+                  for before, after in MAIN_ARENAS)
+    MAIN_ARENAS.clear()
+    t_lint = time.perf_counter()
+    findings = lint.run([str(ROOT / "src" / "repro_torch")])
+    t_lint = time.perf_counter() - t_lint
+    require(not findings, "[analysis] lint findings:\n" + "\n".join(
+        f.format() for f in findings))
+    log(f"[analysis] {smi}; engine_stats audited: {counts} in this process, "
+        f"{n_rank_runs} runs of [mesh-main]'s spawned ranks (each also "
+        f"within its collective budget of 3 all-gathers per cohort); "
+        f"[main]'s {n_cohorts} cohorts wrote "
+        f"all {n_leaves} arena leaves in place ({n_arena} aliases); the "
+        f"W = 2 cohort partitioned on each rank ({sharded} leaves "
+        f"audited); lint of src/repro_torch clean in {t_lint:.2f} s; "
+        f"phase wall {time.perf_counter() - t0:.2f} s")
+
+
 def _dryrun_child():
     """The child process of [dryrun]: every ``DRYRUN`` combination, the
     results written to ``DRYRUN_OUT``."""
@@ -4488,12 +4635,19 @@ def main():
 def _phases(dev, smi, t_start, build_job, dry):
     errs = phase_kernels(dev)
     times = phase_times(dev, smi)
-    launches, main_runs = phase_main_path()
-    phase_small_vs_cpu()
-    phase_rerun()
-    phase_api(smi)
-    phase_legacy(smi)
-    phase_robust(smi)
+    _record_engine_stats()
+    _stats_label("main")
+    with _arena_recorder():
+        launches, main_runs = phase_main_path()
+    for label, phase in (("small", phase_small_vs_cpu),
+                         ("rerun", phase_rerun)):
+        _stats_label(label)
+        phase()
+    for label, phase in (("api", phase_api), ("legacy", phase_legacy),
+                         ("robust", phase_robust)):
+        _stats_label(label)
+        phase(smi)
+    _stats_label("modes")
     t_modes = time.perf_counter()
     sess = _modes_session()
     for phase in (phase_resume, phase_hostfed, phase_pipeline):
@@ -4506,12 +4660,16 @@ def _phases(dev, smi, t_start, build_job, dry):
     phase_tiered(smi)
     log(f"[tiered] phase wall {time.perf_counter() - t0:.1f} s; the run "
         f"modes took {time.perf_counter() - t_modes:.1f} s in all")
+    _stats_label("breakdown")
     phase_breakdown(smi)
+    _stats_label("mesh-main")
     t0 = time.perf_counter()
     mesh_launches = phase_mesh_main(smi, main_runs)
     for name, n in mesh_launches.items():
         launches[name] += n
     log(f"[mesh-main] phase wall {time.perf_counter() - t0:.1f} s")
+    _stats_label(None)
+    phase_analysis(smi)
     errs.update(phase_kernels_zoo(dev, build_job))
     times.update(phase_times_zoo(dev, smi))
     params, cfg, tokens, logits, toks, serve_launches = phase_serve(dev, smi)

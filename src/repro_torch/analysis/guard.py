@@ -17,8 +17,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
+from repro_torch.analysis.audits import AuditFailure
 
-class CompileBudgetExceeded(AssertionError):
+
+class CompileBudgetExceeded(AuditFailure):
     """More cohort steps were built than the region's budget."""
 
 

@@ -172,15 +172,21 @@ def loss_grad(loss_fn: Callable, params, batch):
         for p, g in zip(leaves, grads)])
 
 
-def _draw(noise, step: int, leaf: int, shape, device) -> torch.Tensor:
+def draw_leaf(noise, step: int, leaf: int, shape, device) -> torch.Tensor:
     """Standard-normal f32 draws of ``shape`` for (``step``, ``leaf``):
     from a ``torch.Generator``, or from a callable source
-    ``noise(step, leaf, shape)``."""
+    ``noise(step, leaf, shape)`` (the parity tests hand in the JAX
+    package's draws this way; the cohort step's executors take the same
+    sources, ``engine/cohort_step.py::draw_noise``)."""
     if isinstance(noise, torch.Generator):
         return torch.randn(tuple(shape), generator=noise,
                            dtype=torch.float32, device=noise.device)
-    return torch.as_tensor(noise(step, leaf, tuple(shape)),
-                           dtype=torch.float32, device=device)
+    z = torch.as_tensor(noise(step, leaf, tuple(shape)),
+                        dtype=torch.float32, device=device)
+    if tuple(z.shape) != tuple(shape):
+        raise ValueError(f"noise source gave shape {tuple(z.shape)} for "
+                         f"step {step} leaf {leaf}, expected {tuple(shape)}")
+    return z
 
 
 @dataclass(frozen=True)
@@ -284,13 +290,14 @@ def make_local_phase(loss_fn: Callable, fl: FLStepConfig,
 
 
 def _draw_block(noise, step: int, j: int, shape, device, model, lead=()):
-    """:func:`_draw` for leaf ``j``, whose block on this rank has
+    """:func:`draw_leaf` for leaf ``j``, whose block on this rank has
     ``shape`` (after the stacked dims ``lead``): drawn whole, then cut to
     the block, so the draws are the one-process round's."""
     if model is None:
-        return _draw(noise, step, j, tuple(lead) + tuple(shape), device)
-    return model.cut(j, _draw(noise, step, j, tuple(lead)
-                              + tuple(model.shapes[j]), device), len(lead))
+        return draw_leaf(noise, step, j, tuple(lead) + tuple(shape), device)
+    return model.cut(j, draw_leaf(noise, step, j, tuple(lead)
+                                  + tuple(model.shapes[j]), device),
+                     len(lead))
 
 
 def client_noise(key, G: int, device):

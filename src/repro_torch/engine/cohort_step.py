@@ -48,9 +48,14 @@ the ``live = step < n_steps`` mask.  Like the reference's step-major loop
 (cohort_step.py:468) every padded step launches, masked ones included.
 
 Noise: member k draws its ``z`` (length D, flat leaf order) once per local
-step from its own generator, seeded from its dispatch seed, so the noise
-depends only on (dispatch seed, local step) and never on how members
-were grouped into cohorts.  The noise scale is a runtime one-element
+step from its own noise stream, so the noise depends only on (dispatch
+seed, local step) and never on how members were grouped into cohorts.
+A stream is the member's ``torch.Generator``, seeded from its dispatch
+seed, or a callable source ``noise(step, leaf, shape)``, the production
+round's protocol (the engine's ``CohortRunner(noise_streams=...)``, which
+the parity tests use to hand in the JAX package's draws); the executors
+draw through :func:`draw_noise`, ``"fl_step"`` through the production
+round's own ``draw_leaf``.  The noise scale is a runtime one-element
 tensor: one built step serves a whole sigma sweep.
 
 The step returns ``(upload, arena_opt, screen)``: each member's upload is
@@ -83,6 +88,7 @@ counts cache misses.
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import replace
 from typing import Callable
 
@@ -91,6 +97,7 @@ from torch.func import grad, vmap
 
 from repro_torch.core.dp import (
     DPConfig, dp_mean_gradient, per_example_grads, validate_dp_path)
+from repro_torch.core.fl_step import draw_leaf
 from repro_torch.pytree import (
     tree_flatten_to_vector, tree_leaves, tree_map, tree_size,
     tree_unflatten_from_vector)
@@ -147,6 +154,24 @@ def _screen_members(ref, new):
     return torch.isfinite(norm), norm
 
 
+def draw_noise(noise, step: int, shapes, device) -> torch.Tensor:
+    """A member's standard-normal f32 draws for local step ``step``, one
+    per parameter in flat leaf order (``shapes``: the leaves' shapes): all
+    at once from its ``torch.Generator``, or leaf by leaf from a callable
+    source ``noise(step, leaf, shape)``, the production round's protocol
+    (``core/fl_step.py::draw_leaf``)."""
+    if isinstance(noise, torch.Generator):
+        d = sum(math.prod(s) for s in shapes)
+        return torch.randn(d, generator=noise, dtype=torch.float32,
+                           device=device)
+    return torch.cat([draw_leaf(noise, step, j, s, device).reshape(-1)
+                      for j, s in enumerate(shapes)])
+
+
+def _shapes(tree) -> list:
+    return [tuple(l.shape) for l in tree_leaves(tree)]
+
+
 def take_rows(tree, idx):
     """Gather rows ``idx`` (int64 device tensor) of every stacked leaf."""
     return tree_map(lambda l: l.index_select(0, idx), tree)
@@ -183,7 +208,9 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
       arena_data:  dict of (A_d, n_max, ...) resident datasets
       slots, data_slots: (K,) int64 device tensors
       batch_idx:   (K, S_max, B) int64 device tensor
-      gens:        K device ``torch.Generator``s (member noise streams)
+      gens:        K member noise streams (device ``torch.Generator``s
+                   or callable sources ``noise(step, leaf, shape)``,
+                   :func:`draw_noise`)
       n_steps:     (K,) host int array of real local steps per member
       noise_stddev: one-element f32 device tensor (runtime sigma*C/B)
       corrupt_scale: (K,) f32 device tensor (1.0 = clean)
@@ -226,12 +253,14 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
             "production mechanism from fl_cfg.dp — use dp_path='jnp' there")
     fused_dp = bool(use_dp and dp_path == "pallas")
 
-    def one_step(params, opt_state, batch, gen, noise_stddev):
+    def one_step(params, opt_state, batch, gen, step, noise_stddev):
         if use_dp:
+            z = (draw_noise(gen, step, _shapes(params),
+                            tree_leaves(params)[0].device)
+                 if add_noise else None)
             g, _aux = dp_mean_gradient(
                 loss_fn, params, batch, dp_cfg, dp_path="jnp",
-                noise_stddev=noise_stddev if add_noise else None,
-                generator=gen)
+                noise_stddev=noise_stddev if add_noise else None, z=z)
         else:
             g = grad(lambda p: torch.mean(
                 vmap(loss_fn, in_dims=(None, 0))(p, batch)))(params)
@@ -246,7 +275,7 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
             p, o = unstack_tree(stacked_params, i), unstack_tree(stacked_opt, i)
             for s in range(int(n_steps[i])):
                 batch = {k: v[i, s] for k, v in batches.items()}
-                p, o = one_step(p, o, batch, gens[i], noise_stddev)
+                p, o = one_step(p, o, batch, gens[i], s, noise_stddev)
             outs_p.append(p)
             outs_o.append(o)
         return stack_trees(outs_p), stack_trees(outs_o)
@@ -258,7 +287,7 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         from repro_torch.kernels.dp_clip.ops import dp_clip_mean_noise_cohort
 
         template = unstack_tree(stacked_params, 0)
-        d = tree_size(template)
+        shapes = _shapes(template)
         dev = tree_leaves(stacked_params)[0].device
         s_max = next(iter(batches.values())).shape[1]
         member_grads = vmap(lambda p, b: per_example_grads(loss_fn, p, b))
@@ -267,9 +296,8 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
             batch_s = {k: v[:, s] for k, v in batches.items()}
             flat = tree_flatten_to_vector(member_grads(p, batch_s), lead=2)
             if add_noise:
-                z = torch.stack([
-                    torch.randn(d, generator=g, dtype=torch.float32,
-                                device=dev) for g in gens])
+                z = torch.stack([draw_noise(g, s, shapes, dev)
+                                 for g in gens])
                 means, _, _ = dp_clip_mean_noise_cohort(
                     flat, dp_cfg.clip_norm, noise_stddev, z)
             else:
@@ -288,14 +316,15 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         one per live step in step order, from each member's generator."""
         s_max = next(iter(batches.values())).shape[1]
         noisy = use_dp and add_noise
-        d = tree_size(unstack_tree(stacked_params, 0)) if noisy else 0
+        template = unstack_tree(stacked_params, 0)
+        shapes = _shapes(template)
+        d = tree_size(template) if noisy else 0
         dev = tree_leaves(stacked_params)[0].device
         z = torch.zeros((len(gens), s_max, d), dtype=torch.float32,
                         device=dev)
         for i, gen in enumerate(gens if noisy else ()):
             for s in range(int(n_steps[i])):
-                z[i, s] = torch.randn(d, generator=gen, dtype=torch.float32,
-                                      device=dev)
+                z[i, s] = draw_noise(gen, s, shapes, dev)
 
         def member(p, o, member_batches, live_n, member_z):
             for s in range(s_max):
@@ -343,8 +372,9 @@ def make_cohort_step(loss_fn: Callable, dp_cfg: DPConfig, opt,
         outs = []
         for i in range(len(gens)):
             micro = {k: to_micro(v[i]) for k, v in batches.items()}
-            outs.append(fl_local(unstack_tree(stacked_params, i), micro,
-                                 gens[i], n_steps=int(n_steps[i])))
+            p = unstack_tree(stacked_params, i)
+            outs.append(fl_local(p, micro, gens[i],
+                                 n_steps=int(n_steps[i])))
         return stack_trees(outs), stacked_opt
 
     if fused_dp:

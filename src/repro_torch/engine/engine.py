@@ -47,7 +47,11 @@ snapshot at loop-consistent points and resume bit-identically.
 Randomness: dispatch seeds come from ``np.random.default_rng(seed)`` in
 the order the reference splits its PRNG key — N at startup, then one per
 re-dispatch (async) or one per client per round (FedAvg).  Each seed
-seeds that member's device ``torch.Generator`` for its DP noise.
+seeds that member's device ``torch.Generator`` for its DP noise, unless
+the runner was given ``noise_streams``, a factory ``dispatch seed ->
+source`` whose callables ``source(step, leaf, shape)`` the cohort step
+draws from instead, as the production round does (the parity tests hand
+in the JAX package's draws this way; no spec or Session sets it).
 
 Executors (``EngineConfig.client_axis``): ``"unroll"``, ``"map"``,
 ``"vmap"`` and ``"fl_step"``, the production round's local phase driven
@@ -260,7 +264,8 @@ class CohortRunner:
     """Owns the cohort step, the device arenas, the tiered store and the
     host plan glue."""
 
-    def __init__(self, clients, cfg: EngineConfig, device, data_arena=None):
+    def __init__(self, clients, cfg: EngineConfig, device, data_arena=None,
+                 noise_streams=None):
         c0 = clients[0]
         for c in clients:
             if (c.dp_cfg != c0.dp_cfg or c.use_dp != c0.use_dp
@@ -274,6 +279,8 @@ class CohortRunner:
         self.clients = clients
         self.cfg = cfg
         self.device = torch.device(device)
+        # dispatch seed -> a member's noise stream (None: its generator)
+        self.noise_streams = noise_streams
         self.s_max = max(
             steps_per_round(c.n_train, c.batch_size, c.local_epochs)
             for c in clients)
@@ -782,6 +789,7 @@ class CohortRunner:
                 return stack_trees([p.params0 for p in plans])
             return take_rows(self._arena_params, staged.slots)
         gens = [torch.Generator(self.device).manual_seed(p.key)
+                if self.noise_streams is None else self.noise_streams(p.key)
                 for p in plans]
         if staged.n_steps is not None and len(staged.n_steps) > len(plans):
             # a mesh's pad members (zero steps: they draw nothing)

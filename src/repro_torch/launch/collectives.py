@@ -63,23 +63,30 @@ _LEDGER: dict = {}
 
 
 def stats() -> dict:
-    """``{collective: {"calls", "bytes", "host_staged", "seconds"}}``
-    since the last :func:`reset_stats` (bytes: this rank's input
-    buffers)."""
-    return {k: dict(v) for k, v in _LEDGER.items()}
+    """``{collective: {"calls", "bytes", "host_staged", "seconds",
+    "by_group"}}`` since the last :func:`reset_stats` (bytes: this
+    rank's input buffers; ``by_group``: ``{group size: {"calls",
+    "bytes"}}``, which ``analysis/hlo.py`` turns into link traffic)."""
+    return {k: dict(v, by_group={g: dict(c) for g, c in
+                                 v["by_group"].items()})
+            for k, v in _LEDGER.items()}
 
 
 def reset_stats():
     _LEDGER.clear()
 
 
-def _note(name: str, nbytes: int, staged: bool, t0: float):
+def _note(name: str, nbytes: int, staged: bool, t0: float, group):
     e = _LEDGER.setdefault(name, {"calls": 0, "bytes": 0, "host_staged": 0,
-                                  "seconds": 0.0})
+                                  "seconds": 0.0, "by_group": {}})
     e["calls"] += 1
     e["bytes"] += int(nbytes)
     e["host_staged"] += int(staged)
     e["seconds"] += time.perf_counter() - t0
+    g = e["by_group"].setdefault(dist.get_world_size(group),
+                                 {"calls": 0, "bytes": 0})
+    g["calls"] += 1
+    g["bytes"] += int(nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +198,7 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
             _call("all_gather_single", "all_gather_into_tensor")(
                 out, src, group=group)
     out = _back(out, x, staged)
-    _note("all_gather", x.numel() * x.element_size(), staged, t0)
+    _note("all_gather", x.numel() * x.element_size(), staged, t0, group)
     return out
 
 
@@ -211,7 +218,7 @@ def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
             _call("reduce_scatter_single", "reduce_scatter_tensor")(
                 out, src, group=group)
     out = _back(out, x, staged)
-    _note("reduce_scatter", x.numel() * x.element_size(), staged, t0)
+    _note("reduce_scatter", x.numel() * x.element_size(), staged, t0, group)
     return out
 
 
@@ -224,7 +231,7 @@ def all_reduce_sum(x: torch.Tensor, group, op=None) -> torch.Tensor:
     if not _meta(x, group):
         dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=group)
     buf = _back(buf, x, staged)
-    _note("all_reduce", x.numel() * x.element_size(), staged, t0)
+    _note("all_reduce", x.numel() * x.element_size(), staged, t0, group)
     return buf
 
 
@@ -237,14 +244,14 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
         dist.broadcast(buf, src=dist.get_global_rank(group, src),
                        group=group)
     buf = _back(buf, x, staged)
-    _note("broadcast", x.numel() * x.element_size(), staged, t0)
+    _note("broadcast", x.numel() * x.element_size(), staged, t0, group)
     return buf
 
 
 def barrier(group):
     t0 = time.perf_counter()
     dist.barrier(group=group)
-    _note("barrier", 0, False, t0)
+    _note("barrier", 0, False, t0, group)
 
 
 # ---------------------------------------------------------------------------

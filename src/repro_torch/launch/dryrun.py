@@ -37,8 +37,13 @@ reference's:
 * ``collectives``: ``{"bytes", "counts"}`` per kind, from
   ``collectives.stats()``: every call the rank makes, each one's input
   bytes (XLA's parse sums each op's output bytes, once per static op);
-* ``walk``, ``hlo_ops``: None; the HLO walker (``analysis/hlo.py``) is
-  ROADMAP.md queue 1 item 15.
+* ``walk``: :func:`repro_torch.analysis.hlo.analyze` of the same run,
+  the reference's keys: ``dot_flops`` (``cost.flops``),
+  ``collective_counts`` (``collectives.counts``), per-kind
+  ``collective_traffic_bytes`` (each call's input bytes times the ring
+  multiplier of its group's size) and ``total_collective_bytes``;
+  ``hbm_bytes`` is None (``not_ported``);
+* ``hlo_ops``: None; the port emits no HLO (``not_ported``).
 
 The reference's training knobs: ``--remat-policy dots``
 (``models.transformer.set_remat_policy``: the dense and VLM layers save
@@ -83,8 +88,11 @@ NOTES = {
     "collectives": "every call this rank makes, bytes of its input "
                    "buffers per call",
 }
-NOT_PORTED = {"walk": "analysis/hlo.py (ROADMAP.md queue 1 item 15)",
-              "hlo_ops": "no HLO in the port"}
+
+def _not_ported() -> dict:
+    from repro_torch.analysis.hlo import NOT_PORTED
+    return {"walk.hbm_bytes": NOT_PORTED["hbm_bytes"],
+            "hlo_ops": NOT_PORTED["hlo_ops"]}
 
 
 def applicable(arch_id: str, shape_name: str) -> bool:
@@ -261,6 +269,7 @@ def run_one(arch_id: str, shape_name: str, mesh_kind: str,
     and ``client_placement`` are the reference's training knobs (module
     docstring).  A failure of the step is recorded (``"status":
     "error"``), as the reference records its lowering's."""
+    from repro_torch.analysis.hlo import analyze
     from repro_torch.configs import get_config
     from repro_torch.launch import collectives as coll
     from repro_torch.launch import serve
@@ -316,8 +325,8 @@ def run_one(arch_id: str, shape_name: str, mesh_kind: str,
                                "generated_code_size_bytes": None},
                     "cost": {"flops": flops},
                     "collectives": _collectives(coll.stats()),
-                    "walk": None, "hlo_ops": None,
-                    "not_ported": NOT_PORTED, "notes": NOTES})
+                    "walk": analyze(coll.stats(), flops), "hlo_ops": None,
+                    "not_ported": _not_ported(), "notes": NOTES})
         except Exception as e:  # noqa: BLE001 — recorded, as the reference
             result = dict(head, **{
                 "status": "error",

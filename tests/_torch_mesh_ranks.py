@@ -1212,3 +1212,36 @@ def heads_padded_ranks(rank, out, data, rounds, noise, serve_cases, params,
         res[name] = _guard(lambda a=arch, o=ov, n=name: serve_on(
             mesh, serve_config(a, o), params[n], *inputs[n]))
     return res
+
+
+# ---------------------------------------------------------------------------
+# the program audits on the real cohort step (tests/test_torch_analysis_audits.py)
+# ---------------------------------------------------------------------------
+
+def _audit_cohort(mesh, k, arena):
+    """One cohort of ``k`` members of the tiny testbed at sigma 1 on
+    ``mesh``: the step's partition record (this rank's rows) and the
+    collectives of the step alone."""
+    from repro_torch.core.testbed import build_testbed
+    from repro_torch.engine import CohortRunner, EngineConfig
+    from repro_torch.launch import collectives as coll
+    clients, params, _, _ = build_testbed(tiny_cfg(1.0), device="cpu")
+    runner = CohortRunner(clients, EngineConfig(
+        mesh=mesh, max_cohort=4, device_arena=arena), "cpu")
+    plans = [runner.dispatch(c, params, 100 + c.cid, 0)
+             for c in clients[:k]]
+    staged = runner.stage_cohort(plans)
+    coll.reset_stats()
+    runner.submit_cohort(staged)
+    return {"partition": runner.last_partition, "collectives": coll.stats(),
+            "k_pad": int(len(staged.n_steps))}
+
+
+def audit_ranks(rank, out):
+    """A partitioned arena cohort of 4 (2 members per rank) and a host-fed
+    cohort of 3 (whole on every rank) on a W = 2 data axis."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data=WORLD)
+    return {"mesh": mesh.shape, "rank": mesh.rank,
+            "full": _guard(lambda: _audit_cohort(mesh, 4, True)),
+            "whole": _guard(lambda: _audit_cohort(mesh, 3, False))}

@@ -125,6 +125,15 @@ RUNS = {
         fl_cfg=dict(num_clients=1, n_micro=2, local_lr=0.05, dp=dict(
             clip_norm=0.1, noise_multiplier=0.0,
             granularity="per_microbatch")))),
+    # the same at noise multiplier 1, held draw for draw
+    # (tests/test_torch_noisy_parity.py)
+    "fl_step_noisy": _run(("fedasync", dict(alpha=0.4)), sigma=1.0,
+                          engine=dict(
+                              staleness_window=1e9, max_cohort=2,
+                              client_axis="fl_step", fl_cfg=dict(
+                                  num_clients=1, n_micro=2, local_lr=0.05,
+                                  dp=dict(clip_norm=0.1, noise_multiplier=1.0,
+                                          granularity="per_microbatch")))),
 }
 LOG_FIELDS = ("times", "global_acc", "server_version", "update_counts",
               "influence", "staleness", "eps_trajectory", "local_acc",
@@ -172,14 +181,7 @@ def execute(pkg, name, init_leaves=None, dp_path="jnp", device=None,
     strategy = mod("core.aggregation").make_strategy(
         r["strategy"][0], **r["strategy"][1])
     server = mod("core.server")
-    eng = dict(r["engine"], **(engine or {}))
-    if "store" in eng:
-        eng["store"] = mod("engine.statestore").StoreConfig(**eng["store"])
-    if "fl_cfg" in eng:
-        fl = dict(eng["fl_cfg"], dp=mod("core.dp").DPConfig(
-            **eng["fl_cfg"]["dp"]))
-        eng["fl_cfg"] = mod("core.fl_step").FLStepConfig(**fl)
-    ecfg = mod("engine.engine").EngineConfig(**eng)
+    ecfg = engine_config(pkg, name, **(engine or {}))
     calls = []
     state_cls = mod("core.screening").ScreeningState
     screen = state_cls.screen
@@ -205,6 +207,21 @@ def execute(pkg, name, init_leaves=None, dp_path="jnp", device=None,
     return params0, final, log, calls
 
 
+def engine_config(pkg, name, **engine):
+    """Entry ``name``'s EngineConfig in package ``pkg``, its kwargs
+    updated by ``engine``."""
+    import importlib
+    mod = lambda m: importlib.import_module(f"{pkg}.{m}")  # noqa: E731
+    eng = dict(RUNS[name]["engine"], **engine)
+    if "store" in eng:
+        eng["store"] = mod("engine.statestore").StoreConfig(**eng["store"])
+    if "fl_cfg" in eng:
+        fl = dict(eng["fl_cfg"], dp=mod("core.dp").DPConfig(
+            **eng["fl_cfg"]["dp"]))
+        eng["fl_cfg"] = mod("core.fl_step").FLStepConfig(**fl)
+    return mod("engine.engine").EngineConfig(**eng)
+
+
 def log_dict(log, calls):
     """The RunLog fields, counters and screen calls as plain JSON data."""
     out = {f: getattr(log, f) for f in LOG_FIELDS}
@@ -215,13 +232,21 @@ def log_dict(log, calls):
     return json.loads(json.dumps(out))
 
 
+def split_name(name):
+    """``"entry@pallas"`` -> ``("entry", "pallas")``; a bare entry name
+    runs the reference's ``dp_path="jnp"``."""
+    entry, _, dp_path = name.partition("@")
+    return entry, dp_path or "jnp"
+
+
 def main(out_dir, names):
     import jax
     import numpy as np
 
     out = pathlib.Path(out_dir)
     for name in names or RUNS:
-        params0, params, log, calls = execute("repro", name)
+        entry, dp_path = split_name(name)
+        params0, params, log, calls = execute("repro", entry, dp_path=dp_path)
         leaves = {}
         for tag, tree in (("init", params0), ("final", params)):
             for i, leaf in enumerate(jax.tree_util.tree_leaves(tree)):
@@ -230,17 +255,41 @@ def main(out_dir, names):
         (out / f"{name}.json").write_text(json.dumps(log_dict(log, calls)))
 
 
-def run_reference(out, names):
-    """The tests' side: run ``names`` in a fresh process with the XLA flag,
-    load them as ``{name: {"init": leaves, "final": leaves, "log": dict}}``."""
-    import numpy as np
+def start_reference(out, names, jobs=1):
+    """Start the reference runs of ``names`` (entries of :data:`RUNS`,
+    each optionally suffixed ``@pallas`` for the reference's fused DP
+    path) in fresh processes with the XLA flag and return at once;
+    :func:`finish_reference` waits for them.  ``jobs`` > 1 splits
+    ``names`` into that many contiguous groups, a process each."""
     here = pathlib.Path(__file__).resolve()
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=str(here.parents[1] / "src"),
                XLA_FLAGS="--xla_disable_hlo_passes=algsimp")
-    res = subprocess.run([sys.executable, str(here), str(out), *names],
-                         env=env, capture_output=True, text=True, timeout=900)
-    assert res.returncode == 0, res.stderr[-4000:]
+    per = -(-len(names) // max(1, jobs))
+    procs = [subprocess.Popen(
+        [sys.executable, str(here), str(out), *names[i:i + per]], env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for i in range(0, len(names), per)]
+    return out, list(names), procs
+
+
+def finish_reference(started):
+    """Wait for :func:`start_reference`'s processes (killing them all if
+    one fails or times out) and load the runs as ``{name: {"init":
+    leaves, "final": leaves, "log": dict}}``."""
+    import numpy as np
+    out, names, procs = started
+    errs = []
+    try:
+        for proc in procs:
+            errs.append(proc.communicate(timeout=900)[1])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, err in zip(procs, errs):
+        assert proc.returncode == 0, err[-4000:]
     runs = {}
     for name in names:
         arrs = np.load(pathlib.Path(out) / f"{name}.npz")
@@ -251,6 +300,12 @@ def run_reference(out, names):
             "log": json.loads((pathlib.Path(out) / f"{name}.json").read_text()),
         }
     return runs
+
+
+def run_reference(out, names, jobs=1):
+    """The tests' side: :func:`start_reference` then
+    :func:`finish_reference`."""
+    return finish_reference(start_reference(out, names, jobs))
 
 
 @contextlib.contextmanager

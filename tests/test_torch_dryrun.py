@@ -16,6 +16,10 @@ sharding rules, on the CPU.
   zamba2-1.2b ``decode_32k``: each ends ``"ok"`` with the JSON's fields;
   smollm-360m ``train_4k`` under ``--remat-policy dots`` on the model
   axis (the ``tp`` placement), held to the full policy's run.
+* The JSON's ``walk`` (``analysis/hlo.py``): its counts are the
+  collectives' and its FLOPs ``cost.flops``; on the single pod, where
+  every group has 16 ranks, its link traffic is the JAX package's walk
+  of the same collectives.
 * Two pinned counts: the reduced configs' one-rank decode step on a fake
   (1, 2) group makes the collectives (calls and bytes) the same step
   makes on 2 real gloo ranks; reduced smollm-360m's step costs the FLOPs
@@ -44,6 +48,7 @@ from repro_torch.pytree import tree_leaves, tree_map
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 import _torch_mesh_ranks as M  # noqa: E402
+import _torch_ref_hlo as H  # noqa: E402
 
 MESHES = {"16x16": (None, 16, 16), "2x16x16": (2, 16, 16),
           "1x2": (None, 1, 2), "2x2": (None, 2, 2)}
@@ -123,10 +128,21 @@ RUNS = ([(arch, "decode_32k", "single") for arch in ARCH_IDS]
            ("zamba2-1.2b", "decode_32k", "multipod")])
 
 
+_RESULTS = {}
+
+
+def _run_one(arch, shape, mesh):
+    """``run_one``, once per combination in this process."""
+    key = (arch, shape, mesh)
+    if key not in _RESULTS:
+        _RESULTS[key] = dryrun.run_one(arch, shape, mesh)
+    return _RESULTS[key]
+
+
 @pytest.mark.parametrize("arch,shape,mesh", RUNS,
                          ids=["-".join(r) for r in RUNS])
 def test_run_one_is_ok(arch, shape, mesh):
-    res = dryrun.run_one(arch, shape, mesh)
+    res = _run_one(arch, shape, mesh)
     assert res["status"] == "ok", res.get("error")
     assert res["mesh_shape"] == ({"data": 16, "model": 16} if mesh ==
                                  "single" else
@@ -138,10 +154,36 @@ def test_run_one_is_ok(arch, shape, mesh):
     coll = res["collectives"]
     assert set(coll) == {"bytes", "counts"}
     assert coll["counts"]["all-gather"] > 0 and coll["bytes"]["all-gather"] > 0
-    assert res["walk"] is None and res["hlo_ops"] is None
-    assert "analysis/hlo.py" in res["not_ported"]["walk"]
+    walk = res["walk"]
+    assert walk["collective_counts"] == coll["counts"]
+    assert walk["dot_flops"] == res["cost"]["flops"]
+    assert set(walk["collective_traffic_bytes"]) == set(coll["bytes"])
+    assert walk["total_collective_bytes"] > 0
+    assert walk["hbm_bytes"] is None and res["hlo_ops"] is None
+    assert set(res["not_ported"]) == {"walk.hbm_bytes", "hlo_ops"}
     if shape == "train_4k":
         assert coll["counts"]["reduce-scatter"] == 1
+
+
+@pytest.mark.parametrize("arch,shape", [("zamba2-1.2b", "decode_32k"),
+                                        ("zamba2-1.2b", "train_4k")])
+def test_walk_traffic_follows_the_ring_multipliers(arch, shape):
+    """On the single pod's fake group every collective runs over a group
+    of 16 ranks (a data or a model axis of 16): the walk's per-kind link
+    traffic is the JAX package's walk (``repro.analysis.hlo.analyze``) of
+    an HLO module moving the same input bytes per kind over
+    ``replica_groups=[1,16]`` (``tests/_torch_ref_hlo.py``)."""
+    res = _run_one(arch, shape, "single")
+    assert res["status"] == "ok", res.get("error")
+    got = res["walk"]["collective_traffic_bytes"]
+    nbytes = res["collectives"]["bytes"]
+    assert got and set(got) == set(nbytes)
+    ref = H.reference_walk(sorted(nbytes.items()), g=16)
+    assert set(ref["collective_traffic_bytes"]) == set(got)
+    for kind, t in ref["collective_traffic_bytes"].items():
+        assert got[kind] == pytest.approx(t, rel=1e-12), kind
+    assert res["walk"]["total_collective_bytes"] == pytest.approx(
+        ref["total_collective_bytes"], rel=1e-12)
 
 
 def test_dots_policy_runs_on_the_model_axis():

@@ -20,9 +20,10 @@ process on the CPU through both of its DP paths.
   ``_torch_ref_runs.py``; against the corrected reference the port ends
   within ~5e-4.)
 * Global accuracy per eval may differ by at most two test clips.
-* Noisy runs (sigma > 0) draw from the port's own generators, so they are
-  held to the reference only on epsilon bookkeeping — and to themselves
-  bit for bit on a rerun.
+* Noisy runs (sigma > 0) here draw from the port's own generators, so
+  they are held to the reference only on epsilon bookkeeping — and to
+  themselves bit for bit on a rerun.  ``tests/test_torch_noisy_parity.py``
+  hands the port the reference's own draws and holds the params too.
 """
 import dataclasses
 import json

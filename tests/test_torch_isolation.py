@@ -42,7 +42,10 @@ def test_port_has_the_slice_modules():
               "repro_torch.core.faults", "repro_torch.core.screening",
               "repro_torch.core.server", "repro_torch.core.fl_step",
               "repro_torch.engine.statestore", "repro_torch.api.spec",
-              "repro_torch.api.session", "repro_torch.analysis.guard",
+              "repro_torch.api.session", "repro_torch.analysis",
+              "repro_torch.analysis.guard", "repro_torch.analysis.lint",
+              "repro_torch.analysis.rules", "repro_torch.analysis.audits",
+              "repro_torch.analysis.hlo",
               "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
               "repro_torch.engine.resilience",
               "repro_torch.models.transformer", "repro_torch.models.moe",
